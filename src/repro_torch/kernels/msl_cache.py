@@ -1,0 +1,271 @@
+"""CUDA kernels for the batched multi-step LRU access op, and their plain
+PyTorch versions.
+
+Port of ``repro.kernels.msl_cache``.  The kernels live in
+``csrc/msl_cache.cu`` (CUDA C++ for sm_90a; the source's head note says
+what bounds each one and what its design does about it).  They are built
+with ``nvcc`` at first use into ``_build/<hash of source and flags>/`` beside
+this file and loaded with ctypes.
+
+* ``msl_access_kernel_call`` — one stateless transition per pre-gathered
+  row; replaces the Pallas ``msl_access_kernel_call``.  Plain version:
+  ``msl_access_plain`` (= ``ref.msl_access_ref``).
+* ``msl_onepass_kernel_call`` — conflict-aware single pass over queries
+  sorted by set id: a warp per chain head walks its whole same-set chain
+  with the row in registers; replaces the Pallas ``msl_onepass_kernel_call``.
+  Plain version: ``chain_resolve_plain``, the rank-by-rank loop of the JAX
+  package's ``_chain_body`` over the whole sorted batch.
+
+Each wrapper runs the plain version for tensors on the CPU and the kernel
+for tensors on a CUDA device; it never falls back from one to the other.
+``LAUNCHES`` counts the kernel launches of each wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from repro_torch.core.multistep import MSLRUConfig
+from repro_torch.kernels.ref import msl_access_ref
+
+__all__ = [
+    "LAUNCHES",
+    "MAX_ASSOC",
+    "MAX_PLANES",
+    "build_library",
+    "msl_access_kernel_call",
+    "msl_onepass_kernel_call",
+    "msl_access_plain",
+    "chain_resolve_plain",
+]
+
+# Kernel launches per wrapper, counted where each launch is made.
+LAUNCHES = {"msl_access": 0, "msl_onepass": 0}
+
+MAX_ASSOC = 32      # one warp holds one set row: a lane per way
+MAX_PLANES = 8      # planes per lane the kernels are built for (kMaxPlanes)
+
+_HERE = Path(__file__).resolve().parent
+SOURCE = _HERE / "csrc" / "msl_cache.cu"
+BUILD_DIR = _HERE / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = ([os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else [])
+    candidates += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for path in candidates:
+        if path and os.access(path, os.X_OK):
+            return path
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the msl_cache CUDA "
+                       "kernels are built from source at first use")
+
+
+def build_library() -> Path:
+    """Compile csrc/msl_cache.cu into a shared library, once per source.
+
+    Returns the library's path.  The compiler's register and spill report
+    (``-Xptxas -v``) is kept beside it as ``ptxas.log``.
+    """
+    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / tag.hexdigest()[:16] / "libmsl_cache.so"
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stderr}")
+    (out.parent / "ptxas.log").write_text(proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = ctypes.CDLL(str(build_library()))
+    lib.msl_access_launch.argtypes = [_P] * 11 + [_I] * 9 + [_P]
+    lib.msl_access_launch.restype = _I
+    lib.msl_onepass_launch.argtypes = [_P] * 13 + [_I] * 9 + [_P]
+    lib.msl_onepass_launch.restype = _I
+    return lib
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _check_cuda(cfg: MSLRUConfig, rows, named):
+    """Validate the operands a kernel reads; raise on what it cannot take."""
+    if rows.device.type != "cuda":
+        raise ValueError(f"msl_cache kernels run on CUDA tensors, got {rows.device}")
+    b, a, c = rows.shape
+    if (a, c) != (cfg.assoc, cfg.planes):
+        raise ValueError(f"rows {tuple(rows.shape)} do not match the config "
+                         f"(A={cfg.assoc}, C={cfg.planes})")
+    if a > MAX_ASSOC:
+        raise ValueError(f"A = {a} > {MAX_ASSOC}: the kernels hold one set row "
+                         "per warp")
+    if c > MAX_PLANES:
+        raise ValueError(f"C = {c} > {MAX_PLANES} planes per lane")
+    for name, (t, shape) in {"rows": (rows, (b, a, c)), **named}.items():
+        if t is None:
+            continue
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 tensor")
+        if t.device != rows.device or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {shape} on {rows.device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def _outputs(cfg: MSLRUConfig, rows):
+    b = rows.shape[0]
+    new = functools.partial(torch.empty, dtype=torch.int32, device=rows.device)
+    return (new(rows.shape), new((b,)), new((b,)),
+            new((b, max(cfg.value_planes, 1))), new((b, cfg.planes)))
+
+
+def _geometry(cfg: MSLRUConfig):
+    return (cfg.assoc, cfg.planes, cfg.key_planes, cfg.value_planes, cfg.m,
+            cfg.p, cfg.cost_planes, int(cfg.policy == "set_lru"))
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _query_shapes(cfg, b, qkeys, qvals, ops, chain_live, costs):
+    return {"qkeys": (qkeys, (b, cfg.key_planes)),
+            "qvals": (qvals, (b, cfg.value_planes)),
+            "ops": (ops, (b,)), "chain_live": (chain_live, (b,)),
+            "costs": (costs, (b,))}
+
+
+# ---------------------------------------------------------------------------
+# msl_access: one transition per pre-gathered row
+# ---------------------------------------------------------------------------
+
+def msl_access_plain(rows, qkeys, qvals, ops=None, chain_live=None, costs=None,
+                     *, cfg: MSLRUConfig):
+    """Plain PyTorch version of ``msl_access_kernel_call`` (any device)."""
+    return msl_access_ref(rows, qkeys, qvals, cfg, ops, chain_live, costs)
+
+
+def msl_access_kernel_call(rows, qkeys, qvals, ops=None, chain_live=None,
+                           costs=None, *, cfg: MSLRUConfig):
+    """Fused multi-step LRU op over pre-gathered rows.
+
+    rows (B, A, C) int32; qkeys (B, KP); qvals (B, V); ops (B,) optional
+    opcodes (None = all OP_ACCESS); chain_live (B,) optional int32 execute
+    mask for chain rows (requires ops); costs (B,) optional int32 insert
+    costs.  Returns (new_rows, hit (B,) int32, pos (B,), value (B, V),
+    ev (B, C)), bit-equal to ``msl_access_plain``.  CPU tensors run the
+    plain version; CUDA tensors launch the kernel.
+    """
+    if chain_live is not None and ops is None:
+        raise ValueError("chain_live requires ops")
+    if rows.device.type == "cpu":
+        return msl_access_plain(rows, qkeys, qvals, ops, chain_live, costs, cfg=cfg)
+    b = rows.shape[0]
+    _check_cuda(cfg, rows, _query_shapes(cfg, b, qkeys, qvals, ops, chain_live, costs))
+    out = _outputs(cfg, rows)
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        LAUNCHES["msl_access"] += 1
+        err = _library().msl_access_launch(
+            *map(_ptr, (rows, qkeys, qvals, ops, chain_live, costs, *out)),
+            b, *_geometry(cfg), stream)
+    _raise_on(err, "msl_access")
+    new_rows, hit, pos, val, ev = out
+    return new_rows, hit, pos, val[:, :cfg.value_planes], ev
+
+
+# ---------------------------------------------------------------------------
+# msl_onepass: same-set chains over queries sorted by set id
+# ---------------------------------------------------------------------------
+
+def chain_resolve_plain(rows, qkeys, qvals, ops, sids, lrank, served,
+                        chain_live=None, costs=None, *, cfg: MSLRUConfig):
+    """Plain PyTorch version of ``msl_onepass_kernel_call`` (same arguments).
+
+    The JAX package's ``_chain_body`` loop over the whole sorted batch: at
+    step r every query of chain rank r applies its transition (identity when
+    not served) to the row handed on by rank r-1 and commits it.  The ranks
+    carry the chain structure, so ``sids`` is not read.  Returns
+    (rows_after, hit int32, pos, value (B, V), ev (B, C)); an unserved
+    query reports hit 0, pos -1, value 0, ev 0.
+    """
+    b = rows.shape[0]
+    served = served.to(torch.bool)
+    cur = after = rows
+    hit = torch.zeros((b,), dtype=torch.int32, device=rows.device)
+    pos = torch.full((b,), -1, dtype=torch.int32, device=rows.device)
+    val = torch.zeros((b, cfg.value_planes), dtype=torch.int32, device=rows.device)
+    ev = torch.zeros((b, cfg.planes), dtype=torch.int32, device=rows.device)
+    n_rounds = int(lrank.max()) + 1 if b else 0
+    for r in range(n_rounds):
+        new_rows, h, p, v, e = msl_access_plain(cur, qkeys, qvals, ops,
+                                                chain_live, costs, cfg=cfg)
+        active = lrank == r
+        act = active & served
+        after = torch.where(active[:, None, None],
+                            torch.where(act[:, None, None], new_rows, cur), after)
+        hit = torch.where(act, h, hit)
+        pos = torch.where(act, p, pos)
+        val = torch.where(act[:, None], v, val)
+        ev = torch.where(act[:, None], e, ev)
+        cur = torch.where((lrank == r + 1)[:, None, None],
+                          torch.roll(after, 1, dims=0), cur)
+    return after, hit, pos, val, ev
+
+
+def msl_onepass_kernel_call(rows, qkeys, qvals, ops, sids, lrank, served,
+                            chain_live=None, costs=None, *, cfg: MSLRUConfig):
+    """Conflict-aware single pass over queries sorted by set id.
+
+    rows (B, A, C) int32 gathered set rows (only each chain head's row is
+    read); qkeys (B, KP); qvals (B, V); ops (B,) opcodes or None (all
+    OP_ACCESS); sids (B,) sorted set ids; lrank (B,) rank of each query in
+    its run of equal set ids; served (B,) int32 (0 = the query passes the
+    row on untouched); chain_live, costs (B,) optional, sorted with the
+    queries.  Returns (rows_after, hit, pos, value (B, V), ev (B, C)) where
+    rows_after[i] is the set's row after query i.  The kernel finds chain
+    heads from ``sids`` and the plain version ranks from ``lrank``; the two
+    agree when ``lrank`` ranks runs of equal ``sids``.
+    """
+    if chain_live is not None and ops is None:
+        raise ValueError("chain_live requires ops")
+    if rows.device.type == "cpu":
+        return chain_resolve_plain(rows, qkeys, qvals, ops, sids, lrank, served,
+                                   chain_live, costs, cfg=cfg)
+    b = rows.shape[0]
+    _check_cuda(cfg, rows, {
+        **_query_shapes(cfg, b, qkeys, qvals, ops, chain_live, costs),
+        "sids": (sids, (b,)), "served": (served, (b,))})
+    out = _outputs(cfg, rows)
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        LAUNCHES["msl_onepass"] += 1
+        err = _library().msl_onepass_launch(
+            *map(_ptr, (rows, qkeys, qvals, ops, chain_live, costs, sids, served,
+                        *out)),
+            b, *_geometry(cfg), stream)
+    _raise_on(err, "msl_onepass")
+    new_rows, hit, pos, val, ev = out
+    return new_rows, hit, pos, val[:, :cfg.value_planes], ev
