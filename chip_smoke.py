@@ -22,8 +22,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    the one-pass engine against the rounds engine (the access kernel) on
    four batches past the stream, and against ``access_seq`` on a
    4096-query prefix of a small configuration;
-6. each kernel's launches on the main path, its time per launch, its
-   plain version's time and its bound, as one JSON line.
+6. each kernel's launches on the path that runs it (the one-pass stream
+   for the one-pass kernel, the rounds cross-check for the access kernel),
+   its time per launch, its plain version's time and its bound, as one
+   JSON line.
 
 Every comparison is bit-exact (all state is int32).  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -144,13 +146,12 @@ def profile_kernels(torch, fn, reps):
 
 
 def kernel_ms(torch, fn, reps, name):
-    """(device ms per launch of the kernel whose name contains ``name``, and
-    the source of the number): the profiler's kernel time, or CUDA events
-    around the calls where the profiler saw no such kernel."""
+    """Device ms per launch of the kernel whose name contains ``name``, from
+    the profiler; raises when the profiler saw no launch of it."""
     hits = [v for n, v in profile_kernels(torch, fn, reps).items() if name in n]
-    if hits:
-        return sum(v[0] for v in hits) / sum(v[1] for v in hits) / 1e3, "profiler"
-    return time_ms(torch, fn, reps), "cuda_events"
+    if not hits:
+        raise AssertionError(f"the profiler recorded no launch of {name}")
+    return sum(v[0] for v in hits) / sum(v[1] for v in hits) / 1e3
 
 
 def max_chain_per_batch(torch, cfg, keys):
@@ -272,16 +273,30 @@ def check_onepass_kernel(torch, cfg, keys, vals):
     return worst, onepass_inputs, access_inputs
 
 
-def run_main_path(torch, cfg, keys, vals):
-    """Phase 5.  Returns the summary dict."""
-    from repro_torch.core import MSLRUConfig, MultiStepLRUCache
+def zero_launches():
     from repro_torch.kernels import msl_cache
+
+    for name in msl_cache.LAUNCHES:
+        msl_cache.LAUNCHES[name] = 0
+
+
+def read_launches():
+    from repro_torch.kernels import msl_cache
+
+    return dict(msl_cache.LAUNCHES)
+
+
+def run_main_path(torch, cfg, keys, vals):
+    """Phase 5.  Returns the summary dict.  Launches are counted on two
+    paths, each from zero just before it to just after it: the one-pass
+    stream (the main path) and the rounds engine's cross-check, the path
+    that runs the access kernel."""
+    from repro_torch.core import MSLRUConfig, MultiStepLRUCache
 
     n_batches = keys.numel() // BATCH - CHECK_BATCHES
     half = n_batches // 2
     cache = MultiStepLRUCache(cfg, device=DEVICE)
-    for name in msl_cache.LAUNCHES:
-        msl_cache.LAUNCHES[name] = 0
+    zero_launches()
 
     t0 = time.perf_counter()
     for i in range(half):
@@ -299,7 +314,7 @@ def run_main_path(torch, cfg, keys, vals):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     timed_queries = (n_batches - half) * BATCH
-    stream_launches = dict(msl_cache.LAUNCHES)
+    stream_launches = read_launches()
     occupancy = cache.occupancy
     log(f"warm half: {half} batches in {t1 - t0:.3f} s")
     breakdown = device_breakdown(torch, cache, keys, vals, half,
@@ -310,6 +325,7 @@ def run_main_path(torch, cfg, keys, vals):
     rounds = MultiStepLRUCache(cfg, engine="rounds", device=DEVICE)
     rounds.load_table(cache.table)
     onepass_hits = 0
+    zero_launches()
     for i in range(n_batches, n_batches + CHECK_BATCHES):
         q = slice(i * BATCH, (i + 1) * BATCH)
         a = cache.access(keys[q], vals[q])
@@ -322,6 +338,7 @@ def run_main_path(torch, cfg, keys, vals):
         if not torch.equal(stored, expect):
             raise AssertionError("a hit returned a value not stored for its key")
         onepass_hits += int(a.hit.sum())
+    rounds_launches = read_launches()
     if not torch.equal(cache.table, rounds.table):
         raise AssertionError("one-pass and rounds tables differ")
     log(f"one-pass == rounds (access kernel) on {CHECK_BATCHES} new batches: "
@@ -344,7 +361,6 @@ def run_main_path(torch, cfg, keys, vals):
     log(f"one-pass == access_seq on a 4096-query prefix ({small.num_sets} sets): "
         f"{int(want.hit.sum())} hits, {int(want.evicted_valid.sum())} evictions, "
         "tables bit-equal")
-    launches = dict(msl_cache.LAUNCHES)
 
     chains = max_chain_per_batch(torch, cfg, keys[half * BATCH:n_batches * BATCH])
     seconds = t2 - t1
@@ -365,14 +381,15 @@ def run_main_path(torch, cfg, keys, vals):
         "max_chain_min": int(chains.min()),
         "max_chain_max": int(chains.max()),
         "launches_stream": stream_launches,
+        "launches_rounds_check": rounds_launches,
         "device": breakdown,
-        "launches": launches,
     }
     if not 0.0 < summary["hit_ratio"] < 1.0 or not 0.0 < occupancy <= 1.0:
         raise AssertionError(f"implausible main-path result: {summary}")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    if stream_launches["msl_onepass"] == 0:
+        raise AssertionError("msl_onepass was not launched on the main path")
+    if rounds_launches["msl_access"] == 0:
+        raise AssertionError("msl_access was not launched by the rounds engine")
     del cache
     return summary
 
@@ -417,14 +434,16 @@ def chain_step_ns(torch, cfg, keys, vals):
     rows[:, :, 0] = EMPTY_KEY
     qk = (keys[:BATCH] % 64 + 1)[:, None].contiguous()
     args = (rows, qk, vals[:BATCH].contiguous(), None, sids, rank, served)
-    ms, _ = kernel_ms(torch, lambda: msl_onepass_kernel_call(*args, cfg=cfg), 5,
-                      "msl_onepass_kernel")
+    ms = kernel_ms(torch, lambda: msl_onepass_kernel_call(*args, cfg=cfg), 5,
+                   "msl_onepass_kernel")
     return 1e6 * ms / BATCH
 
 
 def kernel_records(torch, cfg, keys, vals, onepass_inputs, access_inputs, errs,
-                   launches):
-    """Phase 6: one record per kernel at the main path's shapes."""
+                   summary):
+    """Phase 6: one record per kernel at the main path's shapes.  Each
+    record's ``launches`` is the count on the path that runs that kernel,
+    named by ``launches_path``."""
     from repro_torch.kernels.msl_cache import (chain_resolve_plain,
                                                msl_access_kernel_call,
                                                msl_access_plain,
@@ -438,16 +457,16 @@ def kernel_records(torch, cfg, keys, vals, onepass_inputs, access_inputs, errs,
     access_args = tuple(t.contiguous() for t in access_inputs)
     access_bytes = 4 * b * (2 * a * c + kp + v + 2 + ve + c)
     access_call = lambda: msl_access_kernel_call(*access_args, cfg=cfg)  # noqa: E731
-    access_ms, access_src = kernel_ms(torch, access_call, 200, "msl_access_kernel")
+    access_ms = kernel_ms(torch, access_call, 200, "msl_access_kernel")
     access = {
         "name": "msl_access",
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": "src/repro/kernels/msl_cache.py:279",
-        "launches": launches["msl_access"],
+        "launches": summary["launches_rounds_check"]["msl_access"],
+        "launches_path": f"rounds engine, {CHECK_BATCHES} batches of the cross-check",
         "max_abs_err": errs["msl_access"],
         "ms": access_ms,
-        "ms_source": access_src,
         "call_ms": time_ms(torch, access_call, 200),
         "plain_ms": time_ms(torch, lambda: msl_access_plain(*access_args, cfg=cfg), 5),
         "bound_ms": 1e3 * max(access_bytes / HBM_BYTES_PER_S,
@@ -465,16 +484,17 @@ def kernel_records(torch, cfg, keys, vals, onepass_inputs, access_inputs, errs,
                          + b * (a * c + 2 + ve + c))
     step_ns = chain_step_ns(torch, cfg, keys, vals)
     onepass_call = lambda: msl_onepass_kernel_call(*x.kernel_args(), cfg=cfg)  # noqa: E731
-    onepass_ms, onepass_src = kernel_ms(torch, onepass_call, 50, "msl_onepass_kernel")
+    onepass_ms = kernel_ms(torch, onepass_call, 50, "msl_onepass_kernel")
     onepass = {
         "name": "msl_onepass",
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": "src/repro/kernels/msl_cache.py:413",
-        "launches": launches["msl_onepass"],
+        "launches": summary["launches_stream"]["msl_onepass"],
+        "launches_path": "main path: the one-pass stream, "
+                         f"{summary['config']['queries'] // BATCH} batches",
         "max_abs_err": errs["msl_onepass"],
         "ms": onepass_ms,
-        "ms_source": onepass_src,
         "call_ms": time_ms(torch, onepass_call, 50),
         "plain_ms": time_ms(torch, lambda: chain_resolve_plain(*x.kernel_args(), cfg=cfg), 2),
         "bound_ms": 1e3 * max(onepass_bytes / HBM_BYTES_PER_S,
@@ -553,12 +573,12 @@ def main() -> int:
 
     phase("6. kernels")
     records = kernel_records(torch, cfg, keys, vals, onepass_inputs,
-                             access_inputs, errs, summary["launches"])
+                             access_inputs, errs, summary)
     for r in records:
-        log(f"{r['name']}: {r['ms']:.5f} ms/launch on the device ({r['ms_source']}), "
+        log(f"{r['name']}: {r['ms']:.5f} ms/launch on the device (profiler), "
             f"{r['call_ms']:.5f} ms per wrapper call (plain {r['plain_ms']:.3f} ms, "
             f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}), "
-            f"{r['launches']} launches on the main path")
+            f"{r['launches']} launches on the {r['launches_path']}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"main_path": summary, "card": smi}))

@@ -36,6 +36,7 @@ from repro_torch.core.engine import (  # noqa: F401
     engine_from_update,
     make_batched_engine,
     make_chunked_stream_runner,
+    make_conflict_update,
     make_sequential_engine,
     pad_dummy_row,
 )
@@ -92,35 +93,17 @@ class MultiStepLRUCache:
     ``access`` runs the batched engine (``engine="onepass"``, the main path,
     or ``"rounds"``, its oracle); on a CUDA device both go through the CUDA
     kernels.  ``access_seq`` runs the sequential oracle.  The table is kept
-    with the one-pass engine's dummy row appended, so a batch updates it in
-    place; ``table`` is the (S, A, C) view of it.
+    with the engines' dummy row appended, so a batch updates it in place;
+    ``table`` is the (S, A, C) view of it.
     """
 
     def __init__(self, cfg: MSLRUConfig, engine: str = "onepass", device="cuda"):
-        from repro_torch.kernels.ops import kernel_rounds_update, onepass_update_
-
-        def onepass(table, gsid, valid, qkeys, qvals, ops=None, chain_live=None,
-                    costs=None):
-            res, served = onepass_update_(cfg, self._padded, gsid, valid, qkeys,
-                                          qvals, ops=ops, chain_live=chain_live,
-                                          costs=costs)
-            return self.table, res, served
-
-        def rounds(table, gsid, valid, qkeys, qvals, ops=None, chain_live=None,
-                   costs=None):
-            out = kernel_rounds_update(cfg, table, gsid, valid, qkeys, qvals,
-                                       ops=ops, chain_live=chain_live, costs=costs)
-            self._padded = pad_dummy_row(out[0])
-            return out
-
-        if engine not in ("onepass", "rounds"):
-            raise ValueError(f"unknown engine {engine!r}")
         self.cfg = cfg
         self.engine = engine
         self.device = resolve_device(device)
         self._padded = pad_dummy_row(init_table(cfg, self.device))
         self._batched = engine_from_update(
-            cfg, onepass if engine == "onepass" else rounds)
+            cfg, make_conflict_update(cfg, engine, in_place=True))
         self._seq = make_sequential_engine(cfg, with_ops=True)
 
     @property
@@ -144,7 +127,7 @@ class MultiStepLRUCache:
         for CHAIN_GET/CHAIN_PUT rows; costs (B,) insert costs (needs
         ``cfg.cost_planes``).  Returns an AccessResult."""
         qk, qv = self._canon(keys, vals)
-        _, res = self._batched(self.table, qk, qv, ops, chain_ids, costs)
+        _, res = self._batched(self._padded, qk, qv, ops, chain_ids, costs)
         return res
 
     # -- exact sequential path -------------------------------------------------

@@ -9,10 +9,13 @@ ops in multistep.py and bit-exact with each other and with the JAX package:
   two conflict schemes:
 
   - ``engine="rounds"`` — round r applies the r-th query of every set
-    (one gather → row transition → scatter per round); the oracle of
+    (one gather → access kernel → scatter per round); the oracle of
   - ``engine="onepass"`` — kernels/ops.py: sort by set id once, gather
-    each distinct set's row once, resolve every same-set chain on the card
-    (CUDA kernel; its plain version on the CPU), scatter once.
+    each distinct set's row once, resolve every same-set chain in one
+    kernel launch, scatter once.
+
+  Both run their CUDA kernel for a table on the card and the kernel's
+  plain version for a table on the CPU.
 
 The opcode table, the chain-segment contract (CHAIN_GET/CHAIN_PUT with
 ``chain_ids``), the cost-plane victim rule and the ``served`` / ``max_rounds``
@@ -30,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.invector import EMPTY_KEY
 from repro_torch.core.multistep import (  # noqa: F401  (OP_* re-exported)
     AccessResult,
     MSLRUConfig,
@@ -39,7 +43,6 @@ from repro_torch.core.multistep import (  # noqa: F401  (OP_* re-exported)
     OP_DELETE,
     OP_GET,
     OP_LOOKUP,
-    row_access,
     row_apply,
     row_lookup,
     set_index_for,
@@ -62,6 +65,9 @@ __all__ = [
     "group_offsets",
     "sorted_group_ranks",
     "batched_rounds_update",
+    "batched_rounds_update_",
+    "engine_from_update",
+    "pad_dummy_row",
     "as_i32",
 ]
 
@@ -223,9 +229,48 @@ def pad_dummy_row(table: torch.Tensor) -> torch.Tensor:
     return torch.cat([table, table.new_zeros((1,) + tuple(table.shape[1:]))])
 
 
+def batched_rounds_update_(cfg: MSLRUConfig, padded, gsid, valid, qkeys, qvals,
+                           max_rounds: int | None = None, ops=None,
+                           chain_live=None, costs=None):
+    """``batched_rounds_update`` in place on ``padded``: the (S+1, A, C)
+    table whose last row is the dummy that absorbs discarded writes.  Rows
+    [0, S) are updated; returns (AccessResult, served)."""
+    from repro_torch.kernels.ops import msl_access  # kernels -> core
+
+    dev = padded.device
+    s = padded.shape[0] - 1
+    b = gsid.shape[0]
+    kp, v = cfg.key_planes, cfg.value_planes
+    idx = torch.arange(b, dtype=torch.int64, device=dev)
+    gsid = torch.where(valid, gsid.to(torch.int64), s)        # sentinel group
+    # invalid queries get unique ids so they never occupy a real rank
+    offset = group_offsets(torch.where(valid, gsid, s + 1 + idx))
+    n_rounds = int(torch.where(valid, offset, -1).max()) + 1 if b else 0
+    if max_rounds is not None:
+        n_rounds = min(n_rounds, max_rounds)
+
+    acc = access_result_zero(cfg, b, dev)
+    for r in range(n_rounds):
+        new_rows, hit, pos, val, ev = msl_access(
+            padded[gsid], qkeys, qvals, cfg=cfg, ops=ops, chain_live=chain_live,
+            costs=costs)
+        res = AccessResult(hit=hit != 0, value=val, pos=pos,
+                           evicted_key=ev[:, :kp], evicted_val=ev[:, kp:kp + v],
+                           evicted_valid=ev[:, 0] != EMPTY_KEY)
+        sel = (offset == r) & valid
+        padded[torch.where(sel, gsid, s)] = new_rows   # losers pile on the dummy
+        acc = AccessResult(*(
+            torch.where(sel.reshape((b,) + (1,) * (n.ndim - 1)), n, a)
+            for a, n in zip(acc, res)))
+    served = valid & (offset < n_rounds)
+    acc = acc._replace(hit=acc.hit & served,
+                       evicted_valid=acc.evicted_valid & served)
+    return acc, served
+
+
 def batched_rounds_update(cfg: MSLRUConfig, table, gsid, valid, qkeys, qvals,
-                          max_rounds: int | None = None, row_op=None,
-                          ops=None, chain_live=None, costs=None):
+                          max_rounds: int | None = None, ops=None,
+                          chain_live=None, costs=None):
     """Exact multi-query update: serialize same-set queries across rounds.
 
     table (S, A, C); gsid (B,) set id per query (``valid`` False entries are
@@ -236,67 +281,42 @@ def batched_rounds_update(cfg: MSLRUConfig, table, gsid, valid, qkeys, qvals,
     order.  ``max_rounds`` drops queries ranked past the cap in their set
     (hit False, served False).
 
-    ``row_op(rows, qkeys, qvals, ops, chain_live, costs) -> (new_rows,
-    AccessResult)`` is the batch row transition (default ``row_apply``, or
-    ``row_access`` when ``ops`` is None); kernels/ops.py passes the CUDA
-    access kernel here so both rounds engines share this loop.  The round
+    Round r gathers every query's row, applies ``kernels.ops.msl_access``
+    (the CUDA access kernel for a table on the card, its plain version on
+    the CPU) and scatters back the rows of the queries ranked r.  The round
     count is read back to the host once per call.
     """
-    if row_op is None:
-        if ops is None:
-            def row_op(rows, qk, qv, _ops, _live, qc):
-                return row_access(cfg, rows, qk, qv, costs=qc)
-        else:
-            def row_op(rows, qk, qv, row_ops, live, qc):
-                return row_apply(cfg, rows, qk, qv, row_ops, chain_live=live,
-                                 costs=qc)
-    dev = table.device
-    s = table.shape[0]
-    b = gsid.shape[0]
-    idx = torch.arange(b, dtype=torch.int64, device=dev)
-    gsid = torch.where(valid, gsid.to(torch.int64), s)        # sentinel group
-    # invalid queries get unique ids so they never occupy a real rank
-    offset = group_offsets(torch.where(valid, gsid, s + 1 + idx))
-    n_rounds = int(torch.where(valid, offset, -1).max()) + 1 if b else 0
-    if max_rounds is not None:
-        n_rounds = min(n_rounds, max_rounds)
-
     padded = pad_dummy_row(table)
-    acc = access_result_zero(cfg, b, dev)
-    for r in range(n_rounds):
-        new_rows, res = row_op(padded[gsid], qkeys, qvals, ops, chain_live, costs)
-        sel = (offset == r) & valid
-        padded[torch.where(sel, gsid, s)] = new_rows   # losers pile on the dummy
-        acc = AccessResult(*(
-            torch.where(sel.reshape((b,) + (1,) * (n.ndim - 1)), n, a)
-            for a, n in zip(acc, res)))
-    served = valid & (offset < n_rounds)
-    acc = acc._replace(hit=acc.hit & served,
-                       evicted_valid=acc.evicted_valid & served)
-    return padded[:-1], acc, served
+    res, served = batched_rounds_update_(cfg, padded, gsid, valid, qkeys, qvals,
+                                         max_rounds, ops, chain_live, costs)
+    return padded[:-1], res, served
 
 
 def make_conflict_update(cfg: MSLRUConfig, engine: str = "rounds",
-                         max_rounds: int | None = None):
+                         max_rounds: int | None = None, in_place: bool = False):
     """Bind the conflict scheme to ``update(table, gsid, valid, qkeys,
     qvals, ops=None, chain_live=None, costs=None) -> (table, AccessResult,
-    served)``: the one dispatch point of the ``engine`` switch."""
-    if engine == "onepass":
-        from repro_torch.kernels.ops import onepass_update  # kernels -> core
+    served)``: the one dispatch point of the ``engine`` switch.
 
-        def update(table, gsid, valid, qkeys, qvals, ops=None,
-                   chain_live=None, costs=None):
-            return onepass_update(cfg, table, gsid, valid, qkeys, qvals,
-                                  max_rounds, ops=ops, chain_live=chain_live,
-                                  costs=costs)
+    ``in_place=True`` takes the (S+1, A, C) table with the dummy row
+    appended, updates it in place and returns its (S, A, C) view; this
+    spares a long-lived cache a copy of its table for every batch.
+    """
+    if engine == "onepass":
+        from repro_torch.kernels.ops import onepass_update_ as update_
     elif engine == "rounds":
-        def update(table, gsid, valid, qkeys, qvals, ops=None,
-                   chain_live=None, costs=None):
-            return batched_rounds_update(cfg, table, gsid, valid, qkeys, qvals,
-                                         max_rounds, ops=ops,
-                                         chain_live=chain_live, costs=costs)
+        update_ = batched_rounds_update_
     else:
         raise ValueError(f"unknown engine {engine!r}")
+
+    def update(table, gsid, valid, qkeys, qvals, ops=None, chain_live=None,
+               costs=None):
+        padded = table if in_place else pad_dummy_row(table)
+        res, served = update_(cfg, padded, gsid, valid, qkeys, qvals,
+                              max_rounds, ops=ops, chain_live=chain_live,
+                              costs=costs)
+        return padded[:-1], res, served
+
     return update
 
 
@@ -305,7 +325,9 @@ def engine_from_update(cfg: MSLRUConfig, update):
     costs=None) -> (table, AccessResult) around a conflict ``update``.
 
     ``chain_ids`` (B,) enables the fused chain ops: the longest-prefix scan
-    runs on the table's device before the update, with no host sync.
+    runs on the table's device before the update, with no host sync.  The
+    table is whatever ``update`` takes: with ``in_place`` updates it carries
+    the dummy row, which no query's set id reaches.
     """
 
     def run(table, qkeys, qvals, ops=None, chain_ids=None, costs=None):
@@ -331,9 +353,10 @@ def make_batched_engine(cfg: MSLRUConfig, max_rounds: int | None = None,
     chain_ids=None, costs=None) -> (table, AccessResult).
 
     Exact (sequential-equivalent) unless ``max_rounds`` caps the conflict
-    serialization.  ``engine="rounds"`` runs the plain row transition per
-    round; ``engine="onepass"`` the single-pass pipeline, whose chain loop
-    is the CUDA kernel for a table on the card.
+    serialization.  ``engine="rounds"`` applies the access kernel once per
+    conflict round; ``engine="onepass"`` runs the single-pass pipeline,
+    whose chain loop is the one-pass kernel.  A table on the card runs the
+    CUDA kernels, a table on the CPU their plain versions.
     """
     return engine_from_update(cfg, make_conflict_update(cfg, engine, max_rounds))
 

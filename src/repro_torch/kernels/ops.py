@@ -14,8 +14,9 @@ the whole batch: CUDA blocks run in no order, so the kernel gives each
 chain to one warp instead of carrying rows between blocks.  The path makes
 no host sync, with or without a ``max_rounds`` cap.
 
-``kernel_rounds_update`` is the rounds engine with ``msl_access_kernel_call``
-as the row transition, kept as the one-pass engine's oracle.
+The rounds engine (``engine.batched_rounds_update``) calls ``msl_access``
+as its row transition; ``kernel_rounds_update`` and
+``make_kernel_batched_engine`` keep the JAX package's names for it.
 """
 
 from __future__ import annotations
@@ -25,8 +26,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.engine import (as_i32, batched_rounds_update,
-                                     engine_from_update, make_batched_engine,
-                                     pad_dummy_row, sorted_group_ranks)
+                                     make_batched_engine, pad_dummy_row,
+                                     sorted_group_ranks)
 from repro_torch.core.invector import EMPTY_KEY
 from repro_torch.core.multistep import AccessResult, MSLRUConfig
 from repro_torch.kernels.msl_cache import (msl_access_kernel_call,
@@ -156,47 +157,24 @@ def onepass_update(cfg: MSLRUConfig, table, gsid, valid, qkeys, qvals,
 
 
 # ---------------------------------------------------------------------------
-# Rounds path with the kernel as the row transition (bit-exactness oracle)
+# The JAX package's kernel-engine names, over the same engines
 # ---------------------------------------------------------------------------
 
 def kernel_rounds_update(cfg: MSLRUConfig, table, gsid, valid, qkeys, qvals,
                          max_rounds: int | None = None, ops=None,
                          chain_live=None, costs=None):
-    """``engine.batched_rounds_update`` with ``msl_access`` as the row op:
-    it re-gathers and scatters all B rows once per conflict round."""
-    kp, v = cfg.key_planes, cfg.value_planes
-
-    def row_op(rows, qk, qv, row_ops, live, qc):
-        new_rows, hit, pos, val, ev = msl_access(
-            rows, qk, qv, cfg=cfg, ops=row_ops, chain_live=live, costs=qc)
-        res = AccessResult(hit=hit != 0, value=val, pos=pos,
-                           evicted_key=ev[:, :kp], evicted_val=ev[:, kp:kp + v],
-                           evicted_valid=ev[:, 0] != EMPTY_KEY)
-        return new_rows, res
-
+    """``engine.batched_rounds_update``, whose row op is already
+    ``msl_access``: it re-gathers and scatters all B rows once per conflict
+    round.  Kept as the one-pass engine's oracle under its JAX name."""
     return batched_rounds_update(cfg, table, gsid, valid, qkeys, qvals,
-                                 max_rounds, row_op=row_op, ops=ops,
-                                 chain_live=chain_live, costs=costs)
+                                 max_rounds, ops=ops, chain_live=chain_live,
+                                 costs=costs)
 
 
 def make_kernel_batched_engine(cfg: MSLRUConfig, engine: str = "onepass",
                                max_rounds: int | None = None):
-    """Batched engine whose row transition is a CUDA kernel on the card.
-
-    ``engine="onepass"`` is ``make_batched_engine(engine="onepass")``;
-    ``engine="rounds"`` runs the shared serialization loop with
-    ``msl_access`` as the row op.  Both are bit-exact w.r.t.
-    ``make_sequential_engine`` for any ``max_rounds`` and opcode mix.
-    """
-    if engine == "onepass":
-        return make_batched_engine(cfg, max_rounds, engine="onepass")
-    if engine != "rounds":
-        raise ValueError(f"unknown engine {engine!r}")
-
-    def update(table, gsid, valid, qkeys, qvals, ops=None, chain_live=None,
-               costs=None):
-        return kernel_rounds_update(cfg, table, gsid, valid, qkeys, qvals,
-                                    max_rounds, ops=ops, chain_live=chain_live,
-                                    costs=costs)
-
-    return engine_from_update(cfg, update)
+    """``engine.make_batched_engine`` with the one-pass engine as default:
+    on a table on the card both engines run their CUDA kernel.  Bit-exact
+    w.r.t. ``make_sequential_engine`` for any ``max_rounds`` and opcode
+    mix."""
+    return make_batched_engine(cfg, max_rounds, engine=engine)

@@ -164,6 +164,28 @@ def test_cache_engines_agree_on_the_card(cuda, kw):
     assert msl_cache.LAUNCHES["msl_access"] > before["msl_access"]
 
 
+@pytest.mark.parametrize("engine", ["rounds", "onepass"])
+def test_stream_runner_runs_the_kernels_on_the_card(cuda, engine):
+    """The engine functions pick the kernel by the table's device: a CUDA
+    table launches the engine's kernel and ends bit-equal to a CPU table
+    through the plain versions."""
+    from repro_torch.core.engine import make_chunked_stream_runner
+    from repro_torch.data.ycsb import zipfian
+
+    cfg = MSLRUConfig(num_sets=64, m=2, p=4, value_planes=1)
+    keys = torch.from_numpy(zipfian(8 * cfg.capacity, 2048, seed=7)[:, None]
+                            .astype(np.int32))
+    vals = keys * 3
+    run = make_chunked_stream_runner(cfg, 512, engine=engine)
+    want_table, want_hits = run(init_table(cfg, "cpu"), keys, vals)
+    name = "msl_access" if engine == "rounds" else "msl_onepass"
+    before = msl_cache.LAUNCHES[name]
+    table, hits = run(init_table(cfg, cuda), keys.to(cuda), vals.to(cuda))
+    assert msl_cache.LAUNCHES[name] > before
+    assert int(hits) == int(want_hits)
+    np.testing.assert_array_equal(table_to_numpy(table), table_to_numpy(want_table))
+
+
 def test_kernel_refuses_wide_sets(cuda):
     cfg = MSLRUConfig(num_sets=4, m=8, p=8, value_planes=0)
     rows = init_table(cfg, cuda)[:2].contiguous()
