@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the multi-step LRU cache on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of the multi-step LRU cache and of its
+prefix-cached serving path on one NVIDIA GPU.
 
 Run from the root of a checkout, with one card visible:
 
@@ -8,7 +9,8 @@ Run from the root of a checkout, with one card visible:
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card: ``torch.cuda.is_available()``; name and power limit;
-2. build both CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
+2. build the CUDA kernel libraries from ``src/repro_torch/kernels/csrc``,
+   one nvcc per source, all at once; each one's registers and spills;
 3. the access kernel against its plain version at B = 8192 on eight
    geometries, with no opcodes, mixed opcodes and a chain execute mask;
 4. the one-pass kernel against its plain version on four Zipf batches of
@@ -22,13 +24,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    the one-pass engine against the rounds engine (the access kernel) on
    four batches past the stream, and against ``access_seq`` on a
    4096-query prefix of a small configuration;
-6. each kernel's launches on the path that runs it (the one-pass stream
-   for the one-pass kernel, the rounds cross-check for the access kernel),
-   its time per launch, its plain version's time and its bound, as one
-   JSON line.
+6. the msl_cache kernels' records: launches on the path that runs each
+   (the one-pass stream for the one-pass kernel, the rounds cross-check
+   for the access kernel), time per launch, plain version's time, bound;
+7. the paged-attention kernel against its plain version at the serving
+   path's shapes and at GQA rep 2 and 4, Dh 64 and 128, with windows and
+   softcaps, a row with no prefix and a row whose tail is one token
+   (within the JAX package's gate for its Pallas kernel; argmax over Dh
+   equal wherever decisive);
+8. the serving path: ``repro_torch.launch.serve.build`` with
+   ``--no-smoke --kv-mode paged`` (phi3-mini-3.8b at its published width
+   and depth, random weights from a seeded generator on the card), the
+   launcher's 24 requests served tick by tick; the paged kernel must have
+   launched n_layers times per paged decode launch and the one-pass kernel
+   once per prefix-cache call; then the device's busy share over a few
+   profiled ticks of a second serve;
+9. the same requests through a contiguous engine on the same weights
+   (plain attention): teacher-forced logits within LOGIT_ULPS bf16 ulps of
+   the paged engine's, and where the token streams differ, a near-tie;
+10. every kernel's record as one JSON line.
 
-Every comparison is bit-exact (all state is int32).  The last line is
-``{"ok": true, "device": {...}}``.
+The msl_cache comparisons are bit-exact (all state is int32).  The last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -125,6 +142,17 @@ def time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def cuda_kernels(torch, prof):
+    """The device activity of a profile: {kernel name: [total µs, launches]}."""
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name, [0.0, 0])
+            k[0] += e.time_range.elapsed_us()
+            k[1] += 1
+    return kernels
+
+
 def profile_kernels(torch, fn, reps):
     """Device kernels of ``reps`` calls of ``fn()`` (after one warm-up call),
     from the CUDA profiler: {kernel name: [total µs, launches]}."""
@@ -136,13 +164,23 @@ def profile_kernels(torch, fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    kernels = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            k = kernels.setdefault(e.name, [0.0, 0])
-            k[0] += e.time_range.elapsed_us()
-            k[1] += 1
-    return kernels
+    return cuda_kernels(torch, prof)
+
+
+def cold_device_ms(torch, fn, reps):
+    """Device ms per call of ``fn()`` with the 50 MB L2 flushed before each
+    call (a 64 MiB int8 ``bitwise_not_``, whose kernels are left out): the
+    sum of ``fn``'s kernels in the profiler.  The serving path reaches its
+    K/V cold: 240 MB of a layer's weights pass through L2 between two
+    paged-attention launches."""
+    flush = torch.zeros(64 << 20, dtype=torch.int8, device=DEVICE)
+
+    def run():
+        flush.bitwise_not_()
+        fn()
+
+    kernels = profile_kernels(torch, run, reps)
+    return sum(v[0] for name, v in kernels.items() if "bitwise_not" not in name) / reps / 1e3
 
 
 def kernel_ms(torch, fn, reps, name):
@@ -170,6 +208,28 @@ def max_chain_per_batch(torch, cfg, keys):
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
+
+def build_kernels():
+    """Phase 2: one nvcc per kernel source, all started together; each
+    library's register and spill report from ``-Xptxas -v``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import msl_cache, paged_attn
+    from repro_torch.kernels.build import build_library
+
+    sources = [msl_cache.SOURCE, paged_attn.SOURCE]
+    t = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(build_library, sources))
+    log(f"built {len(libs)} libraries in {time.perf_counter() - t:.1f} s")
+    for lib in libs:
+        report = (lib.parent / "ptxas.log").read_text()
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", report)]
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", report)]
+        log(f"{lib.relative_to(ROOT)}: ptxas: {len(regs)} kernel instances, "
+            f"{min(regs)}-{max(regs)} registers per thread, at most {max(spills)} "
+            f"bytes of spill stores; {report.count('warning')} compiler warnings")
+
 
 GEOMS = [  # (m, p, key_planes, value_planes, policy, cost_planes)
     (2, 4, 1, 2, "multistep", 0),
@@ -274,16 +334,18 @@ def check_onepass_kernel(torch, cfg, keys, vals):
 
 
 def zero_launches():
-    from repro_torch.kernels import msl_cache
+    """Every kernel wrapper's launch count to 0."""
+    from repro_torch.kernels import msl_cache, paged_attn
 
-    for name in msl_cache.LAUNCHES:
-        msl_cache.LAUNCHES[name] = 0
+    for counts in (msl_cache.LAUNCHES, paged_attn.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def read_launches():
-    from repro_torch.kernels import msl_cache
+    from repro_torch.kernels import msl_cache, paged_attn
 
-    return dict(msl_cache.LAUNCHES)
+    return {**msl_cache.LAUNCHES, **paged_attn.LAUNCHES}
 
 
 def run_main_path(torch, cfg, keys, vals):
@@ -511,6 +573,381 @@ def kernel_records(torch, cfg, keys, vals, onepass_inputs, access_inputs, errs,
 
 
 # ---------------------------------------------------------------------------
+# Slice 2: the prefix-cached paged serving path and the paged-attention kernel
+# ---------------------------------------------------------------------------
+
+PAGED_SOURCE = "src/repro_torch/kernels/csrc/paged_attn.cu"
+# f32 FMA rate of an H100 SXM outside the tensor cores (the kernel's dots
+# are f32 on the CUDA cores), from the published table
+F32_OPS_PER_S = 67e12
+# kernel against plain version: the JAX package's gate for its Pallas
+# kernel against its mirror (the kernel keeps f32 scores where the plain
+# version rounds them to bf16, and accumulates flash-style)
+PAGED_RTOL, PAGED_ATOL = 0.05, 0.02
+# full-width paged (kernel) against contiguous (plain) logits: within 8
+# bf16 ulps of the step's largest |logit| (the logits are rounded to bf16,
+# and the two attentions round differently in each of 32 layers)
+LOGIT_ULPS = 8
+PROFILE_TICKS = 8
+# (name, H, KVH, Dh, window, softcap): the slice's shapes first
+PAGED_CASES = [
+    ("phi3-mini: H 32, KVH 32, Dh 96", 32, 32, 96, None, 0.0),
+    ("rep 2, Dh 64, window 40", 16, 8, 64, 40, 0.0),
+    ("rep 4, Dh 128, softcap 30", 32, 8, 128, None, 30.0),
+    ("rep 4, Dh 64, window 24, softcap 50", 16, 4, 64, 24, 50.0),
+    ("rep 2, Dh 128, window 100", 8, 4, 128, 100, 0.0),
+]
+
+
+def serve_args(*extra):
+    from repro_torch.launch import serve
+
+    return serve.parser().parse_args(["--no-smoke", "--device", DEVICE, *extra])
+
+
+def paged_inputs(torch, gen, h, kvh, dh):
+    """The slice's paged-decode operands (4 rows, 256 pages of 16 tokens,
+    16-page block tables, 256-token tails) with random content: row 0 has a
+    64-token prefix and 20 tail tokens, row 1 no prefix, row 2 a 48-token
+    prefix and a one-token tail, row 3 an 80-token prefix and 9."""
+    dev = DEVICE
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    plen = torch.tensor([64, 0, 48, 80], dtype=torch.int32, device=dev)
+    cur = plen + torch.tensor([20, 37, 0, 9], dtype=torch.int32, device=dev)
+    bt = torch.randint(0, 256, (4, 16), generator=gen, device=dev, dtype=torch.int32)
+    return (randn(4, h, dh), randn(256, 16, kvh, dh), randn(256, 16, kvh, dh), bt,
+            randn(4, 256, kvh, dh), randn(4, 256, kvh, dh), plen, cur)
+
+
+def compare_paged(torch, got, want, what):
+    """max |kernel - plain| in f32 within PAGED_RTOL/ATOL, and the argmax
+    over Dh of every (row, head) equal wherever the plain version's top-2
+    margin exceeds 2 * PAGED_ATOL.  Returns (max |err|, argmax checks)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if bool((err > PAGED_ATOL + PAGED_RTOL * w.abs()).any()):
+        raise AssertionError(f"paged_attn {what}: max |err| {float(err.max())}")
+    top2 = w.topk(2, dim=-1).values
+    decisive = top2[..., 0] - top2[..., 1] > 2 * PAGED_ATOL
+    if not bool(((g.argmax(-1) == w.argmax(-1)) | ~decisive).all()):
+        raise AssertionError(f"paged_attn {what}: argmax over Dh differs")
+    return float(err.max()), int(decisive.sum())
+
+
+def check_paged_kernel(torch):
+    """Phase 7: the paged kernel against its plain version."""
+    from repro_torch.kernels.paged_attn import (paged_attn_decode_call,
+                                                paged_attn_decode_plain)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    worst = 0.0
+    for name, h, kvh, dh, window, softcap in PAGED_CASES:
+        args = paged_inputs(torch, gen, h, kvh, dh)
+        got = paged_attn_decode_call(*args, window=window, softcap=softcap)
+        want = paged_attn_decode_plain(*args, window=window, softcap=softcap)
+        err, decisive = compare_paged(torch, got, want, name)
+        worst = max(worst, err)
+        log(f"paged_attn == plain: {name}: max |err| {err:.5f} (allowed "
+            f"{PAGED_ATOL} + {PAGED_RTOL}|plain|), argmax equal on {decisive} "
+            f"decisive (row, head) pairs")
+    return worst
+
+
+def serve_requests(torch, eng, reqs):
+    """Drive ``eng`` tick by tick until ``reqs`` are served.  Returns the
+    wall time, the (seconds, tokens) of each tick that admitted nothing
+    (pure decode), and the operands of the first such tick with every slot
+    busy, for timing the kernel at the path's shapes."""
+    for r in reqs:
+        eng.submit(r)
+    decode_ticks, snapshot = [], None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.queue or eng.active:
+        queued, tokens = len(eng.queue), eng.decode_tokens
+        t = time.perf_counter()
+        eng.step()                    # ends with the host fetch of its tokens
+        if len(eng.queue) == queued:
+            decode_ticks.append((time.perf_counter() - t, eng.decode_tokens - tokens))
+            if snapshot is None and len(eng.active) == eng.slots and eng.paged:
+                snapshot = (eng.pool.block_tables.copy(), eng.pool.prefix_lens.copy(),
+                            eng.cur_len.copy())
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, decode_ticks, snapshot
+
+
+def busy_share(torch, eng, reqs, first=10, n=PROFILE_TICKS):
+    """The device's busy share over ``n`` ticks of a second serve of the
+    requests (ticks ``first``.. of it), from the CUDA profiler, and where
+    the device time of those ticks goes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(first):
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    eng.run_until_done()
+    kernels = cuda_kernels(torch, prof)
+    busy_ms = sum(v[0] for v in kernels.values()) / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    paged = [v for name, v in kernels.items() if "paged_attn_kernel" in name]
+    out = {"ticks": n, "wall_ms_per_tick": 1e3 * wall / n, "busy_ms_per_tick": busy_ms / n,
+           "busy_share": busy_ms / (1e3 * wall),
+           "kernels_per_tick": sum(v[1] for v in kernels.values()) / n,
+           "paged_attn_ms_per_launch": (sum(v[0] for v in paged)
+                                        / max(1, sum(v[1] for v in paged)) / 1e3),
+           "top": [{"name": name[:100], "us_per_tick": us / n, "launches_per_tick": c / n}
+                   for name, (us, c) in top]}
+    log(f"profiled {n} ticks: {out['wall_ms_per_tick']:.3f} ms/tick wall, device busy "
+        f"{out['busy_ms_per_tick']:.3f} ms/tick in {out['kernels_per_tick']:.0f} kernels "
+        f"(busy share {out['busy_share']:.3f})")
+    for k in out["top"]:
+        log(f"  {k['us_per_tick']:10.1f} us x{k['launches_per_tick']:.1f}  {k['name']}")
+    return out
+
+
+def run_serving(torch):
+    """Phase 8: the launcher's paged serving path at full width.  Launch
+    counts are zeroed just before the serve and read just after."""
+    from repro_torch.launch import serve
+
+    args = serve_args("--kv-mode", "paged")
+    t = time.perf_counter()
+    eng = serve.build(args)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in eng.params.parameters())
+    log(f"{eng.cfg.name}: {n_params / 1e9:.3f}B parameters "
+        f"({n_params * 2 / 1e9:.2f} GB bf16), pool K+V "
+        f"{2 * eng.pool.k.numel() * 2 / 1e6:.0f} MB, slot tails K+V "
+        f"{2 * eng.pool.tail_k.numel() * 2 / 1e6:.0f} MB; built in "
+        f"{time.perf_counter() - t:.1f} s")
+    reqs = serve.make_requests(eng.cfg, args)
+    zero_launches()
+    wall, decode_ticks, snapshot = serve_requests(torch, eng, reqs)
+    launches = read_launches()
+    st, pc = eng.stats(), eng.prefix_cache.stats()
+    skipped = sum(r.prefill_skipped for r in eng.finished)
+    computed = sum(r.prefill_computed for r in eng.finished)
+    dec_s = sum(s for s, _ in decode_ticks)
+    dec_tok = sum(n for _, n in decode_ticks)
+    summary = {
+        "arch": eng.cfg.name, "params": n_params, "requests": len(reqs),
+        "finished": len(eng.finished), "ticks": st["ticks"], "wall_s": wall,
+        "decode_only_ticks": len(decode_ticks),
+        "decode_tokens_per_s": dec_tok / dec_s,
+        "ms_per_decode_tick": 1e3 * dec_s / len(decode_ticks),
+        "prefill_computed": computed, "prefill_skipped": skipped,
+        "decode_launches": st["decode_launches"], "decode_tokens": st["decode_tokens"],
+        "host_syncs": st["host_syncs"], "gather_calls": st["gather_calls"],
+        "resident_kv_tokens_peak": st["resident_kv_tokens_peak"],
+        "prefix_cache": pc, "launches": launches,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    log(f"served {summary['finished']}/{len(reqs)} requests in {st['ticks']} ticks, "
+        f"{wall:.3f} s wall")
+    log(f"decode: {summary['decode_tokens_per_s']:.1f} tokens/s, "
+        f"{summary['ms_per_decode_tick']:.3f} ms per decode-only tick "
+        f"({len(decode_ticks)} ticks)")
+    log(f"prefill tokens: computed {computed}, skipped {skipped}; decode_launches "
+        f"{st['decode_launches']}, host_syncs {st['host_syncs']}, gather_calls "
+        f"{st['gather_calls']}; prefix cache {pc['device_calls']} device calls, hit "
+        f"ratio {pc['hit_ratio']:.4f}")
+    log(f"launches on the serving path: {launches}")
+    if summary["finished"] != len(reqs) or any(len(r.out_tokens) != args.max_new
+                                               for r in eng.finished):
+        raise AssertionError("not every request was served in full")
+    if st["gather_calls"] != 0:
+        raise AssertionError("paged serving copied a prefix (gather_calls != 0)")
+    if not 0 < launches["paged_attn"] == eng.cfg.n_layers * st["decode_launches"]:
+        raise AssertionError("paged_attn launches != n_layers x paged decode launches")
+    if not 0 < launches["msl_onepass"] == pc["device_calls"]:
+        raise AssertionError("msl_onepass launches != prefix-cache device calls")
+    summary["device"] = busy_share(torch, eng, [
+        type(r)(rid=1000 + r.rid, prompt=r.prompt, max_new_tokens=r.max_new_tokens)
+        for r in reqs])
+    return eng, reqs, summary, snapshot
+
+
+def contiguous_twin(eng):
+    """An engine on the same model and weights as ``eng``, but contiguous."""
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.kv_cache import PagedKVPool
+    from repro_torch.serving.prefix_cache import PrefixCache
+
+    ct = eng.prefix_cache.chunk_tokens
+    return ServeEngine(eng.model, eng.params, slots=eng.slots, max_len=eng.max_len,
+                       prefix_cache=PrefixCache(num_sets=256, m=2, p=4, chunk_tokens=ct,
+                                                device=DEVICE),
+                       pool=PagedKVPool(eng.cfg, n_pages=256, page_tokens=ct, device=DEVICE),
+                       kv_mode="contiguous")
+
+
+def teacher_forced_logits(torch, eng, prompt, tokens, paged):
+    """Logits for every emitted token of one request, its own tokens fed
+    back: the prefill's, then one decode step per token.  ``paged`` keeps
+    the prompt's whole chunks before its last token in pool pages and
+    decodes through ``paged_decode_step`` (the kernel); otherwise a
+    contiguous cache and ``decode_step`` (plain attention)."""
+    from repro_torch.serving.engine import paged_decode_step
+    from repro_torch.serving.kv_cache import PagedKVPool
+
+    cfg, model, params, dev = eng.cfg, eng.model, eng.params, eng.device
+    n, ct = len(prompt), eng.prefix_cache.chunk_tokens
+    logits, pc = model.prefill(params, {"tokens": torch.tensor(prompt[None], device=dev)})
+    out = [logits[0]]
+    feed = [torch.tensor([[t]], dtype=torch.int32, device=dev) for t in tokens[:-1]]
+    if paged:
+        plen = (n - 1) // ct * ct
+        pool = PagedKVPool(cfg, n_pages=eng.max_len // ct, page_tokens=ct, device=dev)
+        tail = pool.attach_slots(1, eng.max_len)
+        pages = list(range(plen // ct))
+        shape = (cfg.n_layers, len(pages), ct, cfg.n_kv_heads, cfg.head_dim)
+        pool.write_pages(pages, pc["k"][:, 0, :plen].reshape(shape),
+                         pc["v"][:, 0, :plen].reshape(shape))
+        pool.set_block_table(0, pages)
+        tail["k"][:, 0, :n - plen] = pc["k"][:, 0, plen:]
+        tail["v"][:, 0, :n - plen] = pc["v"][:, 0, plen:]
+        plens = torch.tensor([plen], dtype=torch.int32, device=dev)
+        for j, tok in enumerate(feed):
+            cur = torch.tensor([n + j], dtype=torch.int32, device=dev)
+            logits, _ = paged_decode_step(cfg, params, tok, tail, pool.k, pool.v,
+                                          pool.device_block_tables(), plens, cur,
+                                          smax=eng.max_len)
+            out.append(logits[0])
+    else:
+        cache = model.init_cache(1, eng.max_len, device=dev)
+        cache["k"][:, 0, :n] = pc["k"][:, 0]
+        cache["v"][:, 0, :n] = pc["v"][:, 0]
+        for j, tok in enumerate(feed):
+            cur = torch.tensor([n + j], dtype=torch.int32, device=dev)
+            logits, _ = model.decode_step(params, tok, cache, cur)
+            out.append(logits[0])
+    return torch.stack(out)
+
+
+def cross_check(torch, eng, reqs):
+    """Phase 9: paged (kernel) against contiguous (plain attention) at full
+    width on the same requests and weights.  Every step's logits,
+    teacher-forced with the contiguous run's tokens, agree within
+    LOGIT_ULPS bf16 ulps; where the two engines' token streams differ, the
+    contiguous logits' top-2 margin at the first differing step is under
+    that tolerance (a near-tie that the two roundings break apart).  The
+    teacher-forced runs decode one request at a time, so a margin there
+    stands for the engine's at that step."""
+    from repro_torch.serving.engine import Request
+
+    twin = contiguous_twin(eng)
+    for r in reqs:
+        twin.submit(Request(rid=r.rid, prompt=r.prompt, max_new_tokens=r.max_new_tokens))
+    twin.run_until_done()
+    paged = {r.rid: r.out_tokens for r in eng.finished if r.rid < 1000}  # the cold serve
+    contig = {r.rid: r.out_tokens for r in twin.finished}
+    first_diff = {rid: next(j for j, (a, b) in enumerate(zip(paged[rid], toks)) if a != b)
+                  for rid, toks in contig.items() if paged[rid] != toks}
+    worst, worst_ulps, top, steps, margins = 0.0, 0.0, 0.0, 0, {}
+    for r in reqs:
+        toks = contig[r.rid]
+        lc = teacher_forced_logits(torch, twin, r.prompt, toks, paged=False)
+        lp = teacher_forced_logits(torch, eng, r.prompt, toks, paged=True)
+        if not torch.equal(lc[0], lp[0]):
+            raise AssertionError(f"request {r.rid}: prefill logits differ")
+        big = lc.abs().amax(-1)
+        ulp = 2.0 ** (torch.floor(torch.log2(big)) - 7)   # bf16 ulp of each step
+        diff = (lp - lc).abs().amax(-1)
+        worst, top = max(worst, float(diff.max())), max(top, float(big.max()))
+        worst_ulps, steps = max(worst_ulps, float((diff / ulp).max())), steps + len(toks)
+        if bool((diff > LOGIT_ULPS * ulp).any()):
+            raise AssertionError(f"request {r.rid}: teacher-forced logits differ by "
+                                 f"{float((diff / ulp).max())} > {LOGIT_ULPS} bf16 ulps")
+        if r.rid in first_diff:
+            j = first_diff[r.rid]
+            top2 = lc[j].topk(2).values
+            margins[r.rid] = (float(top2[0] - top2[1]), float(LOGIT_ULPS * ulp[j]))
+    log(f"teacher-forced logits, paged (kernel) vs contiguous: max |diff| {worst:.5f} "
+        f"= {worst_ulps:.2f} bf16 ulps of the step's largest |logit| (allowed "
+        f"{LOGIT_ULPS}; largest |logit| {top:.3f}) over {steps} steps of "
+        f"{len(reqs)} requests")
+    if not first_diff:
+        log("token streams of the paged and contiguous engines are identical")
+    for rid, j in sorted(first_diff.items()):
+        margin, tol = margins[rid]
+        log(f"request {rid}: token streams first differ at step {j}; contiguous "
+            f"top-2 margin there {margin:.5f} (tolerance {tol:.5f})")
+        if margin >= tol:
+            raise AssertionError(f"request {rid}: streams differ at step {j} with a "
+                                 f"decisive margin {margin}")
+    return {"logit_max_abs_diff": worst, "logit_max_diff_ulps": worst_ulps,
+            "logit_tol_ulps": LOGIT_ULPS, "logit_max_abs": top, "steps": steps,
+            "requests_differing": len(first_diff),
+            "first_differing_step": min(first_diff.values(), default=None),
+            "margins_at_first_difference": {k: v[0] for k, v in margins.items()}}
+
+
+def paged_record(torch, eng, snapshot, serving, err):
+    """The paged kernel's record at the serving path's shapes: the
+    operands of a decode tick with every slot busy (layer 0's pool plane
+    and tails, random q).  ``ms``, ``library_ms`` and ``plain_device_ms``
+    are device times with L2 flushed, as the path finds its K/V;
+    ``ms_in_path`` is the kernel's time per launch in the profiled serving
+    ticks; ``call_ms`` and ``plain_ms`` are CUDA-event times per call,
+    host included."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attn import (gather_view, paged_attn_decode_call,
+                                                paged_attn_decode_plain)
+
+    cfg = eng.cfg
+    bt, plen, cur = (torch.from_numpy(x).to(DEVICE) for x in snapshot)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    q = torch.randn((eng.slots, cfg.n_heads, cfg.head_dim), generator=gen,
+                    device=DEVICE).to(torch.bfloat16)
+    args = (q, eng.pool.k[0], eng.pool.v[0], bt, eng.cache["k"][0], eng.cache["v"][0],
+            plen, cur)
+    call = lambda: paged_attn_decode_call(*args)          # noqa: E731
+    plain = lambda: paged_attn_decode_plain(*args, smax=eng.max_len)  # noqa: E731
+    err = max(err, compare_paged(torch, call(), plain(), "serving shapes")[0])
+    # the yardstick: SDPA on the gathered contiguous view (the gather untimed)
+    kv = [x.transpose(1, 2) for x in gather_view(*args[1:7], smax=eng.max_len)]
+    S = kv[0].shape[2]
+    mask = torch.arange(S, device=DEVICE)[None, :] <= cur[:, None].long()
+    library = lambda: F.scaled_dot_product_attention(      # noqa: E731
+        q[:, :, None], kv[0], kv[1], attn_mask=mask[:, None, None, :])
+    positions = int((cur + 1).sum())
+    nbytes = (positions * 2 * cfg.n_kv_heads * cfg.head_dim * 2
+              + 2 * q.numel() * 2 + bt.numel() * 4 + 2 * eng.slots * 4)
+    ops = positions * 4 * cfg.n_heads * cfg.head_dim
+    return {
+        "name": "paged_attn", "route": "cuda", "source": PAGED_SOURCE,
+        "replaces": "src/repro/kernels/paged_attn.py:113",
+        "launches": serving["launches"]["paged_attn"],
+        "launches_path": f"serving path: {cfg.n_layers} per paged decode launch",
+        "max_abs_err": err,
+        "ms": cold_device_ms(torch, call, 100),
+        "ms_warm_l2": kernel_ms(torch, call, 100, "paged_attn_kernel"),
+        "ms_in_path": serving["device"]["paged_attn_ms_per_launch"],
+        "call_ms": time_ms(torch, call, 100),
+        "plain_ms": time_ms(torch, plain, 20),
+        "plain_device_ms": cold_device_ms(torch, plain, 20),
+        "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S),
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+                    else "operations",
+        "library_ms": cold_device_ms(torch, library, 100),
+        "shape": {"B": eng.slots, "H": cfg.n_heads, "KVH": cfg.n_kv_heads,
+                  "Dh": cfg.head_dim, "positions": positions,
+                  "prefix_len": plen.tolist(), "cur_len": cur.tolist()},
+    }
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -522,7 +959,6 @@ def main() -> int:
     try:
         from repro_torch.core import MSLRUConfig
         from repro_torch.data.ycsb import zipfian_tensor
-        from repro_torch.kernels import msl_cache
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})", file=sys.stderr)
         return 1
@@ -537,15 +973,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
     phase("2. build the kernels")
-    t = time.perf_counter()
-    lib = msl_cache.build_library()
-    log(f"built {lib.relative_to(ROOT)} in {time.perf_counter() - t:.1f} s")
-    report = (lib.parent / "ptxas.log").read_text()
-    regs = [int(n) for n in re.findall(r"Used (\d+) registers", report)]
-    spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", report)]
-    log(f"ptxas: {len(regs)} kernel instances, {min(regs)}-{max(regs)} registers "
-        f"per thread, at most {max(spills)} bytes of spill stores; "
-        f"{report.count('warning')} compiler warnings")
+    build_kernels()
 
     phase("3. msl_access kernel == plain, B = 8192")
     errs = {"msl_access": check_access_kernel(torch)}
@@ -571,17 +999,32 @@ def main() -> int:
         f"{summary['max_chain_mean']:.1f} (min {summary['max_chain_min']}, "
         f"max {summary['max_chain_max']})")
 
-    phase("6. kernels")
+    phase("6. msl_cache kernels")
     records = kernel_records(torch, cfg, keys, vals, onepass_inputs,
                              access_inputs, errs, summary)
+    del keys, vals, onepass_inputs, access_inputs
+
+    phase("7. paged_attn kernel == plain")
+    errs["paged_attn"] = check_paged_kernel(torch)
+
+    phase("8. serving path: phi3-mini-3.8b at full width, paged")
+    eng, reqs, serving, snapshot = run_serving(torch)
+
+    phase("9. paged (kernel) against contiguous (plain) at full width")
+    serving["cross_check"] = cross_check(torch, eng, reqs)
+
+    phase("10. kernels")
+    records[1]["launches_serving_path"] = serving["launches"]["msl_onepass"]
+    records.append(paged_record(torch, eng, snapshot, serving, errs["paged_attn"]))
     for r in records:
         log(f"{r['name']}: {r['ms']:.5f} ms/launch on the device (profiler), "
             f"{r['call_ms']:.5f} ms per wrapper call (plain {r['plain_ms']:.3f} ms, "
-            f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}), "
-            f"{r['launches']} launches on the {r['launches_path']}")
+            f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, library "
+            f"{r['library_ms']} ms), {r['launches']} launches on the {r['launches_path']}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"main_path": summary, "card": smi}))
+    print(json.dumps({"serving": serving, "card": smi}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,130 @@
+"""ArchConfig dataclass and the registry of the architectures the port runs.
+
+A copy of ``repro.configs.base`` (``ArchConfig``, ``get_config``): the
+port keeps its own so that it imports nothing of the JAX package.  Each
+ported architecture ships as ``configs/<id>.py`` defining ``CONFIG`` (the
+published dims) and ``SMOKE`` (a reduced same-family config for CPU
+tests).  An architecture of the JAX package that the port does not run
+yet raises a ``KeyError`` that says so.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+# The JAX package's architectures; only those in _PORTED have a module here.
+_ARCH_IDS = [
+    "xlstm-1.3b",
+    "qwen2-vl-72b",
+    "hymba-1.5b",
+    "phi3-mini-3.8b",
+    "command-r-35b",
+    "gemma3-1b",
+    "starcoder2-7b",
+    "whisper-medium",
+    "olmoe-1b-7b",
+    "phi3.5-moe-42b-a6.6b",
+]
+_PORTED = ["phi3-mini-3.8b"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                 # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: int = 0             # 0 -> d_model // n_heads
+
+    # block structure
+    mixer: str = "attn"         # attn | xlstm | hymba
+    ffn: str = "swiglu"         # swiglu | gelu | moe | none
+    parallel_block: bool = False
+    norm: str = "rms"           # rms | ln
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    embed_scale: bool = False   # gemma: h *= sqrt(d)
+
+    # attention
+    rope_kind: str = "rope"     # rope | mrope | none
+    rope_theta: float = 1e4
+    qk_norm: bool = False
+    softcap: float = 0.0
+    window_pattern: tuple = (0,)        # cycled per layer; 0 = global
+    theta_pattern: tuple = ()           # cycled per layer; () = rope_theta
+
+    # moe
+    n_experts: int = 0
+    moe_top_k: int = 0
+    capacity_factor: float = 1.25
+    moe_group_chunk: int = 2
+
+    # ssm / recurrent
+    ssm_state: int = 16
+    mlstm_proj_factor: float = 2.0
+    scan_group: int = 1         # sub-layers per scanned super-block (xlstm: 8)
+
+    # encoder-decoder (whisper)
+    enc_dec: bool = False
+    n_enc_layers: int = 0
+    enc_len: int = 1500
+
+    # frontends (stubs provide embeddings directly)
+    input_kind: str = "tokens"  # tokens | frames
+    meta_tokens: int = 0        # hymba learnable prefix tokens
+
+    # shape support
+    supports_long: bool = False  # run long_500k?
+    long_skip_reason: str = ""
+
+    # execution tiling
+    attn_chunk: int = 512
+    ssm_chunk: int = 256
+    loss_chunk: int = 512
+    remat: str = "none"         # none | dots | full — checkpointing of scan bodies
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+    def windows(self):
+        pat = self.window_pattern or (0,)
+        return tuple(pat[i % len(pat)] for i in range(self.n_layers))
+
+    def thetas(self):
+        pat = self.theta_pattern or (self.rope_theta,)
+        return tuple(float(pat[i % len(pat)]) for i in range(self.n_layers))
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks) of the dense
+        attention families the port runs."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        dh, h, kvh = self.head_dim, self.n_heads, self.n_kv_heads
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        att = d * (h * dh) * 2 + d * (kvh * dh) * 2
+        ffn = {"swiglu": 3 * d * f, "gelu": 2 * d * f}.get(self.ffn, 0)
+        return emb + self.n_layers * (att + ffn)
+
+
+_MODULE_FOR = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
+               for a in _PORTED}
+
+
+def list_archs():
+    """The architectures the port runs."""
+    return list(_PORTED)
+
+
+def get_config(name: str, smoke: bool = False) -> ArchConfig:
+    if name not in _MODULE_FOR:
+        if name in _ARCH_IDS:
+            raise KeyError(f"arch {name!r} is not yet ported to PyTorch; "
+                           f"ported: {_PORTED}")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCH_IDS)}")
+    mod = importlib.import_module(_MODULE_FOR[name])
+    return mod.SMOKE if smoke else mod.CONFIG

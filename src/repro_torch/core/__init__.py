@@ -5,6 +5,8 @@ Public API:
     MultiStepLRUCache  — stateful host-side wrapper on one device
     table_from_numpy / table_to_numpy — carry a cache table between this
                          package and the JAX package (as numpy int32)
+    params_from_numpy  — carry the JAX package's decoder parameters (as
+                         numpy arrays) into this package's model
     row/engine functions — see multistep.py and engine.py
 """
 
@@ -55,6 +57,7 @@ __all__ = [
     "init_table",
     "EMPTY_KEY",
     "resolve_device",
+    "params_from_numpy",
     "table_from_numpy",
     "table_to_numpy",
 ]
@@ -81,6 +84,33 @@ def table_from_numpy(np_table, device="cuda") -> torch.Tensor:
 def table_to_numpy(table: torch.Tensor) -> np.ndarray:
     """A cache table as a numpy int32 array (S, A, C)."""
     return table.detach().to("cpu", torch.int32).numpy()
+
+
+def params_from_numpy(tree: dict, cfg, device="cuda"):
+    """The JAX package's decoder parameter pytree, as numpy arrays (block
+    leaves stacked ``(L, ...)``), as this package's model parameters
+    (``models.model.ParamTree``) on ``device``: weights bf16 and norm
+    scales f32, exactly the JAX values.  ``cfg`` is the ``ArchConfig``."""
+    from repro_torch.models.layers import COMPUTE_DTYPE
+    from repro_torch.models.model import ParamTree
+
+    device = resolve_device(device)
+
+    def conv(x, dtype):
+        arr = np.asarray(x)
+        if arr.dtype.name == "bfloat16":
+            arr = arr.astype(np.float32)   # exact; numpy has no bf16 of its own
+        arr = np.require(arr, requirements=["C_CONTIGUOUS", "WRITEABLE"])
+        return torch.from_numpy(arr).to(device=device, dtype=dtype)
+
+    def walk(t, index):
+        return {name: walk(v, index) if isinstance(v, dict) else
+                conv(v if index is None else np.asarray(v)[index],
+                     torch.float32 if name == "scale" else COMPUTE_DTYPE)
+                for name, v in t.items()}
+
+    blocks = [walk(tree["blocks"], i) for i in range(cfg.n_layers)]
+    return ParamTree({"blocks": blocks, "head": walk(tree["head"], None)})
 
 
 class MultiStepLRUCache:

@@ -3,9 +3,8 @@ PyTorch versions.
 
 Port of ``repro.kernels.msl_cache``.  The kernels live in
 ``csrc/msl_cache.cu`` (CUDA C++ for sm_90a; the source's head note says
-what bounds each one and what its design does about it).  They are built
-with ``nvcc`` at first use into ``_build/<hash of source and flags>/`` beside
-this file and loaded with ctypes.
+what bounds each one and what its design does about it).  ``build.py``
+compiles it with ``nvcc`` at first use and loads it with ctypes.
 
 * ``msl_access_kernel_call`` — one stateless transition per pre-gathered
   row; replaces the Pallas ``msl_access_kernel_call``.  Plain version:
@@ -25,22 +24,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
 from repro_torch.core.multistep import MSLRUConfig
+from repro_torch.kernels.build import load_library
 from repro_torch.kernels.ref import msl_access_ref
 
 __all__ = [
     "LAUNCHES",
     "MAX_ASSOC",
     "MAX_PLANES",
-    "build_library",
+    "SOURCE",
     "msl_access_kernel_call",
     "msl_onepass_kernel_call",
     "msl_access_plain",
@@ -53,44 +49,7 @@ LAUNCHES = {"msl_access": 0, "msl_onepass": 0}
 MAX_ASSOC = 32      # one warp holds one set row: a lane per way
 MAX_PLANES = 8      # planes per lane the kernels are built for (kMaxPlanes)
 
-_HERE = Path(__file__).resolve().parent
-SOURCE = _HERE / "csrc" / "msl_cache.cu"
-BUILD_DIR = _HERE / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = ([os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else [])
-    candidates += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
-    for path in candidates:
-        if path and os.access(path, os.X_OK):
-            return path
-    raise RuntimeError("nvcc not found (set CUDA_HOME): the msl_cache CUDA "
-                       "kernels are built from source at first use")
-
-
-def build_library() -> Path:
-    """Compile csrc/msl_cache.cu into a shared library, once per source.
-
-    Returns the library's path.  The compiler's register and spill report
-    (``-Xptxas -v``) is kept beside it as ``ptxas.log``.
-    """
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / tag.hexdigest()[:16] / "libmsl_cache.so"
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stderr}")
-    (out.parent / "ptxas.log").write_text(proc.stderr)
-    os.replace(tmp, out)
-    return out
-
+SOURCE = Path(__file__).resolve().parent / "csrc" / "msl_cache.cu"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -98,7 +57,7 @@ _I = ctypes.c_int
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = ctypes.CDLL(str(build_library()))
+    lib = load_library(SOURCE)
     lib.msl_access_launch.argtypes = [_P] * 11 + [_I] * 9 + [_P]
     lib.msl_access_launch.restype = _I
     lib.msl_onepass_launch.argtypes = [_P] * 13 + [_I] * 9 + [_P]

@@ -5,9 +5,10 @@ first use) and skips without one.  On a machine with a card run
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-The CPU parity tests (test_torch_rows/engine/cache.py) hold the plain
-versions against the JAX package; these hold the kernels against the
-plain versions, bit for bit.  This file imports no JAX: the machine with
+The CPU parity tests (test_torch_rows/engine/cache/models/serving.py) hold
+the plain versions against the JAX package; these hold the kernels against
+the plain versions: the msl_cache kernels bit for bit, the paged-attention
+kernel within the JAX package's own gate for its Pallas kernel.  This file imports no JAX: the machine with
 the card need not have it.
 """
 
@@ -19,7 +20,7 @@ from repro_torch.core import (MSLRUConfig, MultiStepLRUCache, init_table,
                               table_to_numpy)
 from repro_torch.core.engine import sorted_group_ranks
 from repro_torch.core.multistep import set_index_for
-from repro_torch.kernels import msl_cache
+from repro_torch.kernels import msl_cache, paged_attn
 
 # (m, p, key_planes, value_planes, policy, cost_planes): the JAX kernel
 # tests' seven geometries plus a cost plane (as in test_torch_rows.py)
@@ -193,3 +194,74 @@ def test_kernel_refuses_wide_sets(cuda):
     vals = torch.zeros((2, 0), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="A = 64"):
         msl_cache.msl_access_kernel_call(rows, keys, vals, cfg=cfg)
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention
+# ---------------------------------------------------------------------------
+
+def paged_case(seed, *, b=4, h=8, kvh=4, dh=64, pt=16, n_pages=24, npg=6, tmax=48,
+               plens=(32, 0, 48, 16), used=(9, 30, 0, 20)):
+    """Random pool, tails, block tables and row lengths as numpy: row i has
+    plens[i] prefix tokens in pages and used[i] + 1 tail tokens (the new
+    token included), so cur_len = plen + used."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    plens = np.array(plens[:b], np.int32)
+    return dict(q=f(b, h, dh), pool_k=f(n_pages, pt, kvh, dh), pool_v=f(n_pages, pt, kvh, dh),
+                block_table=rng.integers(0, n_pages, (b, npg)).astype(np.int32),
+                tail_k=f(b, tmax, kvh, dh), tail_v=f(b, tmax, kvh, dh),
+                prefix_len=plens, cur_len=plens + np.array(used[:b], np.int32))
+
+
+def paged_args(case, device):
+    bf = {"q", "pool_k", "pool_v", "tail_k", "tail_v"}
+    return [torch.from_numpy(case[k]).to(device, torch.bfloat16 if k in bf else torch.int32)
+            for k in ("q", "pool_k", "pool_v", "block_table", "tail_k", "tail_v",
+                      "prefix_len", "cur_len")]
+
+
+@pytest.mark.parametrize("window,softcap", [(None, 0.0), (24, 0.0), (None, 30.0), (24, 30.0)])
+@pytest.mark.parametrize("h,kvh,dh", [(8, 4, 64), (4, 4, 96), (8, 2, 128), (32, 32, 96)])
+def test_paged_kernel_matches_plain(cuda, h, kvh, dh, window, softcap):
+    """The kernel against its plain version, with the JAX package's gate
+    for its Pallas kernel against the jnp mirror (rtol 0.05, atol 0.02):
+    the kernel's scores stay f32 where the plain version rounds them to
+    bf16, and it accumulates flash-style."""
+    args = paged_args(paged_case(3, h=h, kvh=kvh, dh=dh), cuda)
+    before = paged_attn.LAUNCHES["paged_attn"]
+    got = paged_attn.paged_attn_decode_call(*args, window=window, softcap=softcap)
+    assert paged_attn.LAUNCHES["paged_attn"] == before + 1
+    want = paged_attn.paged_attn_decode_plain(*args, window=window, softcap=softcap)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=0.05, atol=0.02)
+
+
+def test_paged_kernel_refuses_what_it_was_not_built_for(cuda):
+    args = paged_args(paged_case(4, h=4, kvh=4, dh=80), cuda)
+    with pytest.raises(ValueError, match="head dim 80"):
+        paged_attn.paged_attn_decode_call(*args)
+    args = paged_args(paged_case(4, h=6, kvh=4, dh=64), cuda)
+    with pytest.raises(ValueError, match="not a multiple"):
+        paged_attn.paged_attn_decode_call(*args)
+
+
+def test_paged_serving_runs_the_kernel_on_the_card(cuda):
+    """The launcher's paged path at smoke size on the card: one kernel
+    launch per layer per decode launch, one one-pass launch per
+    prefix-cache call, no prefix copy."""
+    from repro_torch.launch import serve
+
+    args = serve.parser().parse_args(["--kv-mode", "paged", "--device", "cuda",
+                                      "--requests", "8"])
+    eng = serve.build(args)
+    for req in serve.make_requests(eng.cfg, args):
+        eng.submit(req)
+    before = {**paged_attn.LAUNCHES, **msl_cache.LAUNCHES}
+    eng.run_until_done()
+    st = eng.stats()
+    assert len(eng.finished) == 8 and st["gather_calls"] == 0
+    assert (paged_attn.LAUNCHES["paged_attn"] - before["paged_attn"]
+            == eng.cfg.n_layers * st["decode_launches"] > 0)
+    assert (msl_cache.LAUNCHES["msl_onepass"] - before["msl_onepass"]
+            == eng.prefix_cache.device_calls > 0)
