@@ -15,18 +15,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    geometries, with no opcodes, mixed opcodes and a chain execute mask;
 4. the one-pass kernel against its plain version on four Zipf batches of
    the main configuration over a warmed table, then the opcode, chain and
-   cost variants on small configurations;
+   cost variants on small configurations, then the batches of long repeated
+   runs of ``tests/torch_run_cases.py`` (as built and with served holes);
 5. the main path: ``MultiStepLRUCache(device=DEVICE)`` with 2**21 sets of
    M=2 x P=4 ways, 32-bit keys and 64-bit values (C = 3 planes, 201 MB),
    fed a scrambled YCSB Zipf 0.99 stream over 100M keys of twice the
    capacity in 8192-query batches; the first half warms, the second half
-   is timed; the profiler splits a batch's device time by kernel.  Then
-   the one-pass engine against the rounds engine (the access kernel) on
-   four batches past the stream, and against ``access_seq`` on a
-   4096-query prefix of a small configuration;
+   is timed; the profiler splits a batch's device time by kernel; for 16
+   batches, the longest chain's members and the transitions the kernel ran
+   on it (the rest it resolved as runs).  Then the one-pass engine against
+   the rounds engine (the access kernel) on four batches past the stream,
+   and against ``access_seq`` on a 4096-query prefix of a small
+   configuration;
 6. the msl_cache kernels' records: launches on the path that runs each
    (the one-pass stream for the one-pass kernel, the rounds cross-check
    for the access kernel), time per launch, plain version's time, bound;
+   for the one-pass kernel also ns per dependent transition on a chain with
+   no two neighbours equal, ns per member of a one-key run, and the
+   longest chain walked member by member at that rate (``chain_path_ms``,
+   a critical path, not a bound);
 7. the paged-attention kernel against its plain version at the serving
    path's shapes and at GQA rep 2 and 4, Dh 64 and 128, with windows and
    softcaps, a row with no prefix and a row whose tail is one token
@@ -42,7 +49,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. the same requests through a contiguous engine on the same weights
    (plain attention): teacher-forced logits within LOGIT_ULPS bf16 ulps of
    the paged engine's, and where the token streams differ, a near-tie;
-10. every kernel's record as one JSON line.
+10. every kernel's record as one JSON line (the paged kernel's with the
+   cluster size it launched with).
 
 The msl_cache comparisons are bit-exact (all state is int32).  The last
 line is ``{"ok": true, "device": {...}}``.
@@ -330,7 +338,40 @@ def check_onepass_kernel(torch, cfg, keys, vals):
             x = onepass_case(torch, small, table, qk, qv, *extra)
             worst = max(worst, check_onepass(torch, small, x))
         log(f"msl_onepass == plain: {kw} (access, mixed_ops, chain_live)")
+    worst = max(worst, check_run_cases(torch))
     return worst, onepass_inputs, access_inputs
+
+
+def check_run_cases(torch):
+    """The one-pass kernel against its plain version on the batches of long
+    repeated runs of ``tests/torch_run_cases.py`` (the ones the CPU tests
+    hold against the JAX engine), as built and with about one served bit in
+    30 cleared inside the chains."""
+    import numpy as np
+
+    from repro_torch.core import MSLRUConfig, pad_dummy_row, set_index_for
+    from repro_torch.kernels.ops import onepass_prologue
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_run_cases import run_cases
+
+    def t(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+
+    worst = 0
+    for case in run_cases():
+        cfg = MSLRUConfig(**case.kw)
+        keys = t(case.keys)
+        x = onepass_prologue(pad_dummy_row(t(case.table)), set_index_for(cfg, keys),
+                             t(case.valid), keys, t(case.vals), case.max_rounds,
+                             t(case.ops), t(case.chain_live), t(case.costs))
+        worst = max(worst, check_onepass(torch, cfg, x))
+        keep = t((np.random.default_rng(SEED).random(len(case.keys)) >= 1 / 30)
+                 .astype(np.int32))
+        worst = max(worst, check_onepass(torch, cfg, x._replace(served=x.served * keep)))
+        log(f"msl_onepass == plain: run case {case.name} ({len(case.keys)} queries, "
+            f"longest chain {int(x.rank.max()) + 1}; as built and with served holes)")
+    return worst
 
 
 def zero_launches():
@@ -381,6 +422,7 @@ def run_main_path(torch, cfg, keys, vals):
     log(f"warm half: {half} batches in {t1 - t0:.3f} s")
     breakdown = device_breakdown(torch, cache, keys, vals, half,
                                  1e3 * (t2 - t1) / (n_batches - half))
+    longest = longest_chain_work(torch, cfg, cache, keys, vals, half)
 
     # one-pass against the rounds engine (the access kernel) on the batches
     # after the stream, which neither cache has seen
@@ -442,6 +484,7 @@ def run_main_path(torch, cfg, keys, vals):
         "max_chain_mean": float(chains.float().mean()),
         "max_chain_min": int(chains.min()),
         "max_chain_max": int(chains.max()),
+        "longest_chain_transitions": longest,
         "launches_stream": stream_launches,
         "launches_rounds_check": rounds_launches,
         "device": breakdown,
@@ -482,23 +525,85 @@ def device_breakdown(torch, cache, keys, vals, first, wall_ms_per_batch, n=16):
     return out
 
 
-def chain_step_ns(torch, cfg, keys, vals):
-    """Device time of one dependent transition: one chain of BATCH queries
-    on a single set, timed as a whole, divided by its length."""
+def onepass_transitions(torch, x, rows_after):
+    """Which queries of a sorted one-pass batch ``x`` run a transition in
+    the kernel, from its inputs and outputs: all but a query whose operands
+    (key, value and cost planes, opcode, chain bit, served) equal its chain
+    predecessor's, where that predecessor left the row as it was.  This is
+    the rule by which the kernel collapses a run (csrc/msl_cache.cu)."""
+    planes = [a.reshape(a.shape[0], -1) for a in (x.qkeys, x.qvals, x.ops,
+                                                  x.chain_live, x.costs, x.served)
+              if a is not None]
+    ops = torch.cat(planes, 1)
+    before = torch.cat([x.rows[:1], rows_after[:-1]])
+    before = torch.where(x.firsts[:, None, None], x.rows, before)
+    kept = (rows_after == before).flatten(1).all(1)
+    collapsed = torch.zeros_like(kept)
+    collapsed[1:] = (ops[1:] == ops[:-1]).all(1) & kept[:-1]
+    return ~(collapsed & ~x.firsts)
+
+
+def longest_chain_work(torch, cfg, cache, keys, vals, first, n=16):
+    """Phase 5: for ``n`` batches of the stream from ``first`` (run again
+    on the warm table), the longest chain's members and the transitions the
+    kernel ran on it.  Each batch is resolved once more by the kernel for
+    its outputs (launches outside the counted paths), then committed."""
+    from repro_torch.kernels.msl_cache import msl_onepass_kernel_call
+
+    out = []
+    for i in range(first, first + n):
+        q = slice(i * BATCH, (i + 1) * BATCH)
+        x = onepass_case(torch, cfg, cache._padded, keys[q, None], vals[q])
+        ran = onepass_transitions(torch, x, msl_onepass_kernel_call(*x.kernel_args(),
+                                                                    cfg=cfg)[0])
+        tail = int(torch.argmax(x.rank))
+        chain = x.sids == x.sids[tail]
+        chain_id = torch.cumsum(x.firsts.long(), 0) - 1
+        per_chain = torch.zeros(BATCH, dtype=torch.long, device=DEVICE)
+        per_chain.index_add_(0, chain_id, ran.long())
+        out.append({"members": int(chain.sum()), "transitions": int((ran & chain).sum()),
+                    "most_transitions_in_a_chain": int(per_chain.max())})
+        cache.access(keys[q], vals[q])
+    log("longest chain per batch, members / transitions run: "
+        + " ".join(f"{c['members']}/{c['transitions']}" for c in out))
+    log("most transitions run by one chain, per batch: "
+        + " ".join(str(c["most_transitions_in_a_chain"]) for c in out))
+    return out
+
+
+def single_chain_ns(torch, cfg, qk, vals):
+    """Device ns per member of one chain of BATCH queries ``qk`` on a
+    single set, starting from an empty row, timed as a whole."""
     from repro_torch.core import EMPTY_KEY
     from repro_torch.kernels.msl_cache import msl_onepass_kernel_call
 
-    dev = keys.device
+    dev = qk.device
     sids = torch.zeros((BATCH,), dtype=torch.int32, device=dev)
     rank = torch.arange(BATCH, dtype=torch.int32, device=dev)
     served = torch.ones((BATCH,), dtype=torch.int32, device=dev)
     rows = torch.zeros((BATCH, cfg.assoc, cfg.planes), dtype=torch.int32, device=dev)
     rows[:, :, 0] = EMPTY_KEY
-    qk = (keys[:BATCH] % 64 + 1)[:, None].contiguous()
-    args = (rows, qk, vals[:BATCH].contiguous(), None, sids, rank, served)
+    args = (rows, qk[:, None].contiguous(), vals.contiguous(), None, sids, rank, served)
     ms = kernel_ms(torch, lambda: msl_onepass_kernel_call(*args, cfg=cfg), 5,
                    "msl_onepass_kernel")
     return 1e6 * ms / BATCH
+
+
+def chain_step_ns(torch, cfg, keys):
+    """Device time of one dependent transition: a chain of BATCH queries on
+    a single set over 64 keys, no two neighbours equal (each step moves
+    1-63 keys on), so every member runs its transition."""
+    qk = (torch.cumsum(keys[:BATCH].long() % 63 + 1, 0) % 64 + 1).to(torch.int32)
+    if bool((qk[1:] == qk[:-1]).any()):
+        raise AssertionError("the no-repeat chain has equal neighbours")
+    return single_chain_ns(torch, cfg, qk, torch.stack([qk, -qk], 1))
+
+
+def run_member_ns(torch, cfg):
+    """Device time per member of a run: BATCH queries of one key on a
+    single set (a miss, two promotions, then the fixed point)."""
+    qk = torch.full((BATCH,), 7, dtype=torch.int32, device=DEVICE)
+    return single_chain_ns(torch, cfg, qk, torch.stack([qk, -qk], 1))
 
 
 def kernel_records(torch, cfg, keys, vals, onepass_inputs, access_inputs, errs,
@@ -544,7 +649,8 @@ def kernel_records(torch, cfg, keys, vals, onepass_inputs, access_inputs, errs,
     max_chain = int(x.rank.max()) + 1
     onepass_bytes = 4 * (heads * a * c + b * (kp + v + 2)
                          + b * (a * c + 2 + ve + c))
-    step_ns = chain_step_ns(torch, cfg, keys, vals)
+    step_ns = chain_step_ns(torch, cfg, keys)
+    run_ns = run_member_ns(torch, cfg)
     onepass_call = lambda: msl_onepass_kernel_call(*x.kernel_args(), cfg=cfg)  # noqa: E731
     onepass_ms = kernel_ms(torch, onepass_call, 50, "msl_onepass_kernel")
     onepass = {
@@ -567,8 +673,12 @@ def kernel_records(torch, cfg, keys, vals, onepass_inputs, access_inputs, errs,
         "shape": {"B": b, "A": a, "C": c, "chain_heads": heads},
         "max_chain": max_chain,
         "chain_step_ns": step_ns,
-        "chain_bound_ms": max_chain * step_ns * 1e-6,
+        "run_member_ns": run_ns,
+        "chain_path_ms": max_chain * step_ns * 1e-6,
     }
+    log(f"msl_onepass: {step_ns:.2f} ns per dependent transition (no-repeat chain), "
+        f"{run_ns:.3f} ns per member of a one-key run; longest chain {max_chain}, "
+        f"its path walked member by member {onepass['chain_path_ms']:.5f} ms")
     return [access, onepass]
 
 
@@ -903,7 +1013,8 @@ def paged_record(torch, eng, snapshot, serving, err):
     host included."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.paged_attn import (gather_view, paged_attn_decode_call,
+    from repro_torch.kernels.paged_attn import (gather_view, kernel_splits,
+                                                paged_attn_decode_call,
                                                 paged_attn_decode_plain)
 
     cfg = eng.cfg
@@ -942,6 +1053,7 @@ def paged_record(torch, eng, snapshot, serving, err):
         "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
                     else "operations",
         "library_ms": cold_device_ms(torch, library, 100),
+        "splits": kernel_splits(q, args[1], bt, args[4]),
         "shape": {"B": eng.slots, "H": cfg.n_heads, "KVH": cfg.n_kv_heads,
                   "Dh": cfg.head_dim, "positions": positions,
                   "prefix_len": plen.tolist(), "cur_len": cur.tolist()},
@@ -1016,6 +1128,9 @@ def main() -> int:
     phase("10. kernels")
     records[1]["launches_serving_path"] = serving["launches"]["msl_onepass"]
     records.append(paged_record(torch, eng, snapshot, serving, errs["paged_attn"]))
+    log(f"paged_attn: clusters of {records[2]['splits']} blocks per (row, KV head), "
+        f"grid ({records[2]['shape']['KVH']}, {records[2]['shape']['B']}, "
+        f"{records[2]['splits']}), for {records[2]['shape']['positions']} positions")
     for r in records:
         log(f"{r['name']}: {r['ms']:.5f} ms/launch on the device (profiler), "
             f"{r['call_ms']:.5f} ms per wrapper call (plain {r['plain_ms']:.3f} ms, "

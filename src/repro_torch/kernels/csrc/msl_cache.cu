@@ -11,24 +11,50 @@
 // Layout.  One warp holds one set row: lane a < A keeps lane a's C int32
 // planes in registers.  The probe and the empty-slot search are ballots, the
 // cost victim a warp min-reduce plus a ballot, and rotate_insert is one
-// __shfl_up_sync by a lane (the GPU form of the paper's vpermd).  Lanes >= A
-// are masked out of every ballot and of the min, so A <= 32.  The plane
-// counts C and KP are template parameters (C <= 8), so every per-plane loop
-// unrolls into straight-line code with no branch.
+// __shfl_up_sync by a lane (the GPU form of the paper's vpermd).  A vector's
+// first lane is found from a bit mask of vector starts (a find-last-set),
+// not by a shuffle.  Lanes >= A are masked out of every ballot and of the
+// min, so A <= 32.  The plane counts C and KP are template parameters
+// (C <= 8), so every per-plane loop unrolls into straight-line code.
 //
-// What bounds them.  msl_access moves B*(2*A*C + KP + V + C + 2) int32 words
-// and does a few hundred integer operations per row: it is bound by memory
-// bytes, and each warp does its one row and exits.  msl_onepass moves about
-// the same bytes, but a chain of L queries on one set is L dependent
-// transitions.  At Zipf 0.99 and B = 8192 the hottest set takes some 400
-// queries of a batch, so the kernel is bound by the latency of its longest
-// chain, not by bytes.  The design keeps that chain's critical path short:
-// the row stays in registers for the whole chain; the warp loads the
-// operands of 32 chain members at once (lane t holds member t) and hands
-// each to the transition by shuffles, so no global load waits inside the
-// chain; each member's scalar outputs are kept by its lane and stored
-// 32 at a time; and the transition branches only on the configuration
-// (cost plane, set_lru), never on a query.
+// msl_access.  It moves B*(2*A*C + KP + V + C + 2) int32 words and does a
+// few hundred integer operations per row: bytes bound it.  Each warp does its
+// one row and exits.
+//
+// msl_onepass: what bounds it.  It moves about the same bytes, but a chain of
+// L queries on one set is L dependent transitions.  At Zipf 0.99 and
+// B = 8192 the hottest key alone takes some 400 queries of a batch, all on
+// one set, so walked member by member the kernel is bound by the latency of
+// its longest chain, nearly 200 times its byte bound.  The design does three
+// things about it.
+//
+//  * Runs, not members.  transition() is a pure function of (row, query).
+//    When it leaves the row as it was (an ACCESS hit at lane 0, a LOOKUP, a
+//    dead chain member, a DELETE miss, an unserved member), every following
+//    member with the same operands (all C item planes, op, live, served) has
+//    the same inputs and so the same outputs and the same rows_after.  The
+//    warp finds such a run with one ballot over the loaded window (bit t:
+//    member t's operands equal member t-1's), gives its lanes the result
+//    together, stores its rows_after once per member with 32-wide coalesced
+//    stores from a copy of the row in shared memory, and jumps past it.  The
+//    fixed-point flag and the last member's operands carry across windows.
+//    A hot key's run then costs the few transitions that bring it to lane 0,
+//    plus its stores.  The row is compared (one __any_sync) only where the
+//    next member could join a run, so a chain with no repeats pays nothing.
+//  * Loads ahead.  The warp loads the operands of 32 members at once (lane t
+//    holds member t) and, while it walks a full window, has the next one's
+//    loads in flight, so a long chain waits on memory about once.  A run's
+//    rows_after go out as 16-byte stores where a row is a whole number of
+//    them.
+//  * A short dependent path.  What does not depend on the row is taken off
+//    the path from one transition to the next: the empty-slot and victim
+//    search read the row alone, the vector starts come from a mask (no
+//    shuffle), an unserved member is a uniform branch, and each member's
+//    outputs are kept by a select on the lanes of its run, not a branch on
+//    one lane.  What is left is one warp issuing a long run of mostly
+//    dependent instructions per transition, so a chain with no repeats
+//    runs no faster than walking member by member.  chip_smoke.py measures
+//    both rates (chain_step_ns, run_member_ns); PERF.md keeps them.
 //
 // The TPU kernel's block-local chain ranks, per-block round counts and the
 // cross-block carry exist because TPU grid cells run in order.  CUDA blocks
@@ -38,7 +64,7 @@
 //
 // Plain C interface, loaded with ctypes: every launcher returns
 // cudaGetLastError() of its launch (cudaErrorInvalidValue, without
-// launching, for plane counts it was not built for).
+// launching, for plane counts or a geometry it was not built for).
 
 #include <climits>
 #include <type_traits>
@@ -61,6 +87,7 @@ constexpr int OP_CHAIN_PUT = 5;
 // Geometry beside the template plane counts: V + cost_planes == C - KP.
 struct Geometry {
   int A, V, M, P, cost_planes, set_lru;
+  unsigned vstarts;  // bit x set for every vector's first lane x = k * P < A
 };
 
 // Per-query operands.  A missing ops vector means OP_ACCESS, a missing
@@ -100,6 +127,11 @@ __device__ __forceinline__ int top_lane(unsigned mask) {
   return mask ? 31 - __clz(mask) : -1;
 }
 
+// (x / P) * P for a lane x < A, from the mask of vector starts.
+__device__ __forceinline__ int vec_start(unsigned vstarts, int x) {
+  return top_lane(vstarts & ((2u << x) - 1u));
+}
+
 template <int C, int KP>
 __device__ __forceinline__ void load_query(const Geometry& g, const Operands& in,
                                            int i, Query<C>& q) {
@@ -135,27 +167,14 @@ __device__ __forceinline__ void store_row(const Geometry& g, int* row, int lane,
 
 // Apply query q to the row the warp holds in r (lane a < A holds r[0..C)).
 // On return r holds the new row and every lane holds the same outputs.
-// vec_start is (lane / P) * P: a shuffle of it from lane x gives x's
-// vector start without a division.  Mirrors _transition of the Pallas
-// kernel and row_apply_ev of the plain version, bit for bit.
+// Mirrors _transition of the Pallas kernel and row_apply_ev of the plain
+// version, bit for bit.  The put path comes first: it reads the row alone,
+// so it can run while the query's operands arrive.
 template <int C, int KP>
-__device__ __forceinline__ void transition(const Geometry& g, int lane, int vec_start,
-                                           int r[C], const Query<C>& q,
-                                           Result<C>& out) {
+__device__ __forceinline__ void transition(const Geometry& g, int lane, int r[C],
+                                           const Query<C>& q, Result<C>& out) {
   static_assert(KP >= 1 && KP <= 2 && C >= KP && C <= kMaxPlanes, "plane counts");
   const bool in_row = lane < g.A;
-
-  // probe: highest lane whose key planes match (keys are unique in a row)
-  bool eq = in_row && r[0] == q.item[0];
-  if (KP == 2) eq = eq && r[KP - 1] == q.item[KP - 1];
-  const int pos = top_lane(__ballot_sync(kFull, eq));
-  const bool hit = pos >= 0;
-  const int pos_c = hit ? pos : 0;
-
-  // get path: promote within the vector, or upgrade across vectors
-  const int vs_get = __shfl_sync(kFull, vec_start, pos_c);
-  int lo_get = pos_c != vs_get ? vs_get : max(pos_c - 1, 0);
-  if (g.set_lru) lo_get = 0;
 
   // put path: deepest empty lane, else the victim
   const int e = top_lane(__ballot_sync(kFull, in_row && r[0] == kEmpty));
@@ -167,7 +186,19 @@ __device__ __forceinline__ void transition(const Geometry& g, int lane, int vec_
     victim = top_lane(__ballot_sync(kFull, in_row && cand == cmin));
   }
   const int pos_ins = e >= 0 ? e : victim;
-  const int lo_put = g.set_lru ? 0 : __shfl_sync(kFull, vec_start, pos_ins);
+  const int lo_put = g.set_lru ? 0 : vec_start(g.vstarts, pos_ins);
+
+  // probe: highest lane whose key planes match (keys are unique in a row)
+  bool eq = in_row && r[0] == q.item[0];
+  if (KP == 2) eq = eq && r[KP - 1] == q.item[KP - 1];
+  const int pos = top_lane(__ballot_sync(kFull, eq));
+  const bool hit = pos >= 0;
+  const int pos_c = hit ? pos : 0;
+
+  // get path: promote within the vector, or upgrade across vectors
+  const int vs_get = vec_start(g.vstarts, pos_c);
+  int lo_get = pos_c != vs_get ? vs_get : max(pos_c - 1, 0);
+  if (g.set_lru) lo_get = 0;
 
   const bool is_chain = q.op == OP_CHAIN_GET || q.op == OP_CHAIN_PUT;
   const bool dead = is_chain && q.live == 0;
@@ -224,72 +255,219 @@ __global__ void msl_access_kernel(Geometry g, int B, const int* __restrict__ row
   Query<C> q;
   load_query<C, KP>(g, in, i, q);
   Result<C> res;
-  transition<C, KP>(g, lane, (lane / g.P) * g.P, r, q, res);
+  transition<C, KP>(g, lane, r, q, res);
   store_row<C>(g, out.rows + row_off, lane, r);
   if (lane == 0) store_result<C, KP>(g, out, i, res);
 }
 
+// One chain member's operands.
+template <int C>
+struct Member {
+  Query<C> q;
+  int served;
+};
+
+// Up to 32 chain members: lane t holds member base + t.
+template <int C>
+struct Window {
+  Member<C> m;
+  bool member;   // position base + t belongs to the chain
+};
+
+// Load the window at positions j = base + lane.  The chain's first window
+// loads operands only where j is a member; a window loaded ahead loads them
+// wherever j < B, together with the set ids, so that no load waits on
+// another.
 template <int C, int KP>
-__global__ void msl_onepass_kernel(Geometry g, int B, const int* __restrict__ rows,
-                                   Operands in, const int* __restrict__ sids,
-                                   const int* __restrict__ served, Outputs out) {
+__device__ __forceinline__ Window<C> load_window(const Geometry& g, const Operands& in,
+                                                 const int* sids, const int* served,
+                                                 int B, int sid, int j, bool ahead) {
+  Window<C> w;
+  const bool in_batch = j < B;
+  w.member = in_batch && sids[j] == sid;
+#pragma unroll
+  for (int c = 0; c < C; ++c) w.m.q.item[c] = 0;
+  w.m.q.op = OP_ACCESS;
+  w.m.q.live = 1;
+  w.m.served = 0;
+  if (ahead ? in_batch : w.member) {
+    load_query<C, KP>(g, in, j, w.m.q);
+    w.m.served = served[j];
+  }
+  return w;
+}
+
+// Member t's operands on every lane.
+template <int C>
+__device__ __forceinline__ Member<C> fetch(const Window<C>& w, int t) {
+  Member<C> m;
+#pragma unroll
+  for (int c = 0; c < C; ++c) m.q.item[c] = __shfl_sync(kFull, w.m.q.item[c], t);
+  m.q.op = __shfl_sync(kFull, w.m.q.op, t);
+  m.q.live = __shfl_sync(kFull, w.m.q.live, t);
+  m.served = __shfl_sync(kFull, w.m.served, t);
+  return m;
+}
+
+// Bit t: member t's operands equal member t-1's.  For t = 0 the member
+// before the window is `before` (on every lane), if there is one.
+template <int C>
+__device__ __forceinline__ unsigned repeat_mask(const Window<C>& w, const Member<C>& before,
+                                                bool has_before, int lane) {
+  bool eq = w.member && (lane > 0 || has_before);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int up = __shfl_up_sync(kFull, w.m.q.item[c], 1);
+    eq = eq && (lane > 0 ? up : before.q.item[c]) == w.m.q.item[c];
+  }
+  const int op = __shfl_up_sync(kFull, w.m.q.op, 1);
+  const int live = __shfl_up_sync(kFull, w.m.q.live, 1);
+  const int srv = __shfl_up_sync(kFull, w.m.served, 1);
+  eq = eq && (lane > 0 ? op : before.q.op) == w.m.q.op;
+  eq = eq && (lane > 0 ? live : before.q.live) == w.m.q.live;
+  eq = eq && (lane > 0 ? srv : before.served) == w.m.served;
+  return __ballot_sync(kFull, eq);
+}
+
+// The first member at or after s whose bit in `repeats` is clear: the end
+// of the run through s - 1 (32 if it fills the window).
+__device__ __forceinline__ int run_end(unsigned repeats, int s) {
+  if (s >= 32) return 32;
+  const unsigned breaks = ~repeats & (kFull << s);
+  return breaks ? __ffs(breaks) - 1 : 32;
+}
+
+// Copy k rows of `units` words each from the one row at `src` to `dst`,
+// 32 lanes at a time: lane i writes words i, i + 32, ... of the k copies.
+template <typename T>
+__device__ __forceinline__ void copy_rows(T* dst, const T* src, int units, int k, int lane) {
+  const int step = 32 % units;
+  int o = lane % units;
+  for (int i = lane; i < k * units; i += 32) {
+    dst[i] = src[o];
+    o += step;
+    if (o >= units) o -= units;
+  }
+}
+
+// Store the row the warp holds as rows_after of k consecutive members,
+// starting at dst: for one member from the A lanes that hold it; for a run,
+// through the warp's copy in shared memory (`stage`), 32 lanes at a time,
+// in 16-byte words where a row is a whole number of them.
+template <int C>
+__device__ __forceinline__ void store_rows(const Geometry& g, int* dst, int k, int lane,
+                                           const int r[C], int* stage) {
+  if (k == 1) {
+    store_row<C>(g, dst, lane, r);
+    return;
+  }
+  const int ac = g.A * C;
+  __syncwarp();
+  if (lane < g.A) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) stage[lane * C + c] = r[c];
+  }
+  __syncwarp();
+  if (ac % 4 == 0) {
+    copy_rows(reinterpret_cast<int4*>(dst), reinterpret_cast<const int4*>(stage), ac / 4,
+              k, lane);
+  } else {
+    copy_rows(dst, stage, ac, k, lane);
+  }
+}
+
+template <int C, int KP>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+msl_onepass_kernel(Geometry g, int B, const int* __restrict__ rows, Operands in,
+                   const int* __restrict__ sids, const int* __restrict__ served,
+                   Outputs out) {
+  __shared__ __align__(16) int stage_s[kWarpsPerBlock][32 * kMaxPlanes];
   const int head = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (head >= B) return;
   const int sid = sids[head];
   if (head > 0 && sids[head - 1] == sid) return;  // not a chain head
 
-  const int vec_start = (lane / g.P) * g.P;
+  const int ac = g.A * C;
+  int* stage = stage_s[threadIdx.x >> 5];
   int r[C];
-  load_row<C>(g, rows + (size_t)head * g.A * C, lane, r);
+  load_row<C>(g, rows + (size_t)head * ac, lane, r);
 
-  // Walk the chain 32 members at a time.  Members are contiguous, so the
-  // lanes holding one form a prefix of the warp.
+  Window<C> w = load_window<C, KP>(g, in, sids, served, B, sid, head + lane, false);
+  int n = __popc(__ballot_sync(kFull, w.member));
+  unsigned repeats = repeat_mask<C>(w, w.m, false, lane);
+  bool fixed = false;  // the last member walked left the row as it was
+  Result<C> last;      // its outputs (the same on every lane)
+
   for (int base = head;; base += 32) {
-    const int j = base + lane;
-    const bool member = j < B && sids[j] == sid;
-    Query<C> w;
-    int w_served = 0;
-    if (member) {
-      load_query<C, KP>(g, in, j, w);
-      w_served = served[j];
-    }
-    const int n = __popc(__ballot_sync(kFull, member));
-    Result<C> mine;  // the outputs of member `lane`, kept by that lane
-    for (int t = 0; t < n; ++t) {
-      Query<C> q;
-#pragma unroll
-      for (int c = 0; c < C; ++c) q.item[c] = __shfl_sync(kFull, w.item[c], t);
-      q.op = __shfl_sync(kFull, w.op, t);
-      q.live = __shfl_sync(kFull, w.live, t);
-      const bool srv = __shfl_sync(kFull, w_served, t) != 0;
+    const bool full = n == 32;
+    Window<C> next;  // in flight while w is walked
+    if (full) next = load_window<C, KP>(g, in, sids, served, B, sid, base + 32 + lane, true);
 
+    Result<C> mine;  // the outputs of member `lane`, kept by that lane
+    // a run carried over from the last window
+    int t = fixed ? run_end(repeats, 0) : 0;
+    if (t > 0) {
+      if (lane < t) mine = last;
+      store_rows<C>(g, out.rows + (size_t)base * ac, t, lane, r, stage);
+    }
+    while (t < n) {
+      const Member<C> m = fetch<C>(w, t);
       int nr[C];
 #pragma unroll
       for (int c = 0; c < C; ++c) nr[c] = r[c];
       Result<C> res;
-      transition<C, KP>(g, lane, vec_start, nr, q, res);
-      // an unserved member passes the row on untouched and reports
-      // hit 0, pos -1, value 0, ev 0
-#pragma unroll
-      for (int c = 0; c < C; ++c) r[c] = srv ? nr[c] : r[c];
-      store_row<C>(g, out.rows + (size_t)(base + t) * g.A * C, lane, r);
-      if (lane == t) {
-        mine.hit = srv ? res.hit : 0;
-        mine.pos = srv ? res.pos : -1;
+      transition<C, KP>(g, lane, nr, m.q, res);
+      if (m.served == 0) {
+        // an unserved member passes the row on untouched and reports
+        // hit 0, pos -1, value 0, ev 0
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          mine.val[c] = srv ? res.val[c] : 0;
-          mine.ev[c] = srv ? res.ev[c] : 0;
+          nr[c] = r[c];
+          res.val[c] = 0;
+          res.ev[c] = 0;
         }
+        res.hit = 0;
+        res.pos = -1;
       }
+
+      int end = t + 1;
+      if (end == 32 || ((repeats >> end) & 1u)) {  // a run could follow
+        bool changed = false;
+#pragma unroll
+        for (int c = 0; c < C; ++c) changed = changed || nr[c] != r[c];
+        fixed = !__any_sync(kFull, changed);
+        if (fixed) end = run_end(repeats, end);
+      } else {
+        fixed = false;
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) r[c] = nr[c];
+      last = res;
+      if (lane >= t && lane < end) mine = res;
+      store_rows<C>(g, out.rows + (size_t)(base + t) * ac, end - t, lane, r, stage);
+      t = end;
     }
-    if (lane < n) store_result<C, KP>(g, out, j, mine);
-    if (n < 32) break;
+    if (lane < n) store_result<C, KP>(g, out, base + lane, mine);
+    if (!full) break;
+
+    const Member<C> before = fetch<C>(w, 31);
+    n = __popc(__ballot_sync(kFull, next.member));
+    if (n == 0) break;
+    repeats = repeat_mask<C>(next, before, true, lane);
+    w = next;
   }
 }
 
 int blocks_for(int B) { return (B + kWarpsPerBlock - 1) / kWarpsPerBlock; }
+
+// The mask of vector starts, or 0 for a geometry the kernels do not take.
+unsigned vstarts_for(int A, int P) {
+  if (A <= 0 || A > 32 || P <= 0) return 0;
+  unsigned mask = 0;
+  for (int x = 0; x < A; x += P) mask |= 1u << x;
+  return mask;
+}
 
 // Call f(std::integral_constant<int, C>, std::integral_constant<int, KP>)
 // for the built plane counts: KP in {1, 2}, KP <= C <= kMaxPlanes.
@@ -318,9 +496,10 @@ int msl_access_launch(const int* rows, const int* qk, const int* qv,
                       int* rows_out, int* hit, int* pos, int* val, int* ev,
                       int B, int A, int C, int KP, int V, int M, int P,
                       int cost_planes, int set_lru, void* stream) {
-  const Geometry g{A, V, M, P, cost_planes, set_lru};
+  const Geometry g{A, V, M, P, cost_planes, set_lru, vstarts_for(A, P)};
   const Operands in{qk, qv, ops, live, costs};
   const Outputs out{rows_out, hit, pos, val, ev};
+  if (g.vstarts == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return static_cast<int>(cudaGetLastError());
   return with_planes(C, KP, [&](auto c, auto kp) {
     msl_access_kernel<decltype(c)::value, decltype(kp)::value>
@@ -335,9 +514,10 @@ int msl_onepass_launch(const int* rows, const int* qk, const int* qv,
                        int* rows_out, int* hit, int* pos, int* val, int* ev,
                        int B, int A, int C, int KP, int V, int M, int P,
                        int cost_planes, int set_lru, void* stream) {
-  const Geometry g{A, V, M, P, cost_planes, set_lru};
+  const Geometry g{A, V, M, P, cost_planes, set_lru, vstarts_for(A, P)};
   const Operands in{qk, qv, ops, live, costs};
   const Outputs out{rows_out, hit, pos, val, ev};
+  if (g.vstarts == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return static_cast<int>(cudaGetLastError());
   return with_planes(C, KP, [&](auto c, auto kp) {
     msl_onepass_kernel<decltype(c)::value, decltype(kp)::value>

@@ -11,54 +11,75 @@
 // What it computes, as the TPU kernel does: q is scaled by Dh^-0.5 in bf16;
 // scores are f32 dot products of f32-converted bf16 values, then the
 // optional tanh softcap, then the mask (the position exists, and
-// cur - pos < window when window > 0); an online softmax (m, l, acc) in f32;
+// cur - pos < window when window > 0); a softmax (m, l, acc) in f32;
 // masked probabilities are zeroed explicitly, because NEG_INF is finite; a
 // row with l = 0 gives 0.  GQA: the rep = H / KVH query heads of one KV head
-// share each K/V load.  A row must have cur_len >= prefix_len (the serving
+// share each K/V row.  A row must have cur_len >= prefix_len (the serving
 // engine writes the new token into the tail at cur_len - prefix_len): the
 // positions walked are [lo, cur_len], with lo the window's first position.
 //
-// What bounds it.  A launch reads each valid K/V row once, 2 * Dh * 2 bytes
-// per position and KV head: about 4.3 MB for 4 rows of ~88 positions at
-// KVH = 32, Dh = 96, or 1.3 us at 3.35 TB/s.  It does 4 * H * Dh flops per
-// position, far below the tensor cores' rate, so bytes bound it; at these
-// sizes the launch itself (a few us) costs more than the bytes.
+// What bounds it.  A launch reads each walked K/V row once, 2 * Dh * 2
+// bytes per position and KV head, and q, the output, the block tables and
+// the lengths once (chip_smoke.py's bound_ms counts exactly these).  At the
+// serving path's decode tick (phi3-mini: B = 4, KVH = 32, Dh = 96, rows of
+// 71-74 positions, 290 in all) that is 3.61 MB, 1.08 us at 3.35 TB/s.  It
+// does 4 * H * Dh flops per position, far below the card's f32 rate, so
+// bytes bound it.  But 3.61 MB over 128 (row, KV head) pairs is 28 KB each:
+// a pair's time is the latency of its dependent loads (lengths and block
+// table, then K and V), not bandwidth, and one block per pair walking its
+// positions in turn leaves most of the card idle.
 //
-// Design.  The TPU kernel carries (m, l, acc) across a sequential grid axis
-// and fetches both candidate blocks (pool page and tail block) every step.
-// Here one block of 128 threads owns one (row, KV head) and walks the row's
-// positions in tiles of 128 inside the block, loading only the block that
-// holds each position:
-//   * score pass: thread t takes position base + t, finds its K row through
-//     the block table or the tail, reads it with 16-byte loads (Dh = 96 is
-//     12 of them; no power of two is assumed) and dots it with the rep
-//     query heads held in shared memory as f32;
-//   * softmax pass: one warp per query head reduces the tile's max and sum
-//     with shuffles and updates that head's m and l;
-//   * value pass: thread (g, r, c) owns 8 output dims (one 16-byte chunk)
-//     of query head r and accumulates p * V in f32 registers over every
-//     G-th position of the tile, from position g on; the G = 128 /
-//     (rep * Dh/8) groups split the tile's positions, so more loads are in
-//     flight (at rep 1, Dh 96: 10 groups of 12 threads), and their partial
-//     sums are added in shared memory at the end.  Neighbouring threads
-//     read neighbouring chunks of a V row.
-// At B = 4, KVH = 32 that is 128 blocks on 132 SMs.  Split-KV, cp.async/TMA
-// and tensor-core dots are later work.
+// Design: every load in flight at once, split over a cluster.
+//  * Grid (KVH, B, S), launched as thread block clusters of (1, 1, S): the S
+//    blocks of one (KV head, row) split the positions [lo, cur] evenly.  The
+//    row's length is read on the device, so the host never syncs.  The host
+//    sets S from shapes alone: one tile of kTile positions per block at the
+//    static bound NP * pt + tmax (capped by the window), at most kMaxSplits =
+//    8 (the portable cluster size), and no more than keeps the grid within
+//    one wave of kBlocksPerSM = 4 blocks per SM, since a second wave doubles
+//    the latency chain.  At the serving path's shapes (bound 512, 128 pairs)
+//    S = 4: 512 blocks of 17-19 positions each.
+//  * Each block loads its row's lengths, block-table entries and q at once,
+//    then stages its K and V rows in shared memory with 16-byte cp.async
+//    copies before any arithmetic: one thread per position finds its row
+//    (through the block table or the tail), then every copy of the tile is
+//    issued at once.  A position without a row is zero-filled and masked.
+//    A block with more than one tile double-buffers them: tile k+1's copies
+//    fly while tile k is computed.  Staged rows are padded by 16 bytes so
+//    that neighbouring rows start in different banks.
+//  * Scores: four threads per position, each a quarter of Dh for all rep
+//    heads, reduced by shuffles; softmax: one warp per head, a lane per
+//    position (kTile = 32); p * V: each thread owns 8 output dims of one
+//    head over every G-th position, the G groups' sums added at the end.
+//  * Each block keeps its partial (m, l, acc) in shared memory; after
+//    cluster.sync(), rank 0 reads every rank's partial over distributed
+//    shared memory in one round, rescales them by exp(m_j - M) and writes
+//    the output; a second cluster.sync() keeps the other ranks' shared
+//    memory alive until then.  A block whose share of the positions is
+//    empty contributes m = NEG_INF, l = 0.  One launch, no global scratch.
 //
-// Plain C interface, loaded with ctypes: the launcher returns
-// cudaGetLastError() of its launch, or cudaErrorInvalidValue, without
-// launching, for a head dim or GQA ratio it was not built for.
+// Plain C interface, loaded with ctypes: the launcher returns the error of
+// its launch, or cudaErrorInvalidValue, without launching, for a head dim
+// or GQA ratio it was not built for; paged_attn_splits gives the cluster
+// size the launcher picks for a shape.
 
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 128;      // one block per (row, KV head)
-constexpr int kTile = kThreads;    // positions per tile: one per thread
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 32;          // positions per tile: a lane each in the softmax
 constexpr int kMaxRep = 8;         // query heads per KV head
+constexpr int kMaxSplits = 8;      // blocks per cluster
+constexpr int kPad = 8;            // bf16 padding per staged row (16 bytes)
+constexpr int kTablePages = 64;    // block-table entries a block keeps in shared memory
+constexpr int kBlocksPerSM = 4;    // the grid is kept to one wave of this many blocks per SM
 constexpr float kNegInf = -1e30f;  // finite, as the reference's NEG_INF
 
 struct Args {
@@ -75,6 +96,18 @@ struct Args {
   float softcap, q_scale;
 };
 
+template <int DH>
+struct __align__(16) Smem {
+  __nv_bfloat16 k[2][kTile][DH + kPad];  // staged K rows
+  __nv_bfloat16 v[2][kTile][DH + kPad];
+  float q[kMaxRep * DH];                 // scaled q of the rep heads, f32
+  float s[kMaxRep][kTile];               // scores, then probabilities
+  float acc[kMaxRep * DH];               // this block's partial p * V
+  float m[kMaxRep], l[kMaxRep], alpha[kMaxRep];
+  int bt[kTablePages];                   // the row's first block-table entries
+  unsigned char valid[2][kTile];         // the staged position exists and is walked
+};
+
 __device__ __forceinline__ void unpack8(const uint4& raw, float* f) {
   const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
@@ -85,35 +118,111 @@ __device__ __forceinline__ void unpack8(const uint4& raw, float* f) {
   }
 }
 
+// 16 bytes from global to shared memory, or 16 zero bytes when src_bytes = 0.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Element offset of position pos's K/V row for KV head g of row b, through
+// the block table (pos < plen) or the tail; -1 where the row has no such
+// position.  `in_tail` says which tensor the offset is into.
+template <int DH>
+__device__ __forceinline__ long long row_offset(const Args& a, const int* bt, int b, int g,
+                                                int pos, int plen, bool& in_tail) {
+  in_tail = false;
+  if (pos < plen) {
+    const int j = pos / a.pt;
+    if (j >= a.NP) return -1;
+    const int entry = j < kTablePages ? bt[j] : a.block_table[static_cast<size_t>(b) * a.NP + j];
+    const int page = min(max(entry, 0), a.n_pages - 1);
+    return ((static_cast<long long>(page) * a.pt + (pos - j * a.pt)) * a.KVH + g) * DH;
+  }
+  if (pos - plen >= a.tmax) return -1;
+  in_tail = true;
+  return ((static_cast<long long>(b) * a.tmax + (pos - plen)) * a.KVH + g) * DH;
+}
+
+// Stage the K and V rows of positions [t0, t0 + kTile) in stage `st`.
+// Thread (t, quarter) = (tid / 4, tid % 4) finds position t0 + t's row
+// (through the block table or the tail; none at or past `p1`, or where the
+// row has no such position) and copies the 16-byte chunks quarter,
+// quarter + 4, ... of its K and V rows: the K chunks it dots in the score
+// pass.  Every copy of the tile is in flight at once; a position without a
+// row is zero-filled and marked invalid.
+template <int DH>
+__device__ __forceinline__ void stage_tile(const Args& a, Smem<DH>& sm, int st, int t0,
+                                           int p1, int b, int g, int plen) {
+  constexpr int kQuarter = DH / 8 / 4;
+  static_assert(kThreads == 4 * kTile, "four threads per staged position");
+  const int t = threadIdx.x / 4, qtr = threadIdx.x % 4;
+  const int pos = t0 + t;
+  bool in_tail = false;
+  const long long off = pos < p1 ? row_offset<DH>(a, sm.bt, b, g, pos, plen, in_tail) : -1;
+  if (qtr == 0) sm.valid[st][t] = off >= 0;
+  const __nv_bfloat16* kb = in_tail ? a.tail_k : a.pool_k;
+  const __nv_bfloat16* vb = in_tail ? a.tail_v : a.pool_v;
+  const int bytes = off >= 0 ? 16 : 0;
+#pragma unroll
+  for (int cc = 0; cc < kQuarter; ++cc) {
+    const int e = (cc * 4 + qtr) * 8;
+    cp_async16(&sm.k[st][t][e], off >= 0 ? kb + off + e : kb, bytes);
+    cp_async16(&sm.v[st][t][e], off >= 0 ? vb + off + e : vb, bytes);
+  }
+  cp_async_commit();
+}
+
 template <int DH>
 __global__ void __launch_bounds__(kThreads) paged_attn_kernel(const Args a) {
   constexpr int kChunks = DH / 8;  // 16-byte chunks of one head's row
-  const int g = blockIdx.x;        // KV head
-  const int b = blockIdx.y;        // row
+  constexpr int kQuarter = kChunks / 4;
+  static_assert(kChunks % 4 == 0, "four threads per position split Dh");
+  __shared__ Smem<DH> sm;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int g = blockIdx.x;  // KV head
+  const int b = blockIdx.y;  // row
+  const int split = static_cast<int>(cluster.block_rank());
+  const int splits = static_cast<int>(cluster.num_blocks());
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int rep = a.H / a.KVH;
   const int head0 = g * rep;
 
-  __shared__ float q_s[kMaxRep * DH];       // scaled q of the rep heads, f32
-  __shared__ float s_s[kMaxRep * kTile];    // scores, then probabilities
-  __shared__ long long off_s[kTile];        // element offset of the K/V row; -1: masked
-  __shared__ unsigned char tail_s[kTile];   // 1: the row lives in the tail
-  __shared__ float m_s[kMaxRep], l_s[kMaxRep], alpha_s[kMaxRep];
-  __shared__ float red_s[kThreads * 8];     // the groups' partial sums
-
+  // the row's lengths, its block table and q, all loaded at once
   const int plen = a.prefix_len[b];
   const int cur = a.cur_len[b];
+  for (int j = tid; j < min(a.NP, kTablePages); j += kThreads) {
+    sm.bt[j] = a.block_table[static_cast<size_t>(b) * a.NP + j];
+  }
   const __nv_bfloat16* qrow = a.q + (static_cast<size_t>(b) * a.H + head0) * DH;
   for (int i = tid; i < rep * DH; i += kThreads) {
     // q * scale rounded to bf16: the reference scales q in its own dtype
-    q_s[i] = __bfloat162float(__float2bfloat16(__bfloat162float(qrow[i]) * a.q_scale));
+    sm.q[i] = __bfloat162float(__float2bfloat16(__bfloat162float(qrow[i]) * a.q_scale));
   }
   if (tid < rep) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
+    sm.m[tid] = kNegInf;
+    sm.l[tid] = 0.f;
   }
-  const int owners = rep * kChunks;         // threads per value-pass group
+  // this block's share [p0, p1) of the walked positions [lo, cur]
+  const int lo = a.window > 0 ? max(0, cur - a.window + 1) : 0;
+  const int per = (max(cur - lo + 1, 0) + splits - 1) / splits;
+  const int p0 = lo + split * per;
+  const int p1 = min(p0 + per, cur + 1);
+  const int n_tiles = p0 < p1 ? (p1 - p0 + kTile - 1) / kTile : 0;
+  __syncthreads();
+  if (n_tiles > 0) stage_tile<DH>(a, sm, 0, p0, p1, b, g, plen);
+
+  const int owners = rep * kChunks;  // threads per value-pass group
   const int groups = kThreads / owners;
   const int group = tid / owners, own = tid % owners;
   const int r_own = own / kChunks, c_own = own % kChunks;
@@ -121,136 +230,190 @@ __global__ void __launch_bounds__(kThreads) paged_attn_kernel(const Args a) {
   float acc[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) acc[i] = 0.f;
-  const int lo = a.window > 0 ? max(0, cur - a.window + 1) : 0;
-  __syncthreads();
 
-  for (int base = lo; base <= cur; base += kTile) {
-    // -- score pass: thread tid takes position base + tid ------------------
-    const int pos = base + tid;
-    long long off = -1;
-    bool in_tail = false;
-    if (pos <= cur) {
-      if (pos < plen) {
-        const int j = pos / a.pt;
-        if (j < a.NP) {
-          const int page = min(max(a.block_table[static_cast<size_t>(b) * a.NP + j], 0),
-                               a.n_pages - 1);
-          off = ((static_cast<long long>(page) * a.pt + pos % a.pt) * a.KVH + g) * DH;
-        }
-      } else if (pos - plen < a.tmax) {
-        off = ((static_cast<long long>(b) * a.tmax + (pos - plen)) * a.KVH + g) * DH;
-        in_tail = true;
-      }
+  for (int k = 0; k < n_tiles; ++k) {
+    const int st = k & 1;
+    const int t0 = p0 + k * kTile;
+    if (k + 1 < n_tiles) {
+      stage_tile<DH>(a, sm, st ^ 1, t0 + kTile, p1, b, g, plen);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    off_s[tid] = off;
-    tail_s[tid] = in_tail;
-    float dot[kMaxRep];
+
+    // -- scores: thread (t, quarter) dots the quarter of Dh it staged ------
+    {
+      const int t = tid / 4, qtr = tid % 4;
+      float dot[kMaxRep];
 #pragma unroll
-    for (int r = 0; r < kMaxRep; ++r) dot[r] = 0.f;
-    if (off >= 0) {
-      const uint4* krow = reinterpret_cast<const uint4*>((in_tail ? a.tail_k : a.pool_k) + off);
+      for (int r = 0; r < kMaxRep; ++r) dot[r] = 0.f;
+      const __nv_bfloat16* krow = sm.k[st][t];
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
+      for (int cc = 0; cc < kQuarter; ++cc) {
+        const int c = cc * 4 + qtr;
         float kf[8];
-        unpack8(krow[c], kf);
+        unpack8(*reinterpret_cast<const uint4*>(krow + c * 8), kf);
 #pragma unroll
         for (int r = 0; r < kMaxRep; ++r) {
           if (r < rep) {
-            const float* qr = q_s + r * DH + c * 8;
+            const float* qr = sm.q + r * DH + c * 8;
 #pragma unroll
             for (int i = 0; i < 8; ++i) dot[r] = fmaf(qr[i], kf[i], dot[r]);
           }
         }
       }
-    }
 #pragma unroll
-    for (int r = 0; r < kMaxRep; ++r) {
-      if (r < rep) {
-        float s = dot[r];
-        if (a.softcap > 0.f) s = tanhf(s / a.softcap) * a.softcap;
-        s_s[r * kTile + tid] = off >= 0 ? s : kNegInf;
+      for (int r = 0; r < kMaxRep; ++r) {
+        dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 1);
+        dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], 2);
+      }
+      if (qtr == 0) {
+        const bool valid = sm.valid[st][t];
+#pragma unroll
+        for (int r = 0; r < kMaxRep; ++r) {
+          if (r < rep) {
+            float s = dot[r];
+            if (a.softcap > 0.f) s = tanhf(s / a.softcap) * a.softcap;
+            sm.s[r][t] = valid ? s : kNegInf;
+          }
+        }
       }
     }
     __syncthreads();
 
-    // -- softmax pass: one warp per query head -----------------------------
+    // -- softmax: one warp per query head, a lane per position -------------
     for (int r = warp; r < rep; r += kWarps) {
-      float* sr = s_s + r * kTile;
-      float mx = kNegInf;
-      for (int t = lane; t < kTile; t += 32) mx = fmaxf(mx, sr[t]);
+      const float sc = sm.s[r][lane];
+      float mx = sc;
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = m_s[r];
+      const float m_prev = sm.m[r];
       const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < kTile; t += 32) {
-        const float p = off_s[t] >= 0 ? expf(sr[t] - m_new) : 0.f;
-        sr[t] = p;
-        sum += p;
-      }
+      const float p = sm.valid[st][lane] ? expf(sc - m_new) : 0.f;
+      sm.s[r][lane] = p;
+      float sum = p;
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
       if (lane == 0) {
         const float alpha = expf(m_prev - m_new);
-        alpha_s[r] = alpha;
-        l_s[r] = alpha * l_s[r] + sum;
-        m_s[r] = m_new;
+        sm.alpha[r] = alpha;
+        sm.l[r] = alpha * sm.l[r] + sum;
+        sm.m[r] = m_new;
       }
     }
     __syncthreads();
 
-    // -- value pass: thread (group, r_own, c_own), every groups-th position
+    // -- p * V: thread (group, r_own, c_own), every groups-th position ------
     if (active) {
-      const float alpha = alpha_s[r_own];
+      const float alpha = sm.alpha[r_own];
 #pragma unroll
       for (int i = 0; i < 8; ++i) acc[i] *= alpha;
-      const float* pr = s_s + r_own * kTile;
-      const int n = min(kTile, cur - base + 1);
+      const float* pr = sm.s[r_own];
 #pragma unroll 4
-      for (int t = group; t < n; t += groups) {
-        const long long o = off_s[t];
-        if (o < 0) continue;
-        const uint4* vrow = reinterpret_cast<const uint4*>((tail_s[t] ? a.tail_v : a.pool_v) + o);
+      for (int t = group; t < kTile; t += groups) {
         float vf[8];
-        unpack8(vrow[c_own], vf);
+        unpack8(*reinterpret_cast<const uint4*>(sm.v[st][t] + c_own * 8), vf);
         const float p = pr[t];
 #pragma unroll
         for (int i = 0; i < 8; ++i) acc[i] = fmaf(p, vf[i], acc[i]);
       }
     }
-    __syncthreads();
+    __syncthreads();  // stage st is free for tile k + 2
   }
 
+  // this block's partial: the groups' sums, staged over the K rows, added
+  // into sm.acc
+  static_assert(sizeof(sm.k) >= kThreads * 8 * sizeof(float), "room for the sums");
+  float* red = reinterpret_cast<float*>(&sm.k[0][0][0]);
   if (active) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) red_s[(group * owners + own) * 8 + i] = acc[i];
+    for (int i = 0; i < 8; ++i) red[(group * owners + own) * 8 + i] = acc[i];
   }
   __syncthreads();
   if (group == 0) {
     for (int g2 = 1; g2 < groups; ++g2) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i] += red_s[(g2 * owners + own) * 8 + i];
+      for (int i = 0; i < 8; ++i) acc[i] += red[(g2 * owners + own) * 8 + i];
     }
-    float l = l_s[r_own];
-    if (l == 0.f) l = 1.f;  // a row with no valid position gives 0
-    uint4 packed;
-    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&packed);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) h2[i] = __floats2bfloat162_rn(acc[2 * i] / l, acc[2 * i + 1] / l);
-    __nv_bfloat16* orow = a.out + (static_cast<size_t>(b) * a.H + head0 + r_own) * DH;
-    reinterpret_cast<uint4*>(orow)[c_own] = packed;
+    for (int i = 0; i < 8; ++i) sm.acc[r_own * DH + c_own * 8 + i] = acc[i];
   }
+
+  // rank 0 combines the cluster's partials over distributed shared memory
+  cluster.sync();
+  if (split == 0) {
+    for (int i = tid; i < rep * DH; i += kThreads) {
+      const int r = i / DH;
+      float m[kMaxSplits], l[kMaxSplits], o[kMaxSplits];  // every rank's, read at once
+#pragma unroll
+      for (int j = 0; j < kMaxSplits; ++j) {
+        m[j] = kNegInf;
+        l[j] = o[j] = 0.f;
+        if (j < splits) {
+          const Smem<DH>* rs = cluster.map_shared_rank(&sm, j);
+          m[j] = rs->m[r];
+          l[j] = rs->l[r];
+          o[j] = rs->acc[i];
+        }
+      }
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kMaxSplits; ++j) mx = fmaxf(mx, m[j]);
+      float lsum = 0.f, osum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kMaxSplits; ++j) {
+        const float w = expf(m[j] - mx);
+        lsum += w * l[j];
+        osum += w * o[j];
+      }
+      a.out[(static_cast<size_t>(b) * a.H + head0) * DH + i] =
+          __float2bfloat16_rn(lsum == 0.f ? 0.f : osum / lsum);  // no valid position: 0
+    }
+  }
+  cluster.sync();  // the other ranks' shared memory lives until rank 0 is done
+}
+
+// Blocks per cluster: one tile per block at the static bound NP * pt + tmax
+// (capped by the window), at most kMaxSplits, and no more than keeps the
+// grid of B * KVH clusters within one wave of kBlocksPerSM blocks per SM.
+int splits_for(int B, int KVH, int NP, int pt, int tmax, int window) {
+  long long bound = static_cast<long long>(NP) * pt + tmax;
+  if (window > 0 && window < bound) bound = window;
+  long long s = (bound + kTile - 1) / kTile;
+  int device = 0, sms = 132;
+  if (cudaGetDevice(&device) == cudaSuccess) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  const long long wave = static_cast<long long>(kBlocksPerSM) * sms / max(B * KVH, 1);
+  if (s > wave) s = wave;
+  return static_cast<int>(s < 1 ? 1 : (s > kMaxSplits ? kMaxSplits : s));
 }
 
 template <int DH>
-cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  paged_attn_kernel<DH><<<dim3(a.KVH, B), kThreads, 0, stream>>>(a);
-  return cudaGetLastError();
+cudaError_t launch(const Args& a, int B, int splits, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.KVH, B, splits);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, paged_attn_kernel<DH>, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
+
+int paged_attn_splits(int B, int KVH, int NP, int pt, int tmax, int window) {
+  return splits_for(B, KVH, NP, pt, tmax, window);
+}
 
 int paged_attn_launch(const void* q, const void* pool_k, const void* pool_v,
                       const int* block_table, const void* tail_k, const void* tail_v,
@@ -270,12 +433,13 @@ int paged_attn_launch(const void* q, const void* pool_k, const void* pool_v,
                prefix_len, cur_len,
                static_cast<__nv_bfloat16*>(out),
                H, KVH, n_pages, pt, NP, tmax, window, softcap, q_scale};
+  const int splits = splits_for(B, KVH, NP, pt, tmax, window);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (Dh) {
-    case 32: return static_cast<int>(launch<32>(a, B, s));
-    case 64: return static_cast<int>(launch<64>(a, B, s));
-    case 96: return static_cast<int>(launch<96>(a, B, s));
-    case 128: return static_cast<int>(launch<128>(a, B, s));
+    case 32: return static_cast<int>(launch<32>(a, B, splits, s));
+    case 64: return static_cast<int>(launch<64>(a, B, splits, s));
+    case 96: return static_cast<int>(launch<96>(a, B, splits, s));
+    case 128: return static_cast<int>(launch<128>(a, B, splits, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

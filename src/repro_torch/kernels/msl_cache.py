@@ -11,7 +11,9 @@ compiles it with ``nvcc`` at first use and loads it with ctypes.
   ``msl_access_plain`` (= ``ref.msl_access_ref``).
 * ``msl_onepass_kernel_call`` — conflict-aware single pass over queries
   sorted by set id: a warp per chain head walks its whole same-set chain
-  with the row in registers; replaces the Pallas ``msl_onepass_kernel_call``.
+  with the row in registers, resolving each run of equal queries with one
+  transition once the row stops changing; replaces the Pallas
+  ``msl_onepass_kernel_call``.
   Plain version: ``chain_resolve_plain``, the rank-by-rank loop of the JAX
   package's ``_chain_body`` over the whole sorted batch.
 

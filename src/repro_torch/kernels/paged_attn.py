@@ -10,7 +10,8 @@ position ``abs_pos - prefix_len``.
   of ``csrc/paged_attn.cu`` (built by ``build.py`` at first use; its head
   note says what bounds it and what its design does about it), CPU tensors
   run the plain version; it never falls back from one to the other.
-  ``LAUNCHES["paged_attn"]`` counts its launches.
+  ``LAUNCHES["paged_attn"]`` counts its launches.  ``kernel_splits`` gives
+  the cluster size (blocks per (row, KV head)) the launcher picks.
 * ``paged_attn_decode_plain`` — the gather and full-softmax rendering of
   ``repro.models.attention.paged_attn_decode``: it assembles each row's
   contiguous view transiently and runs ``dense_decode_attention``, the
@@ -34,7 +35,8 @@ import torch
 from repro_torch.kernels.build import load_library
 
 __all__ = ["HEAD_DIMS", "LAUNCHES", "MAX_REP", "NEG_INF", "SOURCE",
-           "dense_decode_attention", "gather_view", "paged_attn_decode_call",
+           "dense_decode_attention", "gather_view", "kernel_splits",
+           "paged_attn_decode_call",
            "paged_attn_decode_plain", "q_scale", "window_value"]
 
 LAUNCHES = {"paged_attn": 0}
@@ -54,7 +56,19 @@ def _library():
     lib = load_library(SOURCE)
     lib.paged_attn_launch.argtypes = [_P] * 9 + [_I] * 9 + [_F, _F, _P]
     lib.paged_attn_launch.restype = _I
+    lib.paged_attn_splits.argtypes = [_I] * 6
+    lib.paged_attn_splits.restype = _I
     return lib
+
+
+def kernel_splits(q, pool_k, block_table, tail_k, *, window=None) -> int:
+    """Blocks per (row, KV head) cluster that the kernel launches for these
+    operands: set from their shapes (the static bound NP * page_tokens +
+    Tmax, capped by the window and by one wave of the grid), never from the
+    rows' lengths.  Builds the library."""
+    return _library().paged_attn_splits(q.shape[0], pool_k.shape[2], block_table.shape[1],
+                                        pool_k.shape[1], tail_k.shape[1],
+                                        window_value(window))
 
 
 def window_value(window) -> int:

@@ -7,9 +7,11 @@ first use) and skips without one.  On a machine with a card run
 
 The CPU parity tests (test_torch_rows/engine/cache/models/serving.py) hold
 the plain versions against the JAX package; these hold the kernels against
-the plain versions: the msl_cache kernels bit for bit, the paged-attention
-kernel within the JAX package's own gate for its Pallas kernel.  This file imports no JAX: the machine with
-the card need not have it.
+the plain versions: the msl_cache kernels bit for bit (the one-pass kernel
+also on test_torch_runs.py's batches of long repeated runs), the
+paged-attention kernel within the JAX package's own gate for its Pallas
+kernel, on rows split over thread block clusters.  This file imports no
+JAX: the machine with the card need not have it.
 """
 
 import numpy as np
@@ -17,10 +19,14 @@ import pytest
 import torch
 
 from repro_torch.core import (MSLRUConfig, MultiStepLRUCache, init_table,
-                              table_to_numpy)
+                              pad_dummy_row, table_to_numpy)
 from repro_torch.core.engine import sorted_group_ranks
 from repro_torch.core.multistep import set_index_for
 from repro_torch.kernels import msl_cache, paged_attn
+from repro_torch.kernels.ops import onepass_prologue
+from torch_run_cases import run_cases
+
+RUN_CASES = run_cases()
 
 # (m, p, key_planes, value_planes, policy, cost_planes): the JAX kernel
 # tests' seven geometries plus a cost plane (as in test_torch_rows.py)
@@ -132,6 +138,32 @@ def test_onepass_kernel_matches_plain(cuda, geom):
         _assert_outputs_equal(msl_cache.chain_resolve_plain(*args, cfg=cfg), got)
 
 
+@pytest.mark.parametrize("served_holes", [False, True], ids=["served", "holes"])
+@pytest.mark.parametrize("case", RUN_CASES, ids=[c.name for c in RUN_CASES])
+def test_onepass_kernel_resolves_runs(cuda, case, served_holes):
+    """The one-pass kernel against its plain version on the batches of long
+    repeated runs that test_torch_runs.py holds against the JAX engine
+    (the kernel collapses a run once its row stops changing); ``holes``
+    also clears about one served bit in 30, inside chains and runs."""
+    cfg = MSLRUConfig(**case.kw)
+
+    def t(x):
+        return None if x is None else torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+
+    keys = t(case.keys)
+    x = onepass_prologue(pad_dummy_row(t(case.table)), set_index_for(cfg, keys),
+                         t(case.valid), keys, t(case.vals), case.max_rounds,
+                         t(case.ops), t(case.chain_live), t(case.costs))
+    args = list(x.kernel_args())
+    if served_holes:
+        keep = np.random.default_rng(7).random(len(case.keys)) >= 1 / 30
+        args[6] = (args[6] * t(keep.astype(np.int32))).contiguous()
+    before = msl_cache.LAUNCHES["msl_onepass"]
+    got = msl_cache.msl_onepass_kernel_call(*args, cfg=cfg)
+    assert msl_cache.LAUNCHES["msl_onepass"] == before + 1
+    _assert_outputs_equal(msl_cache.chain_resolve_plain(*args, cfg=cfg), got)
+
+
 @pytest.mark.parametrize("kw", [dict(num_sets=64, m=2, p=4, value_planes=2),
                                 dict(num_sets=32, m=2, p=4, value_planes=1,
                                      cost_planes=1)])
@@ -233,6 +265,36 @@ def test_paged_kernel_matches_plain(cuda, h, kvh, dh, window, softcap):
     got = paged_attn.paged_attn_decode_call(*args, window=window, softcap=softcap)
     assert paged_attn.LAUNCHES["paged_attn"] == before + 1
     want = paged_attn.paged_attn_decode_plain(*args, window=window, softcap=softcap)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=0.05, atol=0.02)
+
+
+# (h, kvh, dh, plens, used, window): rows of up to 256 positions (one of
+# 400, so that a block walks two tiles), lengths that are no multiple of
+# the cluster's split, windows whose first position falls inside a split
+CLUSTER_CASES = [
+    (32, 32, 96, (208, 0, 96, 33), (47, 40, 0, 11), None),
+    (8, 2, 128, (208, 0, 96, 33), (47, 255, 0, 11), 100),
+    (16, 4, 64, (176, 16, 0, 80), (79, 3, 190, 0), 37),
+    (8, 8, 32, (384, 0, 224, 16), (15, 1, 31, 200), None),
+]
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("h,kvh,dh,plens,used,window", CLUSTER_CASES)
+def test_paged_kernel_splits_rows_over_a_cluster(cuda, h, kvh, dh, plens, used, window,
+                                                 softcap):
+    """Rows long enough to spread over several cluster ranks, within the
+    JAX package's gate (rtol 0.05, atol 0.02) of the plain version."""
+    npg = (max(plens) + 15) // 16 + 1
+    case = paged_case(5, h=h, kvh=kvh, dh=dh, n_pages=64, npg=npg, tmax=256,
+                      plens=plens, used=used)
+    args = paged_args(case, cuda)
+    assert paged_attn.kernel_splits(args[0], args[1], args[3], args[4], window=window) > 1
+    got = paged_attn.paged_attn_decode_call(*args, window=window, softcap=softcap)
+    # the plain version's view holds every position of every row
+    want = paged_attn.paged_attn_decode_plain(*args, window=window, softcap=softcap,
+                                              smax=npg * 16 + 256)
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
                                rtol=0.05, atol=0.02)
 
