@@ -11,8 +11,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the card: ``torch.cuda.is_available()``; name and power limit;
 2. build the CUDA kernel libraries from ``src/repro_torch/kernels/csrc``,
    one nvcc per source, all at once; each one's registers and spills;
-3. the access kernel against its plain version at B = 8192 on eight
-   geometries, with no opcodes, mixed opcodes and a chain execute mask;
+3. the access kernel against its plain version at B = 8192 on thirteen
+   geometries (among them A = 1, 2, 12, 15 and 32, whose lane groups hold
+   32, 16, 2, 2 and 1 rows per warp), with no opcodes, mixed opcodes and a
+   chain execute mask;
 4. the one-pass kernel against its plain version on four Zipf batches of
    the main configuration over a warmed table, then the opcode, chain and
    cost variants on small configurations, then the batches of long repeated
@@ -30,10 +32,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. the msl_cache kernels' records: launches on the path that runs each
    (the one-pass stream for the one-pass kernel, the rounds cross-check
    for the access kernel), time per launch, plain version's time, bound;
-   for the one-pass kernel also ns per dependent transition on a chain with
-   no two neighbours equal, ns per member of a one-key run, and the
-   longest chain walked member by member at that rate (``chain_path_ms``,
-   a critical path, not a bound);
+   for the access kernel also its rows per warp, its registers and its
+   time at B = 1 and at an A = 32 geometry; for the one-pass kernel also
+   ns per dependent transition on a chain with no two neighbours equal, ns
+   per member of a one-key run, and the longest chain walked member by
+   member at that rate (``chain_path_ms``, a critical path, not a bound);
 7. the paged-attention kernel against its plain version at the serving
    path's shapes and at GQA rep 2 and 4, Dh 64 and 128, with windows and
    softcaps, a row with no prefix and a row whose tail is one token
@@ -239,6 +242,21 @@ def build_kernels():
             f"bytes of spill stores; {report.count('warning')} compiler warnings")
 
 
+def ptxas_registers(lib):
+    """{mangled kernel name: registers per thread} from the ``-Xptxas -v``
+    report (``ptxas.log``) beside the library ``lib``."""
+    regs, name = {}, None
+    for line in (Path(lib).parent / "ptxas.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name] = int(m.group(1))
+            name = None
+    return regs
+
+
 GEOMS = [  # (m, p, key_planes, value_planes, policy, cost_planes)
     (2, 4, 1, 2, "multistep", 0),
     (1, 4, 1, 1, "multistep", 0),
@@ -248,6 +266,13 @@ GEOMS = [  # (m, p, key_planes, value_planes, policy, cost_planes)
     (2, 4, 1, 2, "set_lru", 0),
     (8, 4, 2, 3, "multistep", 0),
     (2, 4, 1, 2, "multistep", 1),
+    # lane groups of the access kernel: lanes out of the row (A = 12, 15),
+    # 16 and 32 rows per warp (A = 2, 1), one row of C = 8 planes (A = 32)
+    (3, 4, 1, 2, "multistep", 0),
+    (5, 3, 1, 2, "multistep", 0),
+    (1, 2, 1, 1, "multistep", 0),
+    (1, 1, 1, 1, "multistep", 0),
+    (8, 4, 2, 5, "multistep", 1),
 ]
 
 
@@ -606,6 +631,43 @@ def run_member_ns(torch, cfg):
     return single_chain_ns(torch, cfg, qk, torch.stack([qk, -qk], 1))
 
 
+def access_geometry_record(torch, cfg, access_args):
+    """Phase 6: the access kernel's lane groups at the main geometry (rows
+    per warp, the instance's registers from ``ptxas.log``) and its time at
+    B = 1 (the first of the main rows: one launch's floor) and on BATCH
+    random rows of an A = 32 geometry (m = 8, p = 4, the main planes), each
+    checked against the plain version first (launches outside the counted
+    paths)."""
+    from repro_torch.core import MSLRUConfig
+    from repro_torch.kernels import msl_cache
+    from repro_torch.kernels.build import build_library
+
+    a, c, kp, v = cfg.assoc, cfg.planes, cfg.key_planes, cfg.value_planes
+    w = 1 << (a - 1).bit_length()            # the kernel's lane-group width
+    name = re.compile(rf"msl_access_kernelILi{c}ELi{kp}ELi{w}EE")
+    regs = [n for k, n in ptxas_registers(build_library(msl_cache.SOURCE)).items()
+            if name.search(k)]
+    if len(regs) != 1:
+        raise AssertionError(f"ptxas.log: {len(regs)} entries match {name.pattern}")
+    cfg32 = MSLRUConfig(num_sets=64, m=8, p=4, key_planes=kp, value_planes=v)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    args32 = random_rows_case(torch, cfg32, BATCH, gen)[:3]
+    args1 = tuple(t[:1].contiguous() for t in access_args)
+    out = {"rows_per_warp": 32 // w, "registers": regs[0]}
+    for key, args, cf in (("ms_b1", args1, cfg), ("ms_a32", args32, cfg32)):
+        err = max_abs_err(torch, msl_cache.msl_access_plain(*args, cfg=cf),
+                          msl_cache.msl_access_kernel_call(*args, cfg=cf))
+        if err:
+            raise AssertionError(f"msl_access {key}: max |err| {err}")
+        out[key] = kernel_ms(torch, lambda: msl_cache.msl_access_kernel_call(*args, cfg=cf),
+                             200, "msl_access_kernel")
+    nbytes = 4 * BATCH * (2 * cfg32.assoc * c + kp + v + 2 + max(v, 1) + c)
+    ops = BATCH * cfg32.assoc * (kp + 1 + 3 * c)
+    out["bound_ms_a32"] = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S)
+    out["shape_a32"] = {"B": BATCH, "A": cfg32.assoc, "C": c}
+    return out
+
+
 def kernel_records(torch, cfg, keys, vals, onepass_inputs, access_inputs, errs,
                    summary):
     """Phase 6: one record per kernel at the main path's shapes.  Each
@@ -643,6 +705,10 @@ def kernel_records(torch, cfg, keys, vals, onepass_inputs, access_inputs, errs,
         "library_ms": None,
         "shape": {"B": b, "A": a, "C": c},
     }
+    access.update(access_geometry_record(torch, cfg, access_args))
+    log(f"msl_access: {access['rows_per_warp']} rows per warp, {access['registers']} "
+        f"registers; {access['ms_b1']:.5f} ms at B = 1, {access['ms_a32']:.5f} ms at "
+        f"A = 32 (B = {b}, one row per warp, bound {access['bound_ms_a32']:.5f} ms)")
 
     x = onepass_inputs
     heads = int(x.firsts.sum())

@@ -8,18 +8,32 @@
 //       _chain_body): queries sorted by set id; each same-set chain is applied
 //       in rank order, the updated row handed from one member to the next.
 //
-// Layout.  One warp holds one set row: lane a < A keeps lane a's C int32
-// planes in registers.  The probe and the empty-slot search are ballots, the
-// cost victim a warp min-reduce plus a ballot, and rotate_insert is one
-// __shfl_up_sync by a lane (the GPU form of the paper's vpermd).  A vector's
-// first lane is found from a bit mask of vector starts (a find-last-set),
-// not by a shuffle.  Lanes >= A are masked out of every ballot and of the
-// min, so A <= 32.  The plane counts C and KP are template parameters
-// (C <= 8), so every per-plane loop unrolls into straight-line code.
+// Layout.  A group of W lanes holds one set row: lane a < A of the group
+// keeps way a's C int32 planes in registers.  The probe and the empty-slot
+// search are ballots, the cost victim a minimum plus a ballot, and
+// rotate_insert is one __shfl_up_sync by a lane (the GPU form of the
+// paper's vpermd).  A vector's first lane is found from a bit mask of vector
+// starts (a find-last-set), not by a shuffle.  Lanes >= A are masked out of
+// every ballot and of the minimum, so A <= 32.  The one-pass kernel takes
+// W = 32, one row per warp; the access kernel the power of two at or above
+// A.  The plane counts C and KP are template parameters (C <= 8), so every
+// per-plane loop unrolls into straight-line code.
 //
-// msl_access.  It moves B*(2*A*C + KP + V + C + 2) int32 words and does a
-// few hundred integer operations per row: bytes bound it.  Each warp does its
-// one row and exits.
+// msl_access: what bounds it.  It moves B*(2*A*C + KP + V + C + 2) int32
+// words, 232 bytes a row at the main geometry (A = 8, C = 3), but one row
+// per warp costs some 200 warp instructions per row (220 in SASS at C = 3),
+// and lanes A..31 (24 of 32 at A = 8) idle through all of them: at B = 8192
+// on an H100 that is 62 warps per SM and 3.06 us, against a byte bound of
+// 0.57 us.  So issuing instructions for idle lanes bounds it, not bytes.  The
+// design gives each row a group of W lanes, W the power of two at or above
+// A, so a warp holds R = 32 / W rows (R = 4 at A = 8) and each instruction
+// works for R rows: ballots are shifted down to the group's bits and
+// shuffles take width W (the Group primitives).  The warp's R rows are
+// contiguous, so each plane's load and store is one instruction for them
+// all, as is each query operand's load.  Staging the rows in shared memory
+// and copying them in 16-byte words, and spreading the scalar outputs over
+// a group's lanes, both measured slower (more instructions per warp) and
+// were left out.  At A > 16 a warp holds one row.
 //
 // msl_onepass: what bounds it.  It moves about the same bytes, but a chain of
 // L queries on one set is L dependent transitions.  At Zipf 0.99 and
@@ -132,6 +146,51 @@ __device__ __forceinline__ int vec_start(unsigned vstarts, int x) {
   return top_lane(vstarts & ((2u << x) - 1u));
 }
 
+// A lane's place in its group of W lanes (W a power of two; a warp holds
+// 32 / W groups, one set row each).  Every lane of the warp executes every
+// call, whatever its group: ballots are taken over the whole warp and
+// shifted down to the group's bits, shuffles take width W so that their
+// source lanes are group-local, and the minimum is a butterfly inside W.
+// At W = 32 these are the plain warp-wide primitives.
+template <int W>
+struct Group {
+  static_assert(W >= 1 && W <= 32 && (W & (W - 1)) == 0, "group width");
+  int lane;  // lane within the group
+  int base;  // the group's first lane in the warp
+
+  __device__ __forceinline__ explicit Group(int warp_lane)
+      : lane(warp_lane & (W - 1)), base(warp_lane & ~(W - 1)) {}
+
+  __device__ __forceinline__ unsigned ballot(bool p) const {
+    const unsigned b = __ballot_sync(kFull, p);
+    if constexpr (W == 32) {
+      return b;
+    } else {
+      return (b >> base) & ((1u << W) - 1u);
+    }
+  }
+  __device__ __forceinline__ int shfl(int x, int src) const {
+    if constexpr (W == 1) return x;
+    else return __shfl_sync(kFull, x, src, W);
+  }
+  __device__ __forceinline__ int shfl_up1(int x) const {
+    if constexpr (W == 1) return x;
+    else return __shfl_up_sync(kFull, x, 1, W);
+  }
+  __device__ __forceinline__ int min(int x) const {
+    if constexpr (W == 32) {
+      return __reduce_min_sync(kFull, x);
+    } else {
+#pragma unroll
+      for (int o = W / 2; o > 0; o >>= 1) {
+        const int y = __shfl_xor_sync(kFull, x, o, W);
+        x = y < x ? y : x;
+      }
+      return x;
+    }
+  }
+};
+
 template <int C, int KP>
 __device__ __forceinline__ void load_query(const Geometry& g, const Operands& in,
                                            int i, Query<C>& q) {
@@ -165,25 +224,28 @@ __device__ __forceinline__ void store_row(const Geometry& g, int* row, int lane,
   }
 }
 
-// Apply query q to the row the warp holds in r (lane a < A holds r[0..C)).
-// On return r holds the new row and every lane holds the same outputs.
-// Mirrors _transition of the Pallas kernel and row_apply_ev of the plain
-// version, bit for bit.  The put path comes first: it reads the row alone,
-// so it can run while the query's operands arrive.
-template <int C, int KP>
-__device__ __forceinline__ void transition(const Geometry& g, int lane, int r[C],
+// Apply query q to the row the lane group holds in r (group lane a < A
+// holds r[0..C)).  On return r holds the new row and every lane of the
+// group holds the same outputs.  Mirrors _transition of the Pallas kernel
+// and row_apply_ev of the plain version, bit for bit.  The put path comes
+// first: it reads the row alone, so it can run while the query's operands
+// arrive.  Lanes A..W-1 of a group are kept out of every ballot and of the
+// minimum.
+template <int C, int KP, int W>
+__device__ __forceinline__ void transition(const Geometry& g, const Group<W>& grp, int r[C],
                                            const Query<C>& q, Result<C>& out) {
   static_assert(KP >= 1 && KP <= 2 && C >= KP && C <= kMaxPlanes, "plane counts");
+  const int lane = grp.lane;
   const bool in_row = lane < g.A;
 
   // put path: deepest empty lane, else the victim
-  const int e = top_lane(__ballot_sync(kFull, in_row && r[0] == kEmpty));
+  const int e = top_lane(grp.ballot(in_row && r[0] == kEmpty));
   int victim = g.A - 1;
   if (g.cost_planes) {  // warp-uniform
     const int seg_lo = g.set_lru ? 0 : (g.M - 1) * g.P;
     const int cand = (in_row && lane >= seg_lo) ? r[C - 1] : INT_MAX;
-    const int cmin = __reduce_min_sync(kFull, cand);
-    victim = top_lane(__ballot_sync(kFull, in_row && cand == cmin));
+    const int cmin = grp.min(cand);
+    victim = top_lane(grp.ballot(in_row && cand == cmin));
   }
   const int pos_ins = e >= 0 ? e : victim;
   const int lo_put = g.set_lru ? 0 : vec_start(g.vstarts, pos_ins);
@@ -191,7 +253,7 @@ __device__ __forceinline__ void transition(const Geometry& g, int lane, int r[C]
   // probe: highest lane whose key planes match (keys are unique in a row)
   bool eq = in_row && r[0] == q.item[0];
   if (KP == 2) eq = eq && r[KP - 1] == q.item[KP - 1];
-  const int pos = top_lane(__ballot_sync(kFull, eq));
+  const int pos = top_lane(grp.ballot(eq));
   const bool hit = pos >= 0;
   const int pos_c = hit ? pos : 0;
 
@@ -214,9 +276,9 @@ __device__ __forceinline__ void transition(const Geometry& g, int lane, int r[C]
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const int x = r[c];
-    const int at_pos = __shfl_sync(kFull, x, pos_c);
-    const int shifted = __shfl_up_sync(kFull, x, 1);
-    const int displaced = __shfl_sync(kFull, x, hi);
+    const int at_pos = grp.shfl(x, pos_c);
+    const int shifted = grp.shfl_up1(x);
+    const int displaced = grp.shfl(x, hi);
     const int item = use_put ? q.item[c] : at_pos;
     const int rotated = lane == lo ? item : ((lane > lo && lane <= hi) ? shifted : x);
     const int killed = (c == 0 && hit && lane == pos_c) ? kEmpty : x;
@@ -243,21 +305,43 @@ __device__ __forceinline__ void store_result(const Geometry& g, const Outputs& o
   for (int c = 0; c < C; ++c) o.ev[(size_t)i * C + c] = res.ev[c];
 }
 
-template <int C, int KP>
+// One warp holds R = 32 / W set rows, W the power of two at or above A:
+// lane l of group s holds way l of row i0 + s.  The warp's R rows are one
+// contiguous run of R * A * C words, and lane s * A + l reads and writes
+// the C words of its way, so each plane's load or store is one instruction
+// for the warp's R rows; each lane loads its own query's operands, one load
+// instruction per operand plane for the warp's R queries, and lane 0 of
+// each group stores its row's scalar outputs.  A group past B computes on
+// zeros and the last query and stores nothing; only a warp whose first row
+// is past B returns early, so every lane reaches every ballot and shuffle.
+// At R = 1 it compiles to the code of a one-row-per-warp kernel.
+template <int C, int KP, int W>
 __global__ void msl_access_kernel(Geometry g, int B, const int* __restrict__ rows,
                                   Operands in, Outputs out) {
-  const int i = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  constexpr int R = 32 / W;
   const int lane = threadIdx.x & 31;
-  if (i >= B) return;  // whole warps exit together
-  const size_t row_off = (size_t)i * g.A * C;
+  const int i0 = ((blockIdx.x * blockDim.x + threadIdx.x) >> 5) * R;
+  if (i0 >= B) return;  // whole warps exit together
+  const Group<W> grp(lane);
+  const int i = i0 + lane / W;                          // the group's row
+  const bool row_in = R == 1 || i < B;
+  const bool mine = row_in && grp.lane < g.A;
+  const size_t tile = (size_t)i0 * g.A * C;             // the warp's rows
+  const int way = ((lane / W) * g.A + grp.lane) * C;    // this lane's way in them
+  const int* src = rows + tile;
+  int* dst = out.rows + tile;
   int r[C];
-  load_row<C>(g, rows + row_off, lane, r);
+#pragma unroll
+  for (int c = 0; c < C; ++c) r[c] = mine ? src[way + c] : 0;
   Query<C> q;
-  load_query<C, KP>(g, in, i, q);
+  load_query<C, KP>(g, in, R == 1 ? i0 : min(i, B - 1), q);
   Result<C> res;
-  transition<C, KP>(g, lane, r, q, res);
-  store_row<C>(g, out.rows + row_off, lane, r);
-  if (lane == 0) store_result<C, KP>(g, out, i, res);
+  transition<C, KP, W>(g, grp, r, q, res);
+  if (mine) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) dst[way + c] = r[c];
+  }
+  if (row_in && grp.lane == 0) store_result<C, KP>(g, out, i, res);
 }
 
 // One chain member's operands.
@@ -390,6 +474,7 @@ msl_onepass_kernel(Geometry g, int B, const int* __restrict__ rows, Operands in,
 
   const int ac = g.A * C;
   int* stage = stage_s[threadIdx.x >> 5];
+  const Group<32> warp(lane);
   int r[C];
   load_row<C>(g, rows + (size_t)head * ac, lane, r);
 
@@ -417,7 +502,7 @@ msl_onepass_kernel(Geometry g, int B, const int* __restrict__ rows, Operands in,
 #pragma unroll
       for (int c = 0; c < C; ++c) nr[c] = r[c];
       Result<C> res;
-      transition<C, KP>(g, lane, nr, m.q, res);
+      transition<C, KP, 32>(g, warp, nr, m.q, res);
       if (m.served == 0) {
         // an unserved member passes the row on untouched and reports
         // hit 0, pos -1, value 0, ev 0
@@ -461,6 +546,33 @@ msl_onepass_kernel(Geometry g, int B, const int* __restrict__ rows, Operands in,
 
 int blocks_for(int B) { return (B + kWarpsPerBlock - 1) / kWarpsPerBlock; }
 
+// The access kernel's lane-group width: the power of two at or above A.
+int group_width(int A) {
+  int w = 1;
+  while (w < A) w <<= 1;
+  return w;
+}
+
+// Blocks of the access kernel: one warp per 32 / W rows, from shapes alone.
+int access_blocks(int B, int W) {
+  const int rows_per_warp = 32 / W;
+  return blocks_for((B + rows_per_warp - 1) / rows_per_warp);
+}
+
+// Call f(std::integral_constant<int, W>) for a group width W in {1, ..., 32}.
+template <typename F>
+void with_width(int W, F&& f) {
+  using std::integral_constant;
+  switch (W) {
+    case 1: f(integral_constant<int, 1>{}); break;
+    case 2: f(integral_constant<int, 2>{}); break;
+    case 4: f(integral_constant<int, 4>{}); break;
+    case 8: f(integral_constant<int, 8>{}); break;
+    case 16: f(integral_constant<int, 16>{}); break;
+    default: f(integral_constant<int, 32>{}); break;
+  }
+}
+
 // The mask of vector starts, or 0 for a geometry the kernels do not take.
 unsigned vstarts_for(int A, int P) {
   if (A <= 0 || A > 32 || P <= 0) return 0;
@@ -501,10 +613,13 @@ int msl_access_launch(const int* rows, const int* qk, const int* qv,
   const Outputs out{rows_out, hit, pos, val, ev};
   if (g.vstarts == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return static_cast<int>(cudaGetLastError());
+  const int W = group_width(A);
   return with_planes(C, KP, [&](auto c, auto kp) {
-    msl_access_kernel<decltype(c)::value, decltype(kp)::value>
-        <<<blocks_for(B), kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-            g, B, rows, in, out);
+    with_width(W, [&](auto w) {
+      msl_access_kernel<decltype(c)::value, decltype(kp)::value, decltype(w)::value>
+          <<<access_blocks(B, decltype(w)::value), kWarpsPerBlock * 32, 0,
+             static_cast<cudaStream_t>(stream)>>>(g, B, rows, in, out);
+    });
   });
 }
 

@@ -7,8 +7,10 @@ what bounds each one and what its design does about it).  ``build.py``
 compiles it with ``nvcc`` at first use and loads it with ctypes.
 
 * ``msl_access_kernel_call`` — one stateless transition per pre-gathered
-  row; replaces the Pallas ``msl_access_kernel_call``.  Plain version:
-  ``msl_access_plain`` (= ``ref.msl_access_ref``).
+  row, a group of W lanes per row (W the power of two at or above A), so a
+  warp holds 32 / W rows (4 at A = 8) and its instructions are not spent
+  on idle lanes; replaces the Pallas ``msl_access_kernel_call``.  Plain
+  version: ``msl_access_plain`` (= ``ref.msl_access_ref``).
 * ``msl_onepass_kernel_call`` — conflict-aware single pass over queries
   sorted by set id: a warp per chain head walks its whole same-set chain
   with the row in registers, resolving each run of equal queries with one
@@ -48,7 +50,7 @@ __all__ = [
 # Kernel launches per wrapper, counted where each launch is made.
 LAUNCHES = {"msl_access": 0, "msl_onepass": 0}
 
-MAX_ASSOC = 32      # one warp holds one set row: a lane per way
+MAX_ASSOC = 32      # a set row is held by at most one warp: a lane per way
 MAX_PLANES = 8      # planes per lane the kernels are built for (kMaxPlanes)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "msl_cache.cu"
@@ -57,14 +59,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = load_library(SOURCE)
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C launchers' signatures on a library built from SOURCE."""
     lib.msl_access_launch.argtypes = [_P] * 11 + [_I] * 9 + [_P]
     lib.msl_access_launch.restype = _I
     lib.msl_onepass_launch.argtypes = [_P] * 13 + [_I] * 9 + [_P]
     lib.msl_onepass_launch.restype = _I
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    return _bind(load_library(SOURCE))
 
 
 def _ptr(t: torch.Tensor | None):
@@ -131,6 +137,10 @@ def msl_access_plain(rows, qkeys, qvals, ops=None, chain_live=None, costs=None,
 def msl_access_kernel_call(rows, qkeys, qvals, ops=None, chain_live=None,
                            costs=None, *, cfg: MSLRUConfig):
     """Fused multi-step LRU op over pre-gathered rows.
+
+    The kernel gives each row a group of W lanes, W the power of two at or
+    above A, so one warp takes 32 / W rows; it launches ceil(B / (32 / W))
+    warps, sized from the shapes alone.
 
     rows (B, A, C) int32; qkeys (B, KP); qvals (B, V); ops (B,) optional
     opcodes (None = all OP_ACCESS); chain_live (B,) optional int32 execute

@@ -29,11 +29,16 @@ from torch_run_cases import run_cases
 RUN_CASES = run_cases()
 
 # (m, p, key_planes, value_planes, policy, cost_planes): the JAX kernel
-# tests' seven geometries plus a cost plane (as in test_torch_rows.py)
+# tests' seven geometries plus a cost plane, then the access kernel's
+# delicate lane groups: A = 12, A = 15 (P = 3), A = 2, A = 1, and A = 32
+# with C = 8 (as in test_torch_rows.py)
 ROW_GEOMS = [(2, 4, 1, 2, "multistep", 0), (1, 4, 1, 1, "multistep", 0),
              (4, 2, 2, 2, "multistep", 0), (2, 8, 1, 0, "multistep", 0),
              (1, 8, 1, 2, "multistep", 0), (2, 4, 1, 2, "set_lru", 0),
-             (8, 4, 2, 3, "multistep", 0), (2, 4, 1, 2, "multistep", 1)]
+             (8, 4, 2, 3, "multistep", 0), (2, 4, 1, 2, "multistep", 1),
+             (3, 4, 1, 2, "multistep", 0), (5, 3, 1, 2, "multistep", 0),
+             (1, 2, 1, 1, "multistep", 0), (1, 1, 1, 1, "multistep", 0),
+             (8, 4, 2, 5, "multistep", 1)]
 VARIANTS = ["access", "mixed_ops", "chain_live"]
 EMPTY_KEY = -(2**31)
 
@@ -91,6 +96,23 @@ def test_access_kernel_matches_plain(cuda, geom, variant):
     extra = [None if x is None else torch.from_numpy(x).to(cuda)
              for x in variant_operands(variant, ops, live, costs, cfg.cost_planes)]
     args = [torch.from_numpy(x).to(cuda) for x in (rows, qk, qv)] + extra
+    before = msl_cache.LAUNCHES["msl_access"]
+    got = msl_cache.msl_access_kernel_call(*args, cfg=cfg)
+    assert msl_cache.LAUNCHES["msl_access"] == before + 1
+    _assert_outputs_equal(msl_cache.msl_access_plain(*args, cfg=cfg), got)
+
+
+@pytest.mark.parametrize("b", [1, 3, 1001])
+@pytest.mark.parametrize("geom", ROW_GEOMS[:1] + ROW_GEOMS[-5:],
+                         ids=lambda g: "-".join(map(str, g)))
+def test_access_kernel_ragged_batches(cuda, geom, b):
+    """Batches that end in a partial warp or a lone row (a warp holds
+    32 / W rows), each operand a view one row into a larger batch, so that
+    a warp's rows start at no particular alignment."""
+    kw, rows, qk, qv, ops, live, costs = random_rows_case(geom, seed=3, b=b + 1)
+    cfg = MSLRUConfig(**kw)
+    args = [torch.from_numpy(x).to(cuda)[1:] for x in (rows, qk, qv, ops, live)]
+    args.append(torch.from_numpy(costs).to(cuda)[1:] if cfg.cost_planes else None)
     before = msl_cache.LAUNCHES["msl_access"]
     got = msl_cache.msl_access_kernel_call(*args, cfg=cfg)
     assert msl_cache.LAUNCHES["msl_access"] == before + 1

@@ -1,5 +1,6 @@
-"""The port stands alone: no module under src/repro_torch/ and not
-chip_smoke.py imports JAX or anything of the JAX package ``repro``."""
+"""The port stands alone: no module under src/repro_torch/, and neither
+chip_smoke.py nor kernel_ab.py, imports JAX or anything of the JAX package
+``repro``."""
 
 import ast
 import os
@@ -11,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(p for p in (ROOT / "src" / "repro_torch").rglob("*.py")
-                    if "_build" not in p.parts) + [ROOT / "chip_smoke.py"]
+                    if "_build" not in p.parts) + [ROOT / "chip_smoke.py",
+                                                   ROOT / "kernel_ab.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
@@ -31,7 +33,7 @@ def test_port_file_imports_no_jax(path):
 
 def test_importing_the_port_loads_no_jax():
     modules = [".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
-               for p in PORT_FILES if p.name != "chip_smoke.py"]
+               for p in PORT_FILES if p.is_relative_to(ROOT / "src")]
     modules = [m.removesuffix(".__init__") for m in modules]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in modules)
             + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

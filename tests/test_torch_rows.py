@@ -17,8 +17,16 @@ from repro_torch.kernels.msl_cache import (msl_access_kernel_call,
                                            msl_access_plain)
 from test_kernels import GEOMS, _random_case
 
-# (m, p, key_planes, value_planes, policy, cost_planes)
-ROW_GEOMS = [g + (0,) for g in GEOMS] + [(2, 4, 1, 2, "multistep", 1)]
+# (m, p, key_planes, value_planes, policy, cost_planes); the last five
+# are the geometries that make a lane group of the access kernel delicate:
+# A = 12 and A = 15 (P = 3) leave lanes of a group out of the row, A = 2
+# and A = 1 put 16 and 32 rows in a warp, A = 32 with C = 8 one
+ROW_GEOMS = [g + (0,) for g in GEOMS] + [(2, 4, 1, 2, "multistep", 1),
+                                         (3, 4, 1, 2, "multistep", 0),
+                                         (5, 3, 1, 2, "multistep", 0),
+                                         (1, 2, 1, 1, "multistep", 0),
+                                         (1, 1, 1, 1, "multistep", 0),
+                                         (8, 4, 2, 5, "multistep", 1)]
 VARIANTS = ["access", "mixed_ops", "chain_live"]
 OUT_NAMES = ["rows", "hit", "pos", "value", "evicted"]
 
