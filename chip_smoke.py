@@ -52,8 +52,25 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. the same requests through a contiguous engine on the same weights
    (plain attention): teacher-forced logits within LOGIT_ULPS bf16 ulps of
    the paged engine's, and where the token streams differ, a near-tie;
-10. every kernel's record as one JSON line (the paged kernel's with the
-   cluster size it launched with).
+10. every kernel's record (the paged kernel's with the cluster size it
+   launched with);
+11. megastep decode at full width: a twin of phase 8's engine with
+   ``decode_mode="megastep"`` captures one CUDA graph per pow2 window
+   bucket (each capture's ms and node count), then serves the same
+   requests through graph replays only: tokens, ticks, finish order and
+   prefill split equal phase 8's; ``paged_attn`` launches equal n_layers x
+   (in-flight launches + window steps), by the counter and, on a second
+   serve with each step under its own profiler, by the profiler too; ms per
+   decode tick and decode tokens/s from the first serve, busy share and
+   kernels per window from the second;
+12. split admission and round-robin decode at full width: a twin with
+   ``admit_mode="split"``, ``decode_mode="roundrobin"`` gives phase 8's
+   streams but where one splits at a near-tie (the teacher-forced logits of
+   the two tokens within LOGIT_ULPS bf16 ulps); one ``msl_onepass`` launch
+   per prefix-cache call.
+
+Then the JSON lines: the main path, the serving path (phases 8, 9, 11 and
+12) and every kernel's record.
 
 The msl_cache comparisons are bit-exact (all state is int32).  The last
 line is ``{"ok": true, "device": {...}}``.
@@ -954,8 +971,10 @@ def run_serving(torch):
     return eng, reqs, summary, snapshot
 
 
-def contiguous_twin(eng):
-    """An engine on the same model and weights as ``eng``, but contiguous."""
+def engine_twin(eng, **kw):
+    """An engine on the same model and weights as ``eng``, with a fresh
+    prefix cache and pool of the launcher's sizes; ``kw`` overrides the
+    engine's arguments (paged by default)."""
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.kv_cache import PagedKVPool
     from repro_torch.serving.prefix_cache import PrefixCache
@@ -965,7 +984,8 @@ def contiguous_twin(eng):
                        prefix_cache=PrefixCache(num_sets=256, m=2, p=4, chunk_tokens=ct,
                                                 device=DEVICE),
                        pool=PagedKVPool(eng.cfg, n_pages=256, page_tokens=ct, device=DEVICE),
-                       kv_mode="contiguous")
+                       **{"kv_mode": "paged", **kw})
+
 
 
 def teacher_forced_logits(torch, eng, prompt, tokens, paged):
@@ -1022,7 +1042,7 @@ def cross_check(torch, eng, reqs):
     stands for the engine's at that step."""
     from repro_torch.serving.engine import Request
 
-    twin = contiguous_twin(eng)
+    twin = engine_twin(eng, kv_mode="contiguous")
     for r in reqs:
         twin.submit(Request(rid=r.rid, prompt=r.prompt, max_new_tokens=r.max_new_tokens))
     twin.run_until_done()
@@ -1126,6 +1146,280 @@ def paged_record(torch, eng, snapshot, serving, err):
     }
 
 # ---------------------------------------------------------------------------
+# Slice 5: megastep decode as one CUDA graph per window, split admission and
+# round-robin decode
+# ---------------------------------------------------------------------------
+
+def graph_nodes(graph) -> int:
+    """Nodes of a captured ``torch.cuda.CUDAGraph`` (kept with
+    ``keep_graph=True``), from ``cuGraphGetNodes`` in ``libcuda``."""
+    import ctypes
+
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
+    return n.value
+
+
+def fresh(reqs, offset=0):
+    """Copies of ``reqs`` with no tokens yet (rids shifted by ``offset``)."""
+    from repro_torch.serving.engine import Request
+
+    return [Request(rid=offset + r.rid, prompt=r.prompt, max_new_tokens=r.max_new_tokens)
+            for r in reqs]
+
+
+def served(eng, reqs):
+    """What ``eng`` made of ``reqs``: per-request tokens and prefill split in
+    finish order."""
+    rids = {r.rid for r in reqs}
+    return [(r.rid, list(r.out_tokens), r.prefill_skipped, r.prefill_computed)
+            for r in eng.finished if r.rid in rids]
+
+
+def serve_windows(torch, eng, reqs, profile_steps=False):
+    """Drive ``eng`` tick by tick until ``reqs`` are served.  Returns the
+    wall time and, for every step that admitted nothing (a megastep window,
+    ending with the host fetch of its tokens), its (seconds, ticks covered,
+    tokens, decode steps).  With ``profile_steps`` every step runs under a
+    CUDA profiler of its own, and the list holds a record of every step:
+    wall and busy ms, kernels, ``paged_attn`` launches by the profiler and
+    by the counter."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import paged_attn
+
+    for r in reqs:
+        eng.submit(r)
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.queue or eng.active:
+        queued, tokens, ticks, steps = (len(eng.queue), eng.decode_tokens, eng.ticks,
+                                        eng.window_steps)
+        admits = bool(eng.queue and eng._free_slots)
+        launches = paged_attn.LAUNCHES["paged_attn"]
+        if profile_steps:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+        else:
+            t = time.perf_counter()
+            eng.step()
+            dt = time.perf_counter() - t
+        window = len(eng.queue) == queued
+        if window and (admits or eng.window_steps == steps):
+            raise AssertionError("a step that admitted nothing ran no window")
+        if profile_steps:
+            kernels = cuda_kernels(torch, prof)
+            out.append({"window": window, "wall_ms": 1e3 * dt, "ticks": eng.ticks - ticks,
+                        "steps": eng.window_steps - steps,
+                        "busy_ms": sum(v[0] for v in kernels.values()) / 1e3,
+                        "kernels": sum(v[1] for v in kernels.values()),
+                        "paged_attn": sum(v[1] for name, v in kernels.items()
+                                          if "paged_attn_kernel" in name),
+                        "paged_attn_counter": paged_attn.LAUNCHES["paged_attn"] - launches})
+        elif window:
+            out.append((dt, eng.ticks - ticks, eng.decode_tokens - tokens,
+                        eng.window_steps - steps))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def check_launches(eng, counted, stats, what):
+    """``paged_attn`` launches of a serve: n_layers per in-flight decode
+    launch and per decode step of a window."""
+    inflight = stats["decode_launches"] - stats["megastep_windows"]
+    want = eng.cfg.n_layers * (inflight + stats["megastep_steps"])
+    if not 0 < counted == want:
+        raise AssertionError(f"{what}: {counted} paged_attn launches, expected "
+                             f"{eng.cfg.n_layers} x ({inflight} in-flight launches + "
+                             f"{stats['megastep_steps']} window steps) = {want}")
+    return want
+
+
+def run_megastep(torch, eng, reqs, serving):
+    """Phase 11: the launcher's requests through a megastep twin of phase
+    8's engine (the same model and weights, paged).  Every pow2 bucket up
+    to ``max_window`` is captured first and timed on its own; the serve
+    must give phase 8's tokens, ticks, finish order and prefill split
+    through graph replays only.  Then a second serve under the profiler
+    with each step under its own profiler: its ``paged_attn`` launches
+    counted by the profiler and by the counter, and each window's busy
+    share and kernels."""
+    from repro_torch.kernels import paged_attn
+
+    twin = engine_twin(eng, decode_mode="megastep")
+    captures = []
+    steps = 1
+    while steps <= twin.max_window:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        win = twin.capture_window(steps)
+        torch.cuda.synchronize()
+        captures.append({"steps": steps, "ms": 1e3 * (time.perf_counter() - t),
+                         "nodes": graph_nodes(win.graph),
+                         "paged_attn": win.launches["paged_attn"]})
+        log(f"captured the {steps}-step window: {captures[-1]['ms']:.1f} ms (warm-up "
+            f"and capture), {captures[-1]['nodes']} graph nodes, "
+            f"{win.launches['paged_attn']} paged_attn launches per replay")
+        if win.launches["paged_attn"] != eng.cfg.n_layers * steps:
+            raise AssertionError("a window graph holds the wrong paged_attn launches")
+        steps *= 2
+    graphs = dict(twin.window_graphs)
+
+    zero_launches()
+    wall, windows = serve_windows(torch, twin, fresh(reqs))
+    launches = read_launches()
+    st = twin.stats()
+    if twin.window_graphs != graphs:
+        raise AssertionError("the serve captured a window graph outside the captures")
+    if served(twin, reqs) != served(eng, reqs) or st["ticks"] != serving["ticks"]:
+        raise AssertionError("megastep tokens, finish order, prefill split or ticks "
+                             "differ from the in-flight serve")
+    check_launches(twin, launches["paged_attn"], st, "megastep serve")
+    if launches["msl_onepass"] != twin.prefix_cache.device_calls:
+        raise AssertionError("msl_onepass launches != prefix-cache device calls")
+    win_s = sum(w[0] for w in windows)
+    win_ticks = sum(w[1] for w in windows)
+    win_tok = sum(w[2] for w in windows)
+    out = {
+        "ticks": st["ticks"], "wall_s": wall, "decode_launches": st["decode_launches"],
+        "host_syncs": st["host_syncs"], "megastep_windows": st["megastep_windows"],
+        "mean_window": st["mean_window"], "megastep_steps": st["megastep_steps"],
+        "masked_step_share": 1 - win_ticks / st["megastep_steps"],
+        "windows": [{"ms": 1e3 * s, "ticks": k, "tokens": n, "steps": m}
+                    for s, k, n, m in windows],
+        "ms_per_decode_tick": 1e3 * win_s / win_ticks,
+        "decode_tokens_per_s": win_tok / win_s,
+        "inflight_ms_per_decode_tick": serving["ms_per_decode_tick"],
+        "inflight_decode_tokens_per_s": serving["decode_tokens_per_s"],
+        "graphs": captures, "launches": launches,
+        "paged_attn_expected": twin.cfg.n_layers * (st["decode_launches"]
+                                                    - st["megastep_windows"]
+                                                    + st["megastep_steps"]),
+    }
+    log(f"megastep: {st['ticks']} ticks (in-flight {serving['ticks']}), "
+        f"{st['decode_launches']} decode launches (in-flight "
+        f"{serving['decode_launches']}), {st['host_syncs']} host syncs (in-flight "
+        f"{serving['host_syncs']}), {st['megastep_windows']} windows of mean "
+        f"{st['mean_window']:.2f} ticks over {st['megastep_steps']} steps (masked "
+        f"share {out['masked_step_share']:.3f}); {len(graphs)} graphs captured")
+    log(f"megastep decode: {out['ms_per_decode_tick']:.3f} ms per decode tick, "
+        f"{out['decode_tokens_per_s']:.1f} tokens/s over {len(windows)} windows "
+        f"(in-flight in phase 8: {serving['ms_per_decode_tick']:.3f} ms, "
+        f"{serving['decode_tokens_per_s']:.1f} tokens/s)")
+
+    before = twin.stats()
+    zero_launches()
+    _, steps_seen = serve_windows(torch, twin, fresh(reqs, 2000), profile_steps=True)
+    counted = read_launches()["paged_attn"]
+    d = {k: twin.stats()[k] - before[k] for k in ("ticks", "decode_launches", "host_syncs",
+                                                  "megastep_windows", "megastep_steps",
+                                                  "decode_tokens")}
+    want = check_launches(twin, counted, d, "profiled megastep serve")
+    seen = sum(w["paged_attn"] for w in steps_seen)
+    per = [w for w in steps_seen if w["window"]]
+    out["profiled_serve"] = {"paged_attn_profiler": seen, "paged_attn_counter": counted,
+                             "expected": want, **d}
+    log(f"profiled megastep serve (each step under its own profiler): paged_attn {seen} "
+        f"launches by the profiler, {counted} by the counter, expected {want} = "
+        f"{twin.cfg.n_layers} x ({d['decode_launches'] - d['megastep_windows']} in-flight "
+        f"launches + {d['megastep_steps']} window steps)")
+    for w in steps_seen:
+        log(f"  {'window' if w['window'] else 'in-flight tick'}: {w['ticks']} ticks in "
+            f"{w['steps']} steps, {w['wall_ms']:.3f} ms wall, {w['busy_ms']:.3f} ms busy, "
+            f"{w['kernels']} kernels, paged_attn {w['paged_attn']} by the profiler and "
+            f"{w['paged_attn_counter']} by the counter")
+    if seen != counted:
+        raise AssertionError(f"the profiler saw {seen} paged_attn launches, the "
+                             f"counter {counted}")
+    wall_ms = sum(w["wall_ms"] for w in per)
+    busy_ms = sum(w["busy_ms"] for w in per)
+    n_steps = sum(w["steps"] for w in per)
+    out["device"] = {"steps": steps_seen, "busy_share": busy_ms / wall_ms,
+                     "busy_ms_per_step": busy_ms / n_steps,
+                     "kernels_per_window": sum(w["kernels"] for w in per) / len(per),
+                     "kernels_per_step": sum(w["kernels"] for w in per) / n_steps,
+                     "ms_per_decode_tick_profiled": wall_ms / sum(w["ticks"] for w in per)}
+    log(f"profiled windows: busy share {out['device']['busy_share']:.3f}, "
+        f"{out['device']['busy_ms_per_step']:.3f} ms busy per step, "
+        f"{out['device']['kernels_per_window']:.0f} kernels per window "
+        f"({out['device']['kernels_per_step']:.0f} per step)")
+    return out
+
+
+def near_ties(torch, eng, reqs, got, want):
+    """Where the token streams ``got`` and ``want`` (rid -> tokens) differ:
+    the first differing step of each, and the gap there between the two
+    tokens' logits, teacher-forced with ``want``'s tokens through the paged
+    path of ``eng``.  Raises unless every gap is under LOGIT_ULPS bf16 ulps
+    of the step's largest |logit| (a near-tie that two roundings break
+    apart, as in phase 9)."""
+    ties = {}
+    for r in reqs:
+        a, b = want[r.rid], got[r.rid]
+        if a == b:
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        lg = teacher_forced_logits(torch, eng, r.prompt, a, paged=True)[j]
+        gap = float((lg[a[j]] - lg[b[j]]).abs())
+        tol = float(LOGIT_ULPS * 2.0 ** (torch.floor(torch.log2(lg.abs().max())) - 7))
+        ties[r.rid] = {"step": j, "gap": gap, "tol": tol}
+        log(f"request {r.rid}: streams first differ at step {j}; teacher-forced logit "
+            f"gap between the two tokens {gap:.5f} (tolerance {tol:.5f})")
+        if gap >= tol:
+            raise AssertionError(f"request {r.rid}: streams differ at step {j} with a "
+                                 f"decisive gap {gap}")
+    return ties
+
+
+def run_split_roundrobin(torch, eng, reqs, serving):
+    """Phase 12: the launcher's requests through a twin of phase 8's engine
+    with split admission and round-robin decode (paged).  Its streams must
+    be phase 8's but where two differ from a near-tie on (``near_ties``):
+    split admission prefills each request alone, and round-robin decode
+    admits on other ticks, so prefill GEMMs of other shapes round the
+    shared KV differently.  The one-pass kernel launches once per
+    prefix-cache call, the paged kernel n_layers times per decode launch."""
+    twin = engine_twin(eng, admit_mode="split", decode_mode="roundrobin")
+    zero_launches()
+    for r in fresh(reqs):
+        twin.submit(r)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    twin.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    st, pc = twin.stats(), twin.prefix_cache.stats()
+    got = {rid: toks for rid, toks, _, _ in served(twin, reqs)}
+    want = {rid: toks for rid, toks, _, _ in served(eng, reqs)}
+    if sorted(got) != sorted(want) or any(len(got[r]) != len(want[r]) for r in want):
+        raise AssertionError("split/round-robin did not serve every request in full")
+    ties = near_ties(torch, eng, reqs, got, want)
+    check_launches(twin, launches["paged_attn"], st, "split/round-robin serve")
+    if not 0 < launches["msl_onepass"] == pc["device_calls"]:
+        raise AssertionError("msl_onepass launches != prefix-cache device calls")
+    out = {"ticks": st["ticks"], "wall_s": wall, "decode_launches": st["decode_launches"],
+           "host_syncs": st["host_syncs"], "launches": launches,
+           "streams_equal": len(reqs) - len(ties), "near_ties": ties,
+           "prefix_cache_device_calls": pc["device_calls"], "hit_ratio": pc["hit_ratio"],
+           "prefill_computed": sum(r.prefill_computed for r in twin.finished),
+           "prefill_skipped": sum(r.prefill_skipped for r in twin.finished)}
+    log(f"split admission, round-robin decode: {out['streams_equal']} of {len(reqs)} "
+        f"streams equal phase 8's, the rest split at near-ties; {st['ticks']} ticks "
+        f"(in-flight {serving['ticks']}), {st['decode_launches']} decode launches, "
+        f"{st['host_syncs']} host syncs, prefill computed {out['prefill_computed']} / "
+        f"skipped {out['prefill_skipped']}; launches {launches}; prefix cache "
+        f"{pc['device_calls']} device calls")
+    return out
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1202,6 +1496,14 @@ def main() -> int:
             f"{r['call_ms']:.5f} ms per wrapper call (plain {r['plain_ms']:.3f} ms, "
             f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, library "
             f"{r['library_ms']} ms), {r['launches']} launches on the {r['launches_path']}")
+
+    phase("11. megastep decode at full width, paged: one CUDA graph per window")
+    serving["megastep"] = run_megastep(torch, eng, reqs, serving)
+    records[2]["launches_megastep_path"] = serving["megastep"]["launches"]["paged_attn"]
+
+    phase("12. split admission and round-robin decode at full width, paged")
+    serving["split_roundrobin"] = run_split_roundrobin(torch, eng, reqs, serving)
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"main_path": summary, "card": smi}))

@@ -1,4 +1,4 @@
-"""Serving entry point: ``python -m repro_torch.launch.serve [--no-smoke] [--kv-mode paged]``.
+"""Serving entry point: ``python -m repro_torch.launch.serve [--no-smoke] [--kv-mode paged] [--decode-mode megastep]``.
 
 Port of ``repro.launch.serve``.  Brings up the continuous-batching engine
 with the multi-step-LRU prefix cache and runs the launcher's synthetic
@@ -15,8 +15,10 @@ tokens each; ``PrefixCache(num_sets=256, m=2, p=4, chunk_tokens=16)``,
 widths and depth (the JAX launcher's ``--smoke`` cannot be turned off).
 ``--device`` defaults to ``cuda``; ``--device cpu`` serves on the CPU
 through the kernels' plain versions.  Weights are random, from a seeded
-``torch.Generator`` on the device.  The sharded backend, fault plans,
-throttling and megastep decode are not ported yet.
+``torch.Generator`` on the device.  ``--decode-mode`` picks in-flight,
+round-robin or megastep decode (on a CUDA device a megastep window is one
+replay of a captured CUDA graph per pow2 bucket of ``--max-window``).  The
+sharded backend, fault plans and throttling are not ported yet.
 """
 
 from __future__ import annotations
@@ -51,10 +53,17 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--chunk-tokens", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--no-prefix-cache", action="store_true")
-    ap.add_argument("--decode-mode", choices=["inflight"], default="inflight",
+    ap.add_argument("--decode-mode", choices=["inflight", "roundrobin", "megastep"],
+                    default="inflight",
                     help="inflight: one decode launch per tick advances every "
-                         "slot at its own length (round-robin and megastep "
-                         "are not ported yet)")
+                         "slot at its own length; roundrobin: the legacy "
+                         "min-length schedule (equivalence oracle); megastep: "
+                         "K pure-decode ticks as one device program (a CUDA "
+                         "graph replay on the card) with one host sync per "
+                         "window (token-identical to inflight)")
+    ap.add_argument("--max-window", type=int, default=16, metavar="K",
+                    help="megastep window cap (windows pad to pow2 buckets, "
+                         "one captured graph each)")
     ap.add_argument("--kv-mode", choices=["contiguous", "paged"],
                     default="contiguous",
                     help="contiguous: gather cached prefix pages into each "
@@ -80,7 +89,8 @@ def build(args) -> ServeEngine:
         pc = PrefixCache(num_sets=256, m=2, p=4, chunk_tokens=args.chunk_tokens,
                          device=device)
     return ServeEngine(model, params, slots=4, max_len=256, prefix_cache=pc,
-                       pool=pool, decode_mode=args.decode_mode, kv_mode=args.kv_mode)
+                       pool=pool, decode_mode=args.decode_mode, kv_mode=args.kv_mode,
+                       max_window=args.max_window)
 
 
 def make_requests(cfg, args) -> list[Request]:
@@ -121,6 +131,11 @@ def main(argv=None):
           f"{st['launches_per_token']:.3f} rows/token, host_syncs="
           f"{st['host_syncs']}, admit wait p50/p99 "
           f"{st['service_ticks_p50']:.0f}/{st['service_ticks_p99']:.0f} ticks")
+    if args.decode_mode == "megastep":
+        print(f"[serve] megastep: {st['megastep_windows']} windows "
+              f"(mean {st['mean_window']:.1f} ticks, cap {st['max_window']}), "
+              f"host_syncs={st['host_syncs']} ({st['host_syncs_per_token']:.3f}/token), "
+              f"drain rows/token={st['drain_launches_per_token']:.3f}")
     print(f"[serve] kv: mode={st['kv_mode']} gather_calls={st['gather_calls']} "
           f"resident_kv_peak={st['resident_kv_tokens_peak']} tok "
           f"({st['resident_kv_bytes_peak'] / 2**20:.1f} MiB)")

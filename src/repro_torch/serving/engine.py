@@ -3,23 +3,35 @@
 Port of ``repro.serving.engine`` for the attention decoder.  Flow per
 request:
 
-  1. chunk-hash the prompt; one op-coded ``PrefixCache.serve_chains`` call
-     per tick finds every admitted request's longest cached prefix, promotes
-     its hit chunks and inserts the rest with pre-staged page values;
+  1. chunk-hash the prompt; find every admitted request's longest cached
+     prefix — ``admit_mode``:
+     * ``"fused"`` (default): one op-coded ``PrefixCache.serve_chains``
+       call per tick finds the prefixes, promotes the hit chunks and
+       inserts the rest with pre-staged page values;
+     * ``"split"`` (the equivalence baseline): one LOOKUP and one GET call
+       (``PrefixCache.lookup_chains``), a B = 1 prefill per request, then
+       one ACCESS call (``insert_chains``) publishing the new chunks;
   2. make the cached pages the request's prefix KV — ``kv_mode``:
      * ``"contiguous"`` (the oracle): gather the pages into the slot's
        contiguous KV cache (a device copy per borrower);
      * ``"paged"``: pin the pages and record the slot's block table — zero
        copies; the pool is the single resident store;
-  3. prefill the remaining tokens of the tick's requests in one batched
-     launch per dependency wave (paged mode reads the prefix out of the
-     pool inside the launch);
+  3. prefill the remaining tokens (fused admission: one batched launch per
+     dependency wave; paged mode reads the prefix out of the pool inside
+     the launch);
   4. write the new chunks' KV into their pages;
-  5. decode: ONE launch per tick advances every active slot at its own
-     position (in-flight batching).  Paged decode walks the block table
-     over the pool for the prefix and a slot-local tail for the rest; on a
-     CUDA device each layer's attention is one launch of the paged kernel
-     (``kernels/paged_attn.py``).
+  5. decode — ``decode_mode``:
+     * ``"inflight"`` (default): ONE launch per tick advances every active
+       slot at its own position;
+     * ``"roundrobin"`` (the legacy oracle schedule): one launch per tick,
+       only the slots at the batch-minimum ``cur_len`` emit;
+     * ``"megastep"``: a pure-decode tick runs a window of K ticks as one
+       device program (``megastep_decode``) with one host sync, and the
+       host replays the window's bookkeeping on the ticks the tokens
+       would have been emitted on; ticks with admissions run in-flight.
+     Paged decode walks the block table over the pool for the prefix and a
+     slot-local tail for the rest; on a CUDA device each layer's attention
+     is one launch of the paged kernel (``kernels/paged_attn.py``).
 
 Fused admission keeps the JAX package's host-side page protocol line for
 line: intra-tick prefix dedupe (one owner per distinct chunk, borrowers in
@@ -27,32 +39,57 @@ later waves), reserve-then-commit paging with evicted pages released first,
 the pressure retry that funds leftover inserts from this tick's
 evictions, and decode-overlapped borrower waves (the tick's decode launch
 goes between the wave-0 and borrower prefills; a borrower owes this tick's
-token and gets one follow-up launch).
+token and gets one follow-up launch).  The megastep planner
+(``_plan_window``) is the JAX package's: K is the largest horizon in which
+no host-visible event (an admission into a freed slot) can fall.
 
 Differences from the JAX package, none visible in tokens or counters:
 
   * PyTorch updates the caches in place, so a decode launch writes each
     row's new KV straight into the slot cache (or tail) instead of
-    returning a cache that ``_merge_cache`` merges per slot.  Rows whose
-    output the tick does not take — idle slots, and borrower slots in the
-    launch issued before their wave — decode at a parked position
-    (``prefix_len``, tail position 0) that their next prefill overwrites,
-    so no launch touches another row's state or writes out of bounds.
-  * Only what the local prefix-cache backend reaches is ported: decode mode
-    ``"inflight"`` with fused admission.  A shed or partially placed chain,
-    which only a bounded or sharded backend produces, raises
-    ``NotImplementedError`` (so do the retry queue, plain fallback and
-    pending tail inserts that follow from it).  Megastep and round-robin
-    decode, split admission, throttling, faults and resharding are not
-    ported yet.
+    returning a cache that ``_merge_cache`` merges per slot.  A row whose
+    output a launch discards decodes at a parked position chosen so that
+    it writes nothing another step reads:
+    - a row with no live state (an idle slot, a borrower slot in the
+      launch issued before its wave, a row that retired inside a megastep
+      window) parks at ``prefix_len`` (tail position 0) in paged mode and
+      0 in contiguous mode, which its next prefill overwrites;
+    - a row with live state that does not emit (a round-robin row above
+      the batch minimum, a megastep row past the window's ``k_limit``)
+      decodes at its OWN ``cur_len`` with its own last token: it writes
+      exactly the KV that its next real step writes, bit for bit (rows are
+      row-local and the inputs are the same), into a position nothing has
+      read yet.
+  * A megastep window is a Python loop of ``steps`` decode steps.  On a CUDA
+    device the engine captures it as one ``torch.cuda.CUDAGraph`` per pow2
+    ``steps`` bucket (the counterpart of the JAX package's one compile per
+    ``steps``), at the bucket's first use after one eager warm-up on a
+    side stream with ``k_limit = 0``, and replays it for every later window
+    of that bucket.  The graph reads its operands from one persistent
+    device vector (``k_limit`` among them, so one graph serves every K of
+    its bucket; the block tables are copied in each window) filled by one
+    host-to-device copy, and writes tokens, emit masks, ``cur_len`` and
+    the live mask into one output tensor fetched by the window's single
+    ``_sync``.  Kernel launch counters move at capture, not at replay, so
+    the engine takes the capture's launches back and adds them on every
+    replay.  If capture or replay fails the engine raises; CPU tensors run
+    the same loop eagerly (the tests).
+  * Only what the local prefix-cache backend reaches is ported.  A shed or
+    partially placed chain, which only a bounded or sharded backend
+    produces, raises ``NotImplementedError`` (so do the retry queue, plain
+    fallback and pending tail inserts that follow from it).  Throttling,
+    fault plans and resharding are not ported yet.
 
 Stats glossary: ``decode_launches`` counts decode launches (1 per tick, 2
-on a tick whose borrower wave owes a token), ``launch_rows`` the active rows
-they computed, ``host_syncs`` the host<->device barriers (``_sync``: one
-per decode tick, one per prefill batch), ``gather_calls`` the prefix copies
-admission made (0 in paged mode by contract), ``resident_kv_tokens_peak``
-the per-tick high-water of KV tokens the active set holds resident, and
-``pool_exhausted`` the chunks that ended a tick unfunded.
+on a tick whose borrower wave owes a token, 1 per megastep window),
+``launch_rows`` the active rows they computed (a window counts its rows
+once), ``megastep_windows``/``mean_window`` the windows and the ticks each
+covered on average, ``host_syncs`` the host<->device barriers (``_sync``:
+one per decode tick or window, one per prefill batch), ``gather_calls`` the
+prefix copies admission made (0 in paged mode by contract),
+``resident_kv_tokens_peak`` the per-tick high-water of KV tokens the active
+set holds resident, and ``pool_exhausted`` the chunks that ended a tick
+unfunded.
 """
 
 from __future__ import annotations
@@ -64,6 +101,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import paged_attn
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.model import Model, _embed, _final, _logits_fn
@@ -91,6 +129,37 @@ class Request:
         if self.admit_tick < 0 or self.submit_tick < 0:
             return 0
         return self.admit_tick - self.submit_tick
+
+
+def continuation_prefill(cfg: ArchConfig, params, tokens, kv_prefix,
+                         prefix_len: int):
+    """Prefill ``tokens`` (B = 1, S_rest) on top of an existing KV prefix.
+
+    kv_prefix: (k, v) each (L, 1, prefix_len, KVH, Dh), or None.  Returns
+    (logits at the last token (V,), new_k, new_v (L, 1, S_rest, KVH, Dh)).
+    """
+    b, s = tokens.shape
+    h = _embed(cfg, params, tokens)
+    positions = prefix_len + torch.arange(s, device=tokens.device)[None, :]
+    ks, vs = [], []
+    for l, (p_l, w_l, t_l) in enumerate(zip(params["blocks"], cfg.windows(),
+                                            cfg.thetas())):
+        x = tfm._norm(cfg, p_l["ln1"], h)
+        q, k, v = attn_mod._project_qkv(p_l["attn"], x, cfg.n_heads, cfg.n_kv_heads,
+                                        cfg.head_dim, positions, cfg.rope_kind, t_l)
+        k_full, v_full = k, v
+        if kv_prefix is not None:
+            k_full = torch.cat([kv_prefix[0][l], k], dim=1)
+            v_full = torch.cat([kv_prefix[1][l], v], dim=1)
+        ctx = attn_mod.chunked_attention(
+            q, k_full, v_full, causal=True, window=w_l, softcap=cfg.softcap,
+            chunk=cfg.attn_chunk, q_offset=prefix_len)
+        a_out = ctx.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p_l["attn"]["wo"]
+        h = tfm._residual(cfg, p_l, h, x, a_out)
+        ks.append(k)
+        vs.append(v)
+    h = _final(cfg, params, h)
+    return _logits_fn(cfg, params)(h[:, -1])[0], torch.stack(ks), torch.stack(vs)
 
 
 def batched_continuation_prefill(cfg: ArchConfig, params, tokens, tok_lens,
@@ -185,8 +254,55 @@ def paged_decode_step(cfg: ArchConfig, params, tokens, tail_cache, pool_k,
     return _logits_fn(cfg, params)(h[:, -1]), tail_cache
 
 
+def megastep_decode(decode_fn, params, last_tok, cache, cur_lens, live, rem, *,
+                    eos: int, max_len: int, steps: int, k_limit, park):
+    """Up to ``steps`` in-flight decode ticks in one device program.
+
+    ``decode_fn(params, tokens, cache, cur_lens) -> (logits, cache)`` is a
+    row-local decode step that writes each row's new KV at its
+    ``cur_lens`` entry in place (``model.decode_step`` or a paged wrapper).
+    Each step: decode -> argmax -> ``emit = live & (i < k_limit)`` ->
+    advance ``last_tok``/``cur_len``/``rem`` where emitting -> retire a row
+    (live -> False) after the emission that exhausts ``rem`` (callers pass
+    min(max_new budget, max_len-1 - cur_len)), emits ``eos``, or reaches
+    ``max_len - 1``: the in-flight retirement test verbatim.  A live row
+    decodes at its own ``cur_len`` (past ``k_limit`` it rewrites the KV its
+    next real step writes, bit for bit); a retired or idle row at ``park``.
+
+    ``last_tok`` (B, 1) int32; ``cur_lens``/``rem``/``park`` (B,) int32;
+    ``live`` (B,) bool; ``k_limit`` an int or a 0-d int tensor on the
+    device (so one captured ``steps`` bucket serves every window size).
+    Makes no host sync.  Returns ``(last_tok, cur_lens, live, toks, emits)``
+    with ``toks`` (steps, B) int32 (-1 where a row did not emit) and
+    ``emits`` (steps, B) bool.
+    """
+    lt, cu, lv, rm = last_tok, cur_lens, live, rem
+    toks, emits = [], []
+    for i in range(steps):
+        emit = lv & (k_limit > i)
+        logits, cache = decode_fn(params, lt, cache, torch.where(lv, cu, park))
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        lt = torch.where(emit[:, None], tok[:, None], lt)
+        cu = cu + emit.to(cu.dtype)
+        rm = rm - emit.to(rm.dtype)
+        lv = lv & ~(emit & ((rm <= 0) | (tok == eos) | (cu >= max_len - 1)))
+        toks.append(torch.where(emit, tok, -1))
+        emits.append(emit)
+    return lt, cu, lv, torch.stack(toks), torch.stack(emits)
+
+
 def _pow2(n: int) -> int:
     return 1 << max(0, n - 1).bit_length() if n > 0 else 0
+
+
+@dataclasses.dataclass
+class WindowGraph:
+    """One captured megastep bucket: the graph, its output tensor (the
+    packed (2·steps + 2, slots) int32 result) and the kernel launches it
+    holds, by counter name."""
+    graph: "torch.cuda.CUDAGraph"
+    out: torch.Tensor
+    launches: dict
 
 
 class ServeEngine:
@@ -195,13 +311,21 @@ class ServeEngine:
     def __init__(self, model: Model, params, *, slots: int = 4,
                  max_len: int = 512, prefix_cache: PrefixCache | None = None,
                  pool: PagedKVPool | None = None, eos_token: int = -1,
+                 admit_batching: bool = True, admit_mode: str | None = None,
                  overlap_decode: bool = True, decode_mode: str = "inflight",
-                 kv_mode: str = "contiguous", tail_tokens: int | None = None):
-        if decode_mode != "inflight":
-            raise NotImplementedError(f"decode_mode={decode_mode!r} is not yet "
-                                      "ported; the port runs 'inflight'")
+                 kv_mode: str = "contiguous", max_window: int = 16,
+                 tail_tokens: int | None = None):
+        if decode_mode not in ("inflight", "roundrobin", "megastep"):
+            raise ValueError(f"unknown decode_mode {decode_mode!r}")
         if kv_mode not in ("contiguous", "paged"):
             raise ValueError(f"unknown kv_mode {kv_mode!r}")
+        # "fused" (default): one cache call + batched prefill per tick;
+        # "split": LOOKUP + GET, per-request prefill, ACCESS (the baseline)
+        admit_mode = admit_mode or ("fused" if admit_batching else "split")
+        if admit_mode not in ("fused", "split"):
+            raise ValueError(f"unknown admit_mode {admit_mode!r}")
+        if max_window < 1:
+            raise ValueError(f"max_window must be >= 1, got {max_window}")
         self.model = model
         self.cfg = model.cfg
         self.params = params
@@ -227,11 +351,25 @@ class ServeEngine:
         self._free_slots = list(range(slots))
         self.queue: list[Request] = []
         self.finished: list[Request] = []
+        self.admit_batching = admit_batching
+        self.admit_mode = admit_mode
         self.overlap_decode = overlap_decode
+        self.decode_mode = decode_mode
+        self.max_window = int(max_window)
+        # megastep on a CUDA device: one captured graph per pow2 ``steps``
+        # bucket, all reading one persistent operand vector (laid out by
+        # ``_window_inputs``) filled from a pinned host copy
+        self.window_graphs: dict[int, WindowGraph] = {}
+        self._win_w = -(-slots // 4) * 4   # 16-byte aligned segment width
+        self._win_in: torch.Tensor | None = None
+        self._win_stage: torch.Tensor | None = None
         self.ticks = 0               # completed engine ticks
-        self.decode_launches = 0     # decode launches
+        self.decode_launches = 0     # decode launches (a window is one)
         self.decode_tokens = 0       # tokens emitted by decode launches
         self.launch_rows = 0         # active rows computed across launches
+        self.megastep_windows = 0    # fused windows run (megastep mode)
+        self._window_ticks_sum = 0   # ticks covered by those windows
+        self.window_steps = 0        # decode steps they ran (pow2 buckets)
         self.host_syncs = 0          # host<->device barriers (``_sync``)
         self.drain_launch_rows = 0   # launch_rows on drain-phase ticks
         self.drain_decode_tokens = 0  # decode tokens on drain-phase ticks
@@ -313,6 +451,103 @@ class ServeEngine:
         if reqs:
             for req, tok in zip(reqs, self._sync(emits)):
                 self._emit(req, int(tok))
+
+    # -- split admission (the baseline) ----------------------------------------
+    def _admit_split(self, reqs: list[Request]):
+        """Admission in at most 3 prefix-cache device calls: one LOOKUP and
+        one GET call (``lookup_chains``) over every request's chunk chain,
+        one B = 1 prefill per request, then one ACCESS call
+        (``insert_chains``) publishing all new chunks.  Evicted pages
+        recycle to the pool only after all of the tick's admissions, so a
+        near-full pool may defer a page's reuse to the next tick."""
+        cfg = self.cfg
+        ct = self.prefix_cache.chunk_tokens if self.use_prefix else 0
+        pref = [r for r in reqs if self.use_prefix and len(r.prompt) >= ct]
+        pref_ids = {id(r) for r in pref}
+        plain = [r for r in reqs if id(r) not in pref_ids]
+
+        chains = [chunk_chain_hashes(r.prompt, ct) for r in pref]
+        pages_per = self.prefix_cache.lookup_chains(chains) if pref else []
+        emits = []                 # per-request argmaxes; ONE batched fetch
+        ins_chains: list[list[int]] = []
+        ins_pages: list[list[int]] = []
+        ins_depths: list[int] = []
+        ins_lens: list[int] = []
+        for req, chain, pages in zip(pref, chains, pages_per):
+            slot = req.slot
+            if len(pages) * ct >= len(req.prompt):
+                # fully-cached chunk-aligned prompt: always compute at least
+                # the last chunk (its re-publish is absorbed as a duplicate
+                # and the staged page recycles)
+                pages = pages[:-1]
+            plen = len(pages) * ct
+            req.prefill_skipped = plen
+            rl = len(req.prompt) - plen
+            req.prefill_computed = rl
+            pk = pv = None
+            for pg in pages:
+                self.pool.pin(pg)
+                req.pinned_pages.append(pg)
+            if pages and not self.paged:
+                pk, pv = self.pool.gather_pages(pages)
+                pk, pv = pk[:, None], pv[:, None]          # (L, 1, plen, ...)
+            rest = self._tensor(req.prompt[None, plen:].astype(np.int32))
+            if self.paged:
+                self._check_tail(req, rl)
+            if self.paged and pages:
+                # zero-copy: the launch reads the prefix out of the pool
+                logits, nk, nv = paged_batched_continuation_prefill(
+                    cfg, self.params, rest, self._tensor(np.array([rl], np.int32)),
+                    self.pool.k, self.pool.v,
+                    self._tensor(np.array(pages, np.int32)[None]),
+                    self._tensor(np.array([plen], np.int32)))
+                logits = logits[0]
+            elif pk is not None:
+                logits, nk, nv = continuation_prefill(cfg, self.params, rest,
+                                                      (pk, pv), plen)
+            else:
+                logits, nk, nv = continuation_prefill(cfg, self.params, rest, None, 0)
+            if self.paged:
+                # the slot holds only the tail; the prefix stays pool-resident
+                self.cache["k"][:, slot, :rl] = nk[:, 0, :rl]
+                self.cache["v"][:, slot, :rl] = nv[:, 0, :rl]
+                self.pool.set_block_table(slot, pages)
+            else:
+                if pk is not None:
+                    self.cache["k"][:, slot, :plen] = pk[:, 0]
+                    self.cache["v"][:, slot, :plen] = pv[:, 0]
+                self.cache["k"][:, slot, plen: plen + rl] = nk[:, 0, :rl]
+                self.cache["v"][:, slot, plen: plen + rl] = nv[:, 0, :rl]
+            # stage the new chunks' pages; published in one batch below
+            new_pages = []
+            for _ in range(len(req.prompt) // ct - len(pages)):
+                pg = self.pool.alloc()
+                if pg is None:
+                    # near-full pool: the rest of this chain's chunks go
+                    # unpublished this tick
+                    self.pool_exhausted += 1
+                    break
+                new_pages.append(pg)
+            if new_pages:
+                npg = len(new_pages)
+                shape = (cfg.n_layers, npg, ct, cfg.n_kv_heads, cfg.head_dim)
+                self.pool.write_pages(new_pages, nk[:, 0, : npg * ct].reshape(shape),
+                                      nv[:, 0, : npg * ct].reshape(shape))
+                ins_chains.append(chain[len(pages): len(pages) + npg])
+                ins_pages.append(new_pages)
+                ins_depths.append(len(pages))
+                ins_lens.append(len(chain))
+            self.cur_len[slot] = len(req.prompt)
+            self._mark_active(req)
+            emits.append(torch.argmax(logits))
+        if pref:
+            for req, tok in zip(pref, self._sync(emits)):
+                self._emit(req, int(tok))
+        if ins_chains:
+            for pg in self.prefix_cache.insert_chains(
+                    ins_chains, ins_pages, depths=ins_depths, chain_lens=ins_lens):
+                self.pool.release(pg)
+        self._admit_plain(plain)
 
     # -- fused one-call admission -------------------------------------------
     def _admit_fused(self, reqs: list[Request]):
@@ -613,13 +848,21 @@ class ServeEngine:
         return torch.argmax(logits, -1)
 
     # -- main loop -------------------------------------------------------------
-    def step(self):
-        """One engine tick: admit all free slots, then ONE decode launch that
-        advances every active slot at its own ``cur_len``.  With
-        ``overlap_decode`` (default) the decode launch is issued between the
-        wave-0 and borrower prefill launches; borrower slots admitted by
-        those later waves owe this tick's token and get one follow-up launch
-        (the only case a tick costs 2 launches)."""
+    def step(self, window_cap: int | None = None):
+        """One engine tick: admit all free slots, then ONE decode launch.
+        In megastep mode a pure-decode tick instead runs a K-tick window
+        (``_megastep``) and advances ``self.ticks`` by K; ``window_cap``
+        bounds K.
+
+        Admission goes through one fused call (``admit_mode="fused"``) or
+        the split path; ``admit_batching=False`` admits one request at a
+        time through the split path.  Decode: in-flight (every active slot
+        emits at its own ``cur_len``) or round-robin (only the slots at the
+        batch-minimum length emit).  With ``overlap_decode`` (default) the
+        decode launch is issued between the wave-0 and borrower prefill
+        launches; borrower slots admitted by those later waves owe this
+        tick's token and get one follow-up launch (the only case a tick
+        costs 2 launches)."""
         admits = []
         while self._free_slots and self.queue:
             req = self.queue.pop(0)
@@ -628,23 +871,39 @@ class ServeEngine:
         pending: list = []
         late: set[int] = set()
         if admits:
-            pending, late = self._admit_fused(admits)
+            if not self.admit_batching:
+                for req in admits:
+                    self._admit_split([req])
+            elif self.admit_mode == "fused":
+                pending, late = self._admit_fused(admits)
+            else:
+                self._admit_split(admits)
         if not self.active:
             for th in pending:
                 th()
             self.ticks += 1
             return
+        if self.decode_mode == "megastep" and not admits and not pending:
+            # pure-decode tick: nothing host-visible can happen for K
+            # ticks, so the whole window runs as one device program
+            self._megastep(self._plan_window(window_cap))
+            return
+        # ``ready`` rows decode at their own cur_len; ``accept`` rows emit
         accept = np.zeros(self.slots, bool)
         for r in self.active.values():
             accept[r.slot] = True
-        late_slots = {r.slot for r in self.active.values() if r.rid in late}
+        ready = accept.copy()
+        if self.decode_mode == "roundrobin":
+            cur = min(int(self.cur_len[r.slot]) for r in self.active.values())
+            accept &= self.cur_len == cur
+        late_slots = [r.slot for r in self.active.values() if r.rid in late]
         nxt = np.zeros(self.slots, np.int64)
         if pending and self.overlap_decode:
             # decode launch first (ready slots), THEN the borrower waves
-            accept_a = accept.copy()
-            for s in late_slots:
-                accept_a[s] = False
-            nxt_a = self._launch_decode(accept_a)
+            ready_a = ready.copy()
+            ready_a[late_slots] = False
+            accept_a = accept & ready_a
+            nxt_a = self._launch_decode(ready_a)
             for th in pending:
                 th()
             late_due = accept & ~accept_a
@@ -652,7 +911,7 @@ class ServeEngine:
             if late_due.any():
                 # a borrower slot admitted by a later wave owes this tick's
                 # token — follow-up launch now that its prefill ran
-                nxt_b = self._launch_decode(accept)
+                nxt_b = self._launch_decode(ready)
             if nxt_b is None:
                 nxt_a = self._sync(nxt_a)
             else:
@@ -662,7 +921,7 @@ class ServeEngine:
         else:
             for th in pending:
                 th()
-            nxt[accept] = self._sync(self._launch_decode(accept))[accept]
+            nxt[accept] = self._sync(self._launch_decode(ready))[accept]
         done = []
         for r in self.active.values():
             if accept[r.slot]:
@@ -688,23 +947,193 @@ class ServeEngine:
                 if self.paged:
                     slot_tok -= int(self.pool.prefix_lens[r.slot])
                 pinned.update(r.pinned_pages)
-            resident = slot_tok + len(pinned) * self.pool.page_tokens
-            self.resident_kv_tokens_peak = max(self.resident_kv_tokens_peak, resident)
-            self._resident_tok_sum += resident
-            self._resident_ticks += 1
-        for rid in done:
-            r = self.active.pop(rid)
+            self._sample_resident(slot_tok + len(pinned) * self.pool.page_tokens)
+        self._retire([self.active[rid] for rid in done])
+        self.ticks += 1
+
+    def _sample_resident(self, resident: int):
+        self.resident_kv_tokens_peak = max(self.resident_kv_tokens_peak, resident)
+        self._resident_tok_sum += resident
+        self._resident_ticks += 1
+
+    def _retire(self, reqs: list[Request]):
+        """Free ``reqs``' slots and pages, in order."""
+        for r in reqs:
+            self.active.pop(r.rid)
             for pg in r.pinned_pages:
                 self.pool.unpin(pg)
             if self.paged:
                 self.pool.clear_slot(r.slot)
             self._free_slots.append(r.slot)
             self.finished.append(r)
-        self.ticks += 1
+
+    # -- megastep windows ----------------------------------------------------
+    def _rem_budget(self, r: Request) -> int:
+        """Ticks until ``r`` MUST retire (ignoring EOS): the tighter of its
+        max_new budget and the ``max_len - 1`` cache-edge guard."""
+        return min(r.max_new_tokens - len(r.out_tokens),
+                   self.max_len - 1 - int(self.cur_len[r.slot]))
+
+    def _plan_window(self, cap: int | None = None) -> int:
+        """Largest provably event-free decode horizon: no admission into a
+        freed slot can fall strictly inside the window."""
+        rems = [self._rem_budget(r) for r in self.active.values()]
+        if self.queue:
+            # a retirement frees a slot the queue claims NEXT tick; with
+            # EOS enabled any tick could retire, else the first possible
+            # retirement is exactly min(rem) ticks out
+            k = 1 if self.eos >= 0 else min(rems)
+        else:
+            # nothing waits: retired rows just park, so run the whole tail
+            k = max(rems)
+        k = max(1, min(k, self.max_window))
+        if cap is not None:
+            k = min(k, max(1, int(cap)))
+        return k
+
+    def _window_inputs(self, k: int) -> np.ndarray:
+        """A window's operands as one int32 vector, in segments of width
+        ``_win_w`` (a multiple of 4, so every segment is 16-byte aligned, as
+        the paged kernel requires of the prefix lengths and block tables
+        it reads): last token, cur_len, live, rem, park (prefix_len in paged
+        mode, else 0), k_limit, then in paged mode the block tables."""
+        b, w = self.slots, self._win_w
+        bt = self.pool.block_tables.reshape(-1) if self.paged else np.zeros(0, np.int32)
+        x = np.zeros(6 * w + bt.size, np.int32)
+        x[:b] = self._last_tok[:, 0]
+        x[w: w + b] = self.cur_len
+        for r in self.active.values():
+            x[2 * w + r.slot] = 1
+            x[3 * w + r.slot] = self._rem_budget(r)
+        if self.paged:
+            x[4 * w: 4 * w + b] = self.pool.prefix_lens
+        x[5 * w] = k
+        x[6 * w:] = bt
+        return x
+
+    def _window_body(self, inb: torch.Tensor, steps: int) -> torch.Tensor:
+        """``megastep_decode`` over the operand vector ``inb`` (on the
+        engine's device); returns the packed (2·steps + 2, slots) int32
+        result: tokens, emit masks, cur_len, live."""
+        b, w = self.slots, self._win_w
+        seg = [inb[i * w: i * w + b] for i in range(5)]
+        park = seg[4]
+        if self.paged:
+            bt = inb[6 * w:].view(b, -1)
+
+            def decode_fn(params, tokens, cache, cur_lens):
+                return paged_decode_step(self.cfg, params, tokens, cache, self.pool.k,
+                                         self.pool.v, bt, park, cur_lens,
+                                         smax=self.max_len)
+        else:
+            decode_fn = self.model.decode_step
+        _, cu, lv, toks, emits = megastep_decode(
+            decode_fn, self.params, seg[0][:, None], self.cache, seg[1], seg[2] != 0,
+            seg[3], eos=self.eos, max_len=self.max_len, steps=steps,
+            k_limit=inb[5 * w], park=park)
+        return torch.cat([toks, emits.to(torch.int32), cu[None], lv[None].to(torch.int32)])
+
+    def capture_window(self, steps: int, inputs: np.ndarray | None = None) -> WindowGraph:
+        """Capture the ``steps`` bucket's window as a CUDA graph (CUDA
+        only), after one eager warm-up on a side stream.  The warm-up runs
+        on ``inputs`` (default: the engine's current state) with
+        ``k_limit = 0``, so no row emits: live rows rewrite the KV their
+        next step writes and idle rows park.  Raises if capture fails."""
+        if self.device.type != "cuda":
+            raise ValueError("window graphs are captured on a CUDA device only")
+        x = self._window_inputs(0) if inputs is None else inputs.copy()
+        x[5 * self._win_w] = 0
+        if self._win_in is None:
+            self._win_in = torch.zeros(x.size, dtype=torch.int32, device=self.device)
+            self._win_stage = torch.zeros(x.size, dtype=torch.int32).pin_memory()
+        self._win_in.copy_(torch.from_numpy(x))
+        if self.paged:
+            paged_attn._library()       # build and load the kernel before capture
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._window_body(self._win_in, steps)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        before = dict(paged_attn.LAUNCHES)
+        try:
+            with torch.cuda.graph(graph):
+                out = self._window_body(self._win_in, steps)
+        finally:
+            # capture launches nothing on the card; replays add these back
+            launches = {n: paged_attn.LAUNCHES[n] - c for n, c in before.items()}
+            paged_attn.LAUNCHES.update(before)
+        graph.instantiate()
+        win = WindowGraph(graph, out, launches)
+        self.window_graphs[steps] = win
+        return win
+
+    def _run_window(self, steps: int, x: np.ndarray) -> torch.Tensor:
+        """The window's packed result on the device: the eager loop for CPU
+        tensors, else the bucket's graph (captured at first use) replayed
+        on ``x`` copied into the persistent operand vector."""
+        if self.device.type != "cuda":
+            return self._window_body(self._tensor(x), steps)
+        win = self.window_graphs.get(steps) or self.capture_window(steps, x)
+        self._win_stage.numpy()[:] = x
+        self._win_in.copy_(self._win_stage, non_blocking=True)
+        win.graph.replay()
+        for name, n in win.launches.items():
+            paged_attn.LAUNCHES[name] += n
+        return win.out
+
+    def _megastep(self, k: int):
+        """Run a K-tick pure-decode window as one device program, then
+        replay the window's host bookkeeping retroactively: emissions,
+        resident-KV samples, retirements and tick accounting land on the
+        tick each token would have been emitted on, as K in-flight ticks
+        place them."""
+        rows = list(self.active.values())
+        drain = not self.queue
+        steps = _pow2(k)
+        start_cur = self.cur_len.copy()
+        out = self._run_window(steps, self._window_inputs(k))
+        self.decode_launches += 1
+        self.launch_rows += len(rows)
+        self.megastep_windows += 1
+        self.window_steps += steps
+        o = self._sync(out)                # the window's ONE host barrier
+        toks_h, emits_h = o[:steps], o[steps: 2 * steps] != 0
+        n_emit = emits_h.sum(axis=0).astype(np.int64)     # (slots,)
+        for r in rows:
+            for j in range(int(n_emit[r.slot])):
+                self._emit(r, int(toks_h[j, r.slot]))
+        self.cur_len = o[2 * steps].astype(np.int32)
+        ticks_used = int(n_emit.max())
+        self.decode_tokens += int(n_emit.sum())
+        if drain:
+            self.drain_launch_rows += len(rows)
+            self.drain_decode_tokens += int(n_emit.sum())
+        if self.pool is not None:
+            # the per-tick resident-KV samples: at window tick j a row is
+            # resident iff it emits on j; its cur_len at the sample point
+            # (post-emission, pre-retirement) is start + j + 1
+            for j in range(ticks_used):
+                slot_tok, pinned = 0, set()
+                for r in rows:
+                    if n_emit[r.slot] <= j:
+                        continue
+                    slot_tok += int(start_cur[r.slot]) + j + 1
+                    if self.paged:
+                        slot_tok -= int(self.pool.prefix_lens[r.slot])
+                    pinned.update(r.pinned_pages)
+                self._sample_resident(slot_tok + len(pinned) * self.pool.page_tokens)
+        # retire in the in-flight order: ticks ascending, admission order
+        # within a tick (a stable sort on each row's emit count)
+        live = o[2 * steps + 1] != 0
+        self._retire(sorted((r for r in rows if not live[r.slot]),
+                            key=lambda r: int(n_emit[r.slot])))
+        self.ticks += ticks_used
+        self._window_ticks_sum += ticks_used
 
     def run_until_done(self, max_ticks: int = 10000) -> int:
         """Drive ticks until every queued/active request retires; returns
-        the tick count."""
+        the tick count (a megastep window of K counts K ticks)."""
         start = self.ticks
         while (self.queue or self.active) and self.ticks - start < max_ticks:
             self.step()
@@ -720,6 +1149,12 @@ class ServeEngine:
             "launch_rows": self.launch_rows,
             "launches_per_token": (self.launch_rows / self.decode_tokens
                                    if self.decode_tokens else 0.0),
+            "megastep_windows": self.megastep_windows,
+            "mean_window": (self._window_ticks_sum / self.megastep_windows
+                            if self.megastep_windows else 0.0),
+            "max_window": self.max_window,
+            # decode steps the windows ran: each pads its ticks to a pow2
+            "megastep_steps": self.window_steps,
             "host_syncs": self.host_syncs,
             "host_syncs_per_token": (self.host_syncs / self.decode_tokens
                                      if self.decode_tokens else 0.0),

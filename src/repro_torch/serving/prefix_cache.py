@@ -17,11 +17,14 @@ carrying pre-staged page values.  On a CUDA device that call is one launch
 of the one-pass kernel.  ``device_calls`` counts engine invocations, one
 per ``_call``.
 
+The split admission path's ``lookup_chains`` is the two-call baseline: one
+LOOKUP call over every chunk of every chain, then one GET call promoting
+the hit prefixes (``insert_chains`` publishes the new chunks afterwards).
+
 The local backend never sheds, so every chain comes back served whole
 (``ChainServe.served_len == len(chain)``, ``shed`` False).  The JAX
 package's ``backend=`` hook (the sharded client with its sheds, retries and
-split placement), the elastic passthroughs and the split admission path's
-``lookup_chains`` wait for the sharded cache.
+split placement) and the elastic passthroughs wait for the sharded cache.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.core import (MSLRUConfig, MultiStepLRUCache, OP_ACCESS,
-                              OP_CHAIN_GET, OP_CHAIN_PUT, OP_LOOKUP)
+                              OP_CHAIN_GET, OP_CHAIN_PUT, OP_GET, OP_LOOKUP)
 
 __all__ = ["PrefixCache", "ChainServe", "chunk_chain_hashes", "fmix32_py",
            "service_tick_percentiles"]
@@ -257,6 +260,48 @@ class PrefixCache:
         # within one tick still settles its stored cost
         self._account_evictions(evicted)
         return results, evicted
+
+    # -- split path: lookups, then inserts ------------------------------------
+    def lookup_chains(self, chains: list[list[int]]) -> list[list[int]]:
+        """Pages for each chain's longest cached prefix, in at most 2 device
+        calls: one LOOKUP call over every chunk of every chain (read-only,
+        so chains cannot perturb each other's probe), a host-side
+        longest-prefix scan, then one GET call promoting exactly the
+        hit-prefix chunks in chain order — the same mutations and stats as
+        the fused ``serve_chains`` pass."""
+        flat = [h for c in chains for h in c]
+        if not flat:
+            return [[] for _ in chains]
+        out = self._call(flat, OP_LOOKUP)
+        hit = out["hit"]
+        val = out["value"][:, 0]
+        pages: list[list[int]] = []
+        promote: list[int] = []
+        i = 0
+        for chain in chains:
+            n = len(chain)
+            k = n if hit[i: i + n].all() else int(np.argmin(hit[i: i + n]))
+            got = [int(x) for x in val[i: i + k]]
+            i += n
+            self.hits += k
+            if k < n:
+                self.misses += 1
+            # the caller (re)prefills past the hit prefix: account here, so
+            # the split tick counts each chunk once
+            self._account_reprefill(chain, k)
+            promote.extend(chain[:k])
+            pages.append(got)
+        if promote:
+            self._call(promote, OP_GET)
+        return pages
+
+    def lookup_chain(self, chain: list[int]) -> list[int]:
+        """Pages for the longest cached prefix (get semantics: promotes)."""
+        return self.lookup_chains([chain])[0]
+
+    def insert_chain(self, chain: list[int], pages: list[int]) -> list[int]:
+        """Insert chunk->page entries; returns the pages to recycle."""
+        return self.insert_chains([chain], [pages])
 
     def insert_chains(self, chains: list[list[int]], pages: list[list[int]],
                       depths: list[int] | None = None,

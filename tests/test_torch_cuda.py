@@ -349,3 +349,109 @@ def test_paged_serving_runs_the_kernel_on_the_card(cuda):
             == eng.cfg.n_layers * st["decode_launches"] > 0)
     assert (msl_cache.LAUNCHES["msl_onepass"] - before["msl_onepass"]
             == eng.prefix_cache.device_calls > 0)
+
+
+def _megastep_engine(requests=8):
+    """The launcher's paged megastep engine at smoke size on the card, after
+    its first tick (every slot live, each on a cached template prefix)."""
+    from repro_torch.launch import serve
+
+    args = serve.parser().parse_args(["--kv-mode", "paged", "--device", "cuda",
+                                      "--decode-mode", "megastep", "--requests",
+                                      str(requests)])
+    eng = serve.build(args)
+    for req in serve.make_requests(eng.cfg, args):
+        eng.submit(req)
+    eng.step()
+    assert len(eng.active) == eng.slots
+    return eng, args
+
+
+def test_captured_window_matches_the_eager_loop(cuda):
+    """A window replayed from its captured graph equals the eager
+    ``megastep_decode`` loop on the card: the same packed result (tokens,
+    emits, cur_len, live) and the same tail bits.  Capture's warm-up
+    launches the kernel once per layer and step; the capture itself
+    launches nothing; each replay adds n_layers x steps launches; a second
+    window of the bucket replays the same graph."""
+    eng, _ = _megastep_engine()
+    steps, n_layers = 4, eng.cfg.n_layers
+    x = eng._window_inputs(3)
+    snap = {k: v.clone() for k, v in eng.cache.items()}
+    eager = eng._window_body(torch.from_numpy(x).to(cuda), steps)
+    eager_tail = {k: v.clone() for k, v in eng.cache.items()}
+    for k in snap:
+        eng.cache[k].copy_(snap[k])
+    before = paged_attn.LAUNCHES["paged_attn"]
+    win = eng.capture_window(steps)
+    assert paged_attn.LAUNCHES["paged_attn"] - before == n_layers * steps  # warm-up
+    assert win.launches == {"paged_attn": n_layers * steps}
+    for k in snap:
+        eng.cache[k].copy_(snap[k])
+    for _ in range(2):
+        before = paged_attn.LAUNCHES["paged_attn"]
+        got = eng._run_window(steps, x).clone()
+        torch.cuda.synchronize()
+        assert paged_attn.LAUNCHES["paged_attn"] - before == n_layers * steps
+        assert torch.equal(got, eager)
+        for k in snap:
+            assert torch.equal(eng.cache[k], eager_tail[k])
+            eng.cache[k].copy_(snap[k])
+        assert eng.window_graphs == {steps: win}
+    toks = eager[:steps].cpu().numpy()
+    assert (toks[:3] >= 0).all() and (toks[3:] == -1).all()
+
+
+def test_replay_reads_new_block_tables(cuda):
+    """The block tables ride the operand vector: after a row's table
+    changes (its prefix pages swapped for others), a replay of the same
+    graph equals the eager loop on the new tables and differs from the
+    replay on the old ones."""
+    eng, _ = _megastep_engine()
+    steps = 2
+    snap = {k: v.clone() for k, v in eng.cache.items()}
+    old = eng._run_window(steps, eng._window_inputs(steps)).clone()
+    for k in snap:
+        eng.cache[k].copy_(snap[k])
+    row = int(np.flatnonzero(eng.pool.prefix_lens)[0])
+    n = int(eng.pool.prefix_lens[row]) // eng.pool.page_tokens
+    fresh = [p for p in range(eng.pool.n_pages) if eng.pool.refcount[p] == 0][:n]
+    eng.pool.k[:, fresh] = torch.randn_like(eng.pool.k[:, fresh])
+    eng.pool.v[:, fresh] = torch.randn_like(eng.pool.v[:, fresh])
+    eng.pool.block_tables[row, :n] = fresh
+    x = eng._window_inputs(steps)
+    eager = eng._window_body(torch.from_numpy(x).to(cuda), steps)
+    for k in snap:
+        eng.cache[k].copy_(snap[k])
+    got = eng._run_window(steps, x)
+    assert list(eng.window_graphs) == [steps]
+    assert torch.equal(got, eager)
+    assert not torch.equal(got[:steps, row], old[:steps, row])
+
+
+def test_megastep_serving_on_the_card(cuda):
+    """The launcher's paged megastep engine at smoke size: the in-flight
+    engine's tokens, ticks and finish order through captured graphs, with
+    n_layers launches per in-flight decode launch and per window step."""
+    from repro_torch.launch import serve
+
+    eng_m, args = _megastep_engine(requests=12)
+    eng_i = serve.build(serve.parser().parse_args(
+        ["--kv-mode", "paged", "--device", "cuda", "--requests", "12"]))
+    for req in serve.make_requests(eng_i.cfg, args):
+        eng_i.submit(req)
+    eng_i.run_until_done()
+    before = paged_attn.LAUNCHES["paged_attn"]
+    d0, w0 = eng_m.decode_launches, eng_m.megastep_windows
+    eng_m.run_until_done()
+    graphs = eng_m.window_graphs
+    warmups = sum(w.launches["paged_attn"] for w in graphs.values())
+    st_m, st_i = eng_m.stats(), eng_i.stats()
+    assert {r.rid: r.out_tokens for r in eng_m.finished} == \
+        {r.rid: r.out_tokens for r in eng_i.finished}
+    assert [r.rid for r in eng_m.finished] == [r.rid for r in eng_i.finished]
+    assert st_m["ticks"] == st_i["ticks"] and st_m["megastep_windows"] > 0
+    assert st_m["decode_launches"] < st_i["decode_launches"]
+    inflight = (st_m["decode_launches"] - d0) - (st_m["megastep_windows"] - w0)
+    assert (paged_attn.LAUNCHES["paged_attn"] - before - warmups
+            == eng_m.cfg.n_layers * (inflight + st_m["megastep_steps"]))

@@ -26,7 +26,8 @@ from repro_torch.launch import serve
 from repro_torch.models.model import make_model
 from repro_torch.serving.engine import Request, ServeEngine
 from repro_torch.serving.kv_cache import PagedKVPool
-from repro_torch.serving.prefix_cache import (PrefixCache, chunk_chain_hashes,
+from repro_torch.serving.prefix_cache import (ChainServe, PrefixCache,
+                                              chunk_chain_hashes,
                                               service_tick_percentiles)
 
 ARCH = "phi3-mini-3.8b"
@@ -34,6 +35,7 @@ CACHE_STATS = ("hits", "misses", "hit_ratio", "evictions", "occupancy",
                "service_ticks_p50", "service_ticks_p99", "reprefill_flops",
                "evicted_cost")
 ENGINE_STATS = ("ticks", "decode_launches", "decode_tokens", "launch_rows",
+                "megastep_windows", "mean_window",
                 "host_syncs", "drain_launch_rows", "drain_decode_tokens",
                 "requests_serviced", "service_ticks_p50", "service_ticks_p99",
                 "pool_exhausted", "gather_calls", "resident_kv_tokens_peak",
@@ -106,6 +108,41 @@ def test_serve_chains_matches_jax_over_ticks(cost_aware):
     ps, rs = port.stats(), ref.stats()
     assert {k: ps[k] for k in CACHE_STATS} == {k: rs[k] for k in CACHE_STATS}
     assert ps["evictions"] > 0 and ps["device_calls"] == 2 * 6
+    np.testing.assert_array_equal(port.cache.table.numpy(), np.asarray(ref.cache.table))
+
+
+def test_lookup_chains_matches_jax():
+    """Several ticks of the split path's ``lookup_chains`` (one LOOKUP and
+    one GET call) then ``insert_chains`` of each chain's missing chunks on
+    an 8-set cache that evicts: pages, recycled pages, stats, device calls
+    and the final table equal the JAX package's; ``lookup_chain`` and
+    ``insert_chain`` are the one-chain forms."""
+    rng = np.random.default_rng(6)
+    kw = dict(num_sets=8, m=2, p=2, chunk_tokens=16)
+    port, ref = PrefixCache(device="cpu", **kw), JaxPrefixCache(**kw)
+    page = 0
+    for tick in _tick_chains(rng):
+        got, want = port.lookup_chains(tick), ref.lookup_chains(tick)
+        assert got == want
+        ins, pages, depths, lens = [], [], [], []
+        for chain, hit in zip(tick, got):
+            if len(hit) < len(chain):
+                ins.append(chain[len(hit):])
+                pages.append(list(range(page, page + len(chain) - len(hit))))
+                page += len(chain) - len(hit)
+                depths.append(len(hit))
+                lens.append(len(chain))
+        assert port.insert_chains(ins, pages, depths=depths, chain_lens=lens) == \
+            ref.insert_chains(ins, pages, depths=depths, chain_lens=lens)
+    chain = tick[0]
+    assert port.lookup_chain(chain) == ref.lookup_chain(chain)
+    extra = [int(rng.integers(1, 2 ** 30)) * 2 + 1 for _ in range(3)]
+    assert port.insert_chain(extra, [page, page + 1, page + 2]) == \
+        ref.insert_chain(extra, [page, page + 1, page + 2])
+    assert port.lookup_chains([]) == ref.lookup_chains([]) == []
+    ps, rs = port.stats(), ref.stats()
+    assert {k: ps[k] for k in CACHE_STATS} == {k: rs[k] for k in CACHE_STATS}
+    assert port.device_calls == ref.device_calls and ps["evictions"] > 0
     np.testing.assert_array_equal(port.cache.table.numpy(), np.asarray(ref.cache.table))
 
 
@@ -213,20 +250,31 @@ def _summary(eng):
             "cache": {k: eng.prefix_cache.stats()[k] for k in CACHE_STATS}}
 
 
+# engine arguments of the decode and admission variants
+MODES = {"trace": {}, "eos_short_sequential": {},
+         "megastep": dict(decode_mode="megastep"),
+         "roundrobin": dict(decode_mode="roundrobin"),
+         "split": dict(admit_mode="split")}
+
+
 @pytest.mark.parametrize("kv_mode,n_pages,variant", [
     ("paged", 48, "trace"), ("contiguous", 48, "trace"), ("paged", 6, "trace"),
-    ("paged", 48, "eos_short_sequential")])
+    ("paged", 48, "eos_short_sequential"), ("paged", 48, "megastep"),
+    ("contiguous", 48, "megastep"), ("contiguous", 48, "roundrobin"),
+    ("paged", 48, "split"), ("contiguous", 48, "split")])
 def test_engine_matches_jax(models, kv_mode, n_pages, variant):
     """The whole engine against JAX's on the paged-decode trace: token
-    streams, finish order, prefill split, ticks, launch/sync/gather
-    counters, resident-KV peak, prefix-cache stats and pool state equal.
-    ``n_pages=6`` runs the pool dry: the pressure retry and
-    ``pool_exhausted`` paths.  The last variant adds prompts shorter than a
-    chunk (plain prefill inside fused admission), an EOS token that the
-    trace emits, and the sequential launch order (``overlap_decode=False``)."""
+    streams, finish order, prefill split, ticks, launch/sync/gather and
+    megastep-window counters, resident-KV peak, prefix-cache stats and pool
+    state equal.  ``n_pages=6`` runs the pool dry: the pressure retry and
+    ``pool_exhausted`` paths.  ``eos_short_sequential`` adds prompts
+    shorter than a chunk (plain prefill inside fused admission), an EOS
+    token that the trace emits, and the sequential launch order
+    (``overlap_decode=False``).  The others run megastep and round-robin
+    decode and split admission."""
     (jcfg, jm, jp), port_stack = models
     prompts = _prompts(jcfg)
-    kw = {}
+    kw = dict(MODES[variant])
     if variant == "eos_short_sequential":
         rng = np.random.default_rng(9)
         prompts += [rng.integers(1, jcfg.vocab_size, n).astype(np.int32) for n in (9, 12)]
@@ -241,8 +289,10 @@ def test_engine_matches_jax(models, kv_mode, n_pages, variant):
         assert got["stats"]["gather_calls"] == 0
     if n_pages == 6:
         assert got["stats"]["pool_exhausted"] > 0
-    if kw:
+    if variant == "eos_short_sequential":
         assert any(len(t) < 6 for t in got["tokens"].values())   # EOS retired early
+    if variant == "megastep":
+        assert got["stats"]["megastep_windows"] > 0
 
 
 def test_paged_engine_bit_identical_to_contiguous(models):
@@ -262,9 +312,21 @@ def test_paged_engine_bit_identical_to_contiguous(models):
 
 
 def test_engine_rejects_what_is_not_ported(models):
+    """What the JAX engine rejects, the port rejects; a shed chain, which
+    only the not yet ported bounded or sharded backends produce, raises."""
     _, (cfg, model, params) = models
-    with pytest.raises(NotImplementedError, match="megastep"):
-        ServeEngine(model, params, decode_mode="megastep")
+    with pytest.raises(ValueError, match="decode_mode"):
+        ServeEngine(model, params, decode_mode="speculative")
+    with pytest.raises(ValueError, match="admit_mode"):
+        ServeEngine(model, params, admit_mode="eager")
+    pool = PagedKVPool(cfg, n_pages=8, page_tokens=16, device="cpu")
+    pc = PrefixCache(num_sets=8, chunk_tokens=16, device="cpu")
+    pc.serve_chains = lambda chains, staged: (
+        [ChainServe([], 0, [], len(c), shed=True) for c in chains], [])
+    eng = ServeEngine(model, params, slots=1, max_len=64, prefix_cache=pc, pool=pool)
+    eng.submit(Request(rid=0, prompt=np.ones(20, np.int32), max_new_tokens=2))
+    with pytest.raises(NotImplementedError, match="shed"):
+        eng.step()
     with pytest.raises(ValueError, match="needs a prefix cache"):
         ServeEngine(model, params, kv_mode="paged")
     eng = ServeEngine(model, params, slots=1, max_len=32)
@@ -288,3 +350,19 @@ def test_launcher_serves_on_the_cpu(capsys):
     serve.main(["--device", "cpu", "--no-prefix-cache", "--requests", "4"])
     out = capsys.readouterr().out
     assert "4 requests in" in out and "skipped=0" in out
+
+
+def test_launcher_serves_megastep_on_the_cpu(capsys):
+    """``--decode-mode megastep``: the launcher's 24 requests in the
+    in-flight engine's 42 ticks, in 6 windows of 6 ticks (13 decode launches
+    and 19 host syncs against 43 and 49), with the ``[serve] megastep:``
+    line; ``--max-window`` caps the windows."""
+    serve.main(["--device", "cpu", "--decode-mode", "megastep", "--kv-mode", "paged"])
+    out = capsys.readouterr().out
+    assert "24 requests in 42 ticks" in out
+    assert "decode: 13 launches" in out and "host_syncs=19" in out
+    assert "[serve] megastep: 6 windows (mean 6.0 ticks, cap 16)" in out
+    serve.main(["--device", "cpu", "--decode-mode", "megastep", "--max-window", "4",
+                "--requests", "8"])
+    out = capsys.readouterr().out
+    assert "8 requests in" in out and "cap 4)" in out
