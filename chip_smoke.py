@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the multi-step LRU cache and of its
-prefix-cached serving path on one NVIDIA GPU.
+prefix-cached serving path (every attention-decoder architecture the port
+runs) on one NVIDIA GPU.
 
 Run from the root of a checkout, with one card visible:
 
@@ -41,7 +42,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    path's shapes and at GQA rep 2 and 4, Dh 64 and 128, with windows and
    softcaps, a row with no prefix and a row whose tail is one token
    (within the JAX package's gate for its Pallas kernel; argmax over Dh
-   equal wherever decisive);
+   equal wherever decisive); then at the attention-decoder families'
+   shapes, each with and without a softcap: Dh 16 rep 4, Dh 24 rep 3
+   (window 32), Dh 32 rep 4 on one KV head (window 16), Dh 128 rep 9 and
+   rep 8, Dh 256 rep 4 (windows 0 and 40), Dh 64 rep 16; Dh 80 and rep 17
+   must raise;
 8. the serving path: ``repro_torch.launch.serve.build`` with
    ``--no-smoke --kv-mode paged`` (phi3-mini-3.8b at its published width
    and depth, random weights from a seeded generator on the card), the
@@ -67,10 +72,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``admit_mode="split"``, ``decode_mode="roundrobin"`` gives phase 8's
    streams but where one splits at a near-tie (the teacher-forced logits of
    the two tokens within LOGIT_ULPS bf16 ulps); one ``msl_onepass`` launch
-   per prefix-cache call.
+   per prefix-cache call;
+13. the attention-decoder families at smoke width: gemma3-, starcoder2-,
+   command-r- and qwen2-vl-smoke, each served through ``serve.build`` with
+   ``--kv-mode paged`` and phase 8's checks (the windows of 16 and 32
+   bind), and through a contiguous twin on the same weights: streams equal
+   or split at a near-tie; the paged kernel's record at each one's shapes;
+14. starcoder2-7b at its published width and depth (32 layers, d_model
+   4608, 36 heads on 4 KV heads, Dh 128, d_ff 18432, vocab 49152; random
+   weights; nothing cut): the in-flight serve with phase 8's checks, then a
+   megastep twin on the window buckets phase 11's serve used: tokens,
+   ticks, finish order and prefill split equal; ms per decode tick, tokens/s,
+   wall, launches, host syncs, peak device memory, the kernel's record;
+15. gemma3-1b at its published width and depth (26 layers, d_model 1152, 4
+   heads on 1 KV head, Dh 256, vocab 262144): the in-flight serve, the same
+   checks and numbers.  Each full-width model is freed before the next is
+   built; neither's window (4096, 512) binds at the launcher's max_len 256.
 
-Then the JSON lines: the main path, the serving path (phases 8, 9, 11 and
-12) and every kernel's record.
+Then the JSON lines: the main path, the serving path (phases 8, 9, 11-15)
+and every kernel's record (the paged kernel's with ``shapes``: its record
+at phases 13-15's shapes).
 
 The msl_cache comparisons are bit-exact (all state is int32).  The last
 line is ``{"ok": true, "device": {...}}``.
@@ -789,13 +810,30 @@ PAGED_CASES = [
     ("rep 4, Dh 128, softcap 30", 32, 8, 128, None, 30.0),
     ("rep 4, Dh 64, window 24, softcap 50", 16, 4, 64, 24, 50.0),
     ("rep 2, Dh 128, window 100", 8, 4, 128, 100, 0.0),
+] + [  # the attention-decoder families' shapes, each also with a softcap
+    (f"{name}{', softcap 30' if cap else ''}", h, kvh, dh, window, cap)
+    for name, h, kvh, dh, window in [
+        ("command-r/qwen2-vl-smoke: Dh 16, rep 4", 8, 2, 16, None),
+        ("starcoder2-smoke: Dh 24, rep 3, window 32", 6, 2, 24, 32),
+        ("gemma3-smoke: Dh 32, rep 4, KVH 1, window 16", 4, 1, 32, 16),
+        ("starcoder2-7b: Dh 128, rep 9, KVH 4", 36, 4, 128, None),
+        ("command-r-35b/qwen2-vl-72b: Dh 128, rep 8, KVH 8", 64, 8, 128, None),
+        ("gemma3-1b: Dh 256, rep 4, KVH 1", 4, 1, 256, None),
+        ("gemma3-1b: Dh 256, rep 4, KVH 1, window 40", 4, 1, 256, 40),
+        ("Dh 64, rep 16", 16, 1, 64, None)]
+    for cap in (0.0, 30.0)
 ]
+# (what, H, KVH, Dh) outside the built set: the wrapper raises, no fallback
+PAGED_REFUSED = [("head dim 80", 4, 4, 80), ("rep 17", 17, 1, 64)]
 
 
-def serve_args(*extra):
+def serve_args(*extra, smoke=False):
+    """The launcher's arguments: the published widths and depth unless
+    ``smoke``."""
     from repro_torch.launch import serve
 
-    return serve.parser().parse_args(["--no-smoke", "--device", DEVICE, *extra])
+    return serve.parser().parse_args([*([] if smoke else ["--no-smoke"]), "--device",
+                                      DEVICE, *extra])
 
 
 def paged_inputs(torch, gen, h, kvh, dh):
@@ -846,6 +884,13 @@ def check_paged_kernel(torch):
         log(f"paged_attn == plain: {name}: max |err| {err:.5f} (allowed "
             f"{PAGED_ATOL} + {PAGED_RTOL}|plain|), argmax equal on {decisive} "
             f"decisive (row, head) pairs")
+    for what, h, kvh, dh in PAGED_REFUSED:
+        try:
+            paged_attn_decode_call(*paged_inputs(torch, gen, h, kvh, dh))
+        except ValueError as e:
+            log(f"paged_attn refuses {what}: {e}")
+        else:
+            raise AssertionError(f"paged_attn launched for {what}, outside its built set")
     return worst
 
 
@@ -909,12 +954,14 @@ def busy_share(torch, eng, reqs, first=10, n=PROFILE_TICKS):
     return out
 
 
-def run_serving(torch):
-    """Phase 8: the launcher's paged serving path at full width.  Launch
-    counts are zeroed just before the serve and read just after."""
+def run_serving(torch, args=None):
+    """Phase 8: the launcher's paged serving path at full width (or the
+    path ``args`` describe).  Launch counts are zeroed just before the
+    serve and read just after."""
     from repro_torch.launch import serve
 
-    args = serve_args("--kv-mode", "paged")
+    args = args or serve_args("--kv-mode", "paged")
+    torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     eng = serve.build(args)
     torch.cuda.synchronize()
@@ -1089,14 +1136,15 @@ def cross_check(torch, eng, reqs):
             "margins_at_first_difference": {k: v[0] for k, v in margins.items()}}
 
 
-def paged_record(torch, eng, snapshot, serving, err):
+def paged_record(torch, eng, snapshot, serving, err, path="serving path"):
     """The paged kernel's record at the serving path's shapes: the
-    operands of a decode tick with every slot busy (layer 0's pool plane
-    and tails, random q).  ``ms``, ``library_ms`` and ``plain_device_ms``
-    are device times with L2 flushed, as the path finds its K/V;
-    ``ms_in_path`` is the kernel's time per launch in the profiled serving
-    ticks; ``call_ms`` and ``plain_ms`` are CUDA-event times per call,
-    host included."""
+    operands of a decode tick with every slot busy (layer 0's pool plane,
+    tails and window, random q).  ``ms``, ``library_ms`` and
+    ``plain_device_ms`` are device times with L2 flushed, as the path finds
+    its K/V; ``ms_in_path`` is the kernel's time per launch in the profiled
+    serving ticks; ``call_ms`` and ``plain_ms`` are CUDA-event times per
+    call, host included.  The bound counts the positions the window lets
+    each row walk."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attn import (gather_view, kernel_splits,
@@ -1110,16 +1158,23 @@ def paged_record(torch, eng, snapshot, serving, err):
                     device=DEVICE).to(torch.bfloat16)
     args = (q, eng.pool.k[0], eng.pool.v[0], bt, eng.cache["k"][0], eng.cache["v"][0],
             plen, cur)
-    call = lambda: paged_attn_decode_call(*args)          # noqa: E731
-    plain = lambda: paged_attn_decode_plain(*args, smax=eng.max_len)  # noqa: E731
-    err = max(err, compare_paged(torch, call(), plain(), "serving shapes")[0])
+    window = cfg.windows()[0]
+    kw = dict(window=window, softcap=cfg.softcap)
+    call = lambda: paged_attn_decode_call(*args, **kw)          # noqa: E731
+    plain = lambda: paged_attn_decode_plain(*args, smax=eng.max_len, **kw)  # noqa: E731
+    err = max(err, compare_paged(torch, call(), plain(), f"{cfg.name} serving shapes")[0])
     # the yardstick: SDPA on the gathered contiguous view (the gather untimed)
     kv = [x.transpose(1, 2) for x in gather_view(*args[1:7], smax=eng.max_len)]
     S = kv[0].shape[2]
-    mask = torch.arange(S, device=DEVICE)[None, :] <= cur[:, None].long()
+    k_pos = torch.arange(S, device=DEVICE)[None, :]
+    mask = k_pos <= cur[:, None].long()
+    if window > 0:
+        mask &= cur[:, None].long() - k_pos < window
     library = lambda: F.scaled_dot_product_attention(      # noqa: E731
-        q[:, :, None], kv[0], kv[1], attn_mask=mask[:, None, None, :])
-    positions = int((cur + 1).sum())
+        q[:, :, None], kv[0], kv[1], attn_mask=mask[:, None, None, :],
+        enable_gqa=cfg.n_heads != cfg.n_kv_heads)
+    walked = cur + 1 if window <= 0 else torch.clamp(cur + 1, max=window)
+    positions = int(walked.sum())
     nbytes = (positions * 2 * cfg.n_kv_heads * cfg.head_dim * 2
               + 2 * q.numel() * 2 + bt.numel() * 4 + 2 * eng.slots * 4)
     ops = positions * 4 * cfg.n_heads * cfg.head_dim
@@ -1127,7 +1182,7 @@ def paged_record(torch, eng, snapshot, serving, err):
         "name": "paged_attn", "route": "cuda", "source": PAGED_SOURCE,
         "replaces": "src/repro/kernels/paged_attn.py:113",
         "launches": serving["launches"]["paged_attn"],
-        "launches_path": f"serving path: {cfg.n_layers} per paged decode launch",
+        "launches_path": f"{path}: {cfg.n_layers} per paged decode launch",
         "max_abs_err": err,
         "ms": cold_device_ms(torch, call, 100),
         "ms_warm_l2": kernel_ms(torch, call, 100, "paged_attn_kernel"),
@@ -1140,9 +1195,10 @@ def paged_record(torch, eng, snapshot, serving, err):
                     else "operations",
         "library_ms": cold_device_ms(torch, library, 100),
         "splits": kernel_splits(q, args[1], bt, args[4]),
-        "shape": {"B": eng.slots, "H": cfg.n_heads, "KVH": cfg.n_kv_heads,
-                  "Dh": cfg.head_dim, "positions": positions,
-                  "prefix_len": plen.tolist(), "cur_len": cur.tolist()},
+        "shape": {"arch": cfg.name, "B": eng.slots, "H": cfg.n_heads,
+                  "KVH": cfg.n_kv_heads, "Dh": cfg.head_dim, "window": window,
+                  "positions": positions, "prefix_len": plen.tolist(),
+                  "cur_len": cur.tolist()},
     }
 
 # ---------------------------------------------------------------------------
@@ -1242,21 +1298,17 @@ def check_launches(eng, counted, stats, what):
     return want
 
 
-def run_megastep(torch, eng, reqs, serving):
-    """Phase 11: the launcher's requests through a megastep twin of phase
-    8's engine (the same model and weights, paged).  Every pow2 bucket up
-    to ``max_window`` is captured first and timed on its own; the serve
-    must give phase 8's tokens, ticks, finish order and prefill split
-    through graph replays only.  Then a second serve under the profiler
-    with each step under its own profiler: its ``paged_attn`` launches
-    counted by the profiler and by the counter, and each window's busy
-    share and kernels."""
-    from repro_torch.kernels import paged_attn
-
+def megastep_serve(torch, eng, reqs, serving, buckets):
+    """A megastep twin of ``eng`` (the same model and weights, paged)
+    serving ``reqs``: the window ``buckets`` captured first, each timed on
+    its own; then the serve through graph replays only, which must give the
+    in-flight serve's (``serving``) tokens, ticks, finish order and prefill
+    split, with ``paged_attn`` = n_layers x (in-flight launches + window
+    steps) and one ``msl_onepass`` launch per prefix-cache call.  Returns
+    the twin and the serve's numbers."""
     twin = engine_twin(eng, decode_mode="megastep")
     captures = []
-    steps = 1
-    while steps <= twin.max_window:
+    for steps in buckets:
         torch.cuda.synchronize()
         t = time.perf_counter()
         win = twin.capture_window(steps)
@@ -1269,7 +1321,6 @@ def run_megastep(torch, eng, reqs, serving):
             f"{win.launches['paged_attn']} paged_attn launches per replay")
         if win.launches["paged_attn"] != eng.cfg.n_layers * steps:
             raise AssertionError("a window graph holds the wrong paged_attn launches")
-        steps *= 2
     graphs = dict(twin.window_graphs)
 
     zero_launches()
@@ -1310,9 +1361,22 @@ def run_megastep(torch, eng, reqs, serving):
         f"{st['mean_window']:.2f} ticks over {st['megastep_steps']} steps (masked "
         f"share {out['masked_step_share']:.3f}); {len(graphs)} graphs captured")
     log(f"megastep decode: {out['ms_per_decode_tick']:.3f} ms per decode tick, "
-        f"{out['decode_tokens_per_s']:.1f} tokens/s over {len(windows)} windows "
-        f"(in-flight in phase 8: {serving['ms_per_decode_tick']:.3f} ms, "
+        f"{out['decode_tokens_per_s']:.1f} tokens/s over {len(windows)} windows, serve "
+        f"{wall:.3f} s wall (in-flight: {serving['ms_per_decode_tick']:.3f} ms, "
         f"{serving['decode_tokens_per_s']:.1f} tokens/s)")
+    return twin, out
+
+
+def run_megastep(torch, eng, reqs, serving):
+    """Phase 11: the launcher's requests through a megastep twin of phase
+    8's engine (``megastep_serve``), every pow2 bucket up to
+    ``max_window`` captured first.  Then a second serve under the profiler
+    with each step under its own profiler: its ``paged_attn`` launches
+    counted by the profiler and by the counter, and each window's busy
+    share and kernels."""
+    buckets = [1 << i for i in range(eng.max_window.bit_length())
+               if 1 << i <= eng.max_window]
+    twin, out = megastep_serve(torch, eng, reqs, serving, buckets)
 
     before = twin.stats()
     zero_launches()
@@ -1420,6 +1484,103 @@ def run_split_roundrobin(torch, eng, reqs, serving):
     return out
 
 # ---------------------------------------------------------------------------
+# Slice 6: the attention-decoder families through the paged kernel at their
+# head dims and GQA ratios
+# ---------------------------------------------------------------------------
+
+# gemma3 (QK-norm, windows, Dh 32 and 256 on one KV head), starcoder2
+# (LayerNorm, GeLU, a window, rep 9 at full width), command-r (LayerNorm,
+# parallel block) and qwen2-vl (M-RoPE)
+FAMILIES = ["gemma3-1b", "starcoder2-7b", "command-r-35b", "qwen2-vl-72b"]
+
+
+def release(torch):
+    """Return the device memory of engines the caller has dropped."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def log_record(r):
+    log(f"{r['name']} ({r.get('shape', {}).get('arch', '')}): {r['ms']:.5f} ms/launch on "
+        f"the device (profiler, L2 flushed), {r['call_ms']:.5f} ms per wrapper call "
+        f"(plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms by {r['bound_by']}, "
+        f"library {r['library_ms']} ms), {r['launches']} launches on the "
+        f"{r['launches_path']}")
+
+
+def windows_walked(eng, reqs):
+    """The configuration's sliding windows and the longest row the serve
+    decodes: a window binds when it is shorter than that row."""
+    longest = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+    windows = sorted({w for w in eng.cfg.windows() if w > 0})
+    return {"windows": windows, "longest_row": longest,
+            "binding": [w for w in windows if w < longest]}
+
+
+def run_family_smoke(torch, arch, err):
+    """Phase 13, one family: its smoke config through the launcher's paged
+    path on the card with phase 8's checks (every request served in full,
+    no prefix copy, ``paged_attn`` = n_layers x decode launches,
+    ``msl_onepass`` = prefix-cache device calls), then through a contiguous
+    twin on the same weights (plain attention): the streams equal, or split
+    at a near-tie (``near_ties``).  Returns the summary and the paged
+    kernel's record at this path's shapes."""
+    eng, reqs, summary, snapshot = run_serving(
+        torch, serve_args("--arch", arch, "--kv-mode", "paged", smoke=True))
+    twin = engine_twin(eng, kv_mode="contiguous")
+    for r in fresh(reqs):
+        twin.submit(r)
+    twin.run_until_done()
+    got = {rid: toks for rid, toks, _, _ in served(eng, reqs)}
+    want = {rid: toks for rid, toks, _, _ in served(twin, reqs)}
+    ties = near_ties(torch, eng, reqs, got, want)
+    summary.update(windows_walked(eng, reqs), streams_equal_contiguous=len(reqs) - len(ties),
+                   near_ties=ties)
+    log(f"{eng.cfg.name}: H {eng.cfg.n_heads} on KVH {eng.cfg.n_kv_heads}, Dh "
+        f"{eng.cfg.head_dim}, norm {eng.cfg.norm}, rope {eng.cfg.rope_kind}; windows "
+        f"{summary['windows']} bind at rows of up to {summary['longest_row']} positions: "
+        f"{summary['binding']}; {summary['streams_equal_contiguous']} of {len(reqs)} "
+        f"streams equal the contiguous twin's, the rest split at near-ties")
+    record = paged_record(torch, eng, snapshot, summary, err,
+                          path=f"{eng.cfg.name} serving path")
+    log_record(record)
+    return summary, record
+
+
+def run_full_width(torch, arch, err, buckets=()):
+    """Phases 14-15: ``arch`` at its published width and depth (random
+    weights from a seeded generator on the card; nothing cut) through the
+    launcher's paged path with phase 8's checks, the paged kernel's record
+    at its shapes and, given window ``buckets``, the megastep serve
+    (``megastep_serve``; phase 11's buckets: the launcher's request mix
+    plans the same windows for every architecture, since no stream ends
+    early).  Returns the summary and the record."""
+    eng, reqs, summary, snapshot = run_serving(
+        torch, serve_args("--arch", arch, "--kv-mode", "paged"))
+    summary.update(windows_walked(eng, reqs))
+    record = paged_record(torch, eng, snapshot, summary, err,
+                          path=f"{eng.cfg.name} serving path")
+    if buckets:
+        _, summary["megastep"] = megastep_serve(torch, eng, reqs, summary, buckets)
+        record["launches_megastep_path"] = summary["megastep"]["launches"]["paged_attn"]
+    summary["peak_memory_gb_all"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{eng.cfg.name} at full width: {summary['ms_per_decode_tick']:.3f} ms per decode "
+        f"tick, {summary['decode_tokens_per_s']:.1f} decode tokens/s, serve "
+        f"{summary['wall_s']:.3f} s wall, decode_launches {summary['decode_launches']}, "
+        f"host_syncs {summary['host_syncs']}, peak device memory "
+        f"{summary['peak_memory_gb_all']:.2f} GB; paged_attn {record['ms']:.5f} ms per "
+        f"launch (L2 flushed), {record['ms_in_path']:.5f} in the serving ticks, "
+        f"H {eng.cfg.n_heads} on KVH {eng.cfg.n_kv_heads}, Dh {eng.cfg.head_dim}")
+    log(f"{eng.cfg.name}: windows {summary['windows']} against rows of at most "
+        f"{summary['longest_row']} positions: "
+        f"{'binding ' + str(summary['binding']) if summary['binding'] else 'no window binds here'}")
+    log_record(record)
+    return summary, record
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1492,10 +1653,7 @@ def main() -> int:
         f"grid ({records[2]['shape']['KVH']}, {records[2]['shape']['B']}, "
         f"{records[2]['splits']}), for {records[2]['shape']['positions']} positions")
     for r in records:
-        log(f"{r['name']}: {r['ms']:.5f} ms/launch on the device (profiler), "
-            f"{r['call_ms']:.5f} ms per wrapper call (plain {r['plain_ms']:.3f} ms, "
-            f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, library "
-            f"{r['library_ms']} ms), {r['launches']} launches on the {r['launches_path']}")
+        log_record(r)
 
     phase("11. megastep decode at full width, paged: one CUDA graph per window")
     serving["megastep"] = run_megastep(torch, eng, reqs, serving)
@@ -1503,6 +1661,30 @@ def main() -> int:
 
     phase("12. split admission and round-robin decode at full width, paged")
     serving["split_roundrobin"] = run_split_roundrobin(torch, eng, reqs, serving)
+    buckets = sorted({w["steps"] for w in serving["megastep"]["windows"]})
+    del eng, reqs, snapshot
+    release(torch)
+
+    phase("13. the attention-decoder families at smoke width, paged")
+    serving["families_smoke"], shapes = {}, []
+    for arch in FAMILIES:
+        serving["families_smoke"][arch], rec = run_family_smoke(torch, arch,
+                                                                errs["paged_attn"])
+        shapes.append(rec)
+        release(torch)
+
+    phase("14. starcoder2-7b at full width and depth, paged: in-flight and megastep")
+    serving["starcoder2-7b"], rec = run_full_width(torch, "starcoder2-7b",
+                                                  errs["paged_attn"], buckets)
+    shapes.append(rec)
+    release(torch)
+
+    phase("15. gemma3-1b at full width and depth, paged")
+    serving["gemma3-1b"], rec = run_full_width(torch, "gemma3-1b", errs["paged_attn"])
+    shapes.append(rec)
+    release(torch)
+    # the paged kernel's record at every other path's shapes
+    records[2]["shapes"] = shapes
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

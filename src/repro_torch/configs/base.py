@@ -26,7 +26,8 @@ _ARCH_IDS = [
     "olmoe-1b-7b",
     "phi3.5-moe-42b-a6.6b",
 ]
-_PORTED = ["phi3-mini-3.8b"]
+_PORTED = ["phi3-mini-3.8b", "gemma3-1b", "starcoder2-7b", "command-r-35b",
+           "qwen2-vl-72b"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,14 +102,20 @@ class ArchConfig:
         return tuple(float(pat[i % len(pat)]) for i in range(self.n_layers))
 
     def param_count(self) -> int:
-        """Analytic parameter count (embedding + blocks) of the dense
-        attention families the port runs."""
+        """Parameters of the attention decoder the port builds: embedding,
+        blocks and norms.  The JAX package's analytic count leaves the
+        norms out; here each counts per family: LayerNorm has a scale and a
+        bias, RMSNorm a scale; a parallel block has no ``ln2``; QK-norm adds
+        2 * Dh per layer."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         dh, h, kvh = self.head_dim, self.n_heads, self.n_kv_heads
         emb = v * d * (1 if self.tie_embeddings else 2)
         att = d * (h * dh) * 2 + d * (kvh * dh) * 2
         ffn = {"swiglu": 3 * d * f, "gelu": 2 * d * f}.get(self.ffn, 0)
-        return emb + self.n_layers * (att + ffn)
+        norm = d * (2 if self.norm == "ln" else 1)
+        norms = norm * (1 if self.parallel_block or self.ffn == "none" else 2)
+        norms += 2 * dh if self.qk_norm else 0
+        return emb + self.n_layers * (att + ffn + norms) + norm
 
 
 _MODULE_FOR = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")

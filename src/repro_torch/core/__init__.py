@@ -89,8 +89,10 @@ def table_to_numpy(table: torch.Tensor) -> np.ndarray:
 def params_from_numpy(tree: dict, cfg, device="cuda"):
     """The JAX package's decoder parameter pytree, as numpy arrays (block
     leaves stacked ``(L, ...)``), as this package's model parameters
-    (``models.model.ParamTree``) on ``device``: weights bf16 and norm
-    scales f32, exactly the JAX values.  ``cfg`` is the ``ArchConfig``."""
+    (``models.model.ParamTree``) on ``device``: weights bf16, norm
+    parameters (RMSNorm's and LayerNorm's ``scale``, LayerNorm's ``bias``)
+    f32 as in the JAX package, exactly the JAX values.  ``cfg`` is the
+    ``ArchConfig``."""
     from repro_torch.models.layers import COMPUTE_DTYPE
     from repro_torch.models.model import ParamTree
 
@@ -106,7 +108,7 @@ def params_from_numpy(tree: dict, cfg, device="cuda"):
     def walk(t, index):
         return {name: walk(v, index) if isinstance(v, dict) else
                 conv(v if index is None else np.asarray(v)[index],
-                     torch.float32 if name == "scale" else COMPUTE_DTYPE)
+                     torch.float32 if name in ("scale", "bias") else COMPUTE_DTYPE)
                 for name, v in t.items()}
 
     blocks = [walk(tree["blocks"], i) for i in range(cfg.n_layers)]

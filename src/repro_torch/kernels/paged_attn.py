@@ -42,8 +42,8 @@ __all__ = ["HEAD_DIMS", "LAUNCHES", "MAX_REP", "NEG_INF", "SOURCE",
 LAUNCHES = {"paged_attn": 0}
 
 NEG_INF = -1e30          # finite, as the JAX package's
-HEAD_DIMS = (32, 64, 96, 128)  # head dims the kernel is built for
-MAX_REP = 8              # query heads per KV head the kernel takes
+HEAD_DIMS = (16, 24, 32, 64, 96, 128, 256)  # head dims the kernel is built for
+MAX_REP = 16             # query heads per KV head the kernel takes
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attn.cu"
 
 _P = ctypes.c_void_p
@@ -54,6 +54,12 @@ _F = ctypes.c_float
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = load_library(SOURCE)
+    # the instances' dynamic shared-memory limits, set once here: never
+    # inside a CUDA-graph capture of a launch
+    err = lib.paged_attn_prepare()
+    if err != 0:
+        raise RuntimeError(f"paged_attn: setting the shared-memory limits failed: "
+                           f"CUDA error {err}")
     lib.paged_attn_launch.argtypes = [_P] * 9 + [_I] * 9 + [_F, _F, _P]
     lib.paged_attn_launch.restype = _I
     lib.paged_attn_splits.argtypes = [_I] * 6
@@ -163,7 +169,8 @@ def _check_cuda(q, pool_k, pool_v, block_table, tail_k, tail_v, plen, cur):
     if h % kvh:
         raise ValueError(f"H = {h} is not a multiple of KVH = {kvh}")
     if h // kvh > MAX_REP:
-        raise ValueError(f"H / KVH = {h // kvh} > {MAX_REP} query heads per KV head")
+        raise ValueError(f"H / KVH = {h // kvh} > {MAX_REP} query heads per KV head, "
+                         f"the most the kernel is built for")
     tmax = tail_k.shape[1]
     shapes = {"q": (q, (b, h, dh), torch.bfloat16),
               "pool_k": (pool_k, (n_pages, pt, kvh, dh), torch.bfloat16),

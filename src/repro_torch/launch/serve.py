@@ -7,6 +7,8 @@ followed by a short random suffix.  ``build(args)`` returns the engine and
 ``make_requests(cfg, args)`` the requests, so that other scripts (the
 repository's ``chip_smoke.py``) run exactly this path.
 
+``--arch`` picks any architecture the port runs (``configs.list_archs()``:
+phi3-mini-3.8b, gemma3-1b, starcoder2-7b, command-r-35b, qwen2-vl-72b).
 Defaults as in the JAX launcher: phi3-mini-3.8b at smoke size, 24
 requests over 8 templates of 64 tokens, suffixes of 4-16 tokens, 8 new
 tokens each; ``PrefixCache(num_sets=256, m=2, p=4, chunk_tokens=16)``,
@@ -29,7 +31,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.core import resolve_device
 from repro_torch.data.ycsb import zipfian
 from repro_torch.models.model import make_model
@@ -40,7 +42,7 @@ from repro_torch.serving.prefix_cache import PrefixCache
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="phi3-mini-3.8b")
+    ap.add_argument("--arch", default="phi3-mini-3.8b", choices=list_archs())
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction, default=True,
                     help="reduced same-family config (--no-smoke: published "
                          "widths and depth)")

@@ -9,9 +9,10 @@ are bit-identical on the same bits.  ``paged_attn_decode`` runs the paged
 kernel for CUDA tensors and its plain version for CPU tensors: the device
 of the tensors chooses.
 
-Sliding windows are per-layer ints (<= 0 means global); the JAX package's
-M-RoPE is not ported yet.  Decode writes the new token's KV into the cache
-(or tail) in place.
+Sliding windows are per-layer ints (<= 0 means global).  Positions are
+(B, S) for RoPE and (B, 3, S) for M-RoPE, whose decode broadcasts the row's
+``cur_len`` to all three streams.  Decode writes the new token's KV into
+the cache (or tail) in place.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import torch
 from repro_torch.kernels.paged_attn import (NEG_INF, dense_decode_attention,
                                             paged_attn_decode_call, q_scale,
                                             window_value)
-from repro_torch.models.layers import apply_rope, dense_init, rmsnorm, rmsnorm_init
+from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init, rmsnorm,
+                                       rmsnorm_init)
 
 # ---------------------------------------------------------------------------
 # params
@@ -53,6 +55,9 @@ def _project_qkv(params, x, n_heads, n_kv_heads, d_head, positions, rope_kind, t
     if rope_kind == "rope":
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
+    elif rope_kind == "mrope":
+        q = apply_mrope(q, positions, theta)
+        k = apply_mrope(k, positions, theta)
     elif rope_kind != "none":
         raise NotImplementedError(f"rope_kind={rope_kind!r} is not yet ported")
     return q, k, v
@@ -146,6 +151,15 @@ def _cur_rows(cur_len, b, device) -> torch.Tensor:
     return torch.as_tensor(cur_len, dtype=torch.int64, device=device).expand(b)
 
 
+def rope_positions(positions, rope_kind):
+    """The positions ``_project_qkv`` rotates by, from (B, S) ones: as they
+    are for RoPE, or for M-RoPE the (B, 3, S) streams of text, three equal
+    ones (as the JAX model path builds them)."""
+    if rope_kind == "mrope":
+        return positions[:, None, :].expand(positions.shape[0], 3, positions.shape[1])
+    return positions
+
+
 def attn_decode(params, x, cache_k, cache_v, cur_len, *, n_heads, n_kv_heads,
                 d_head, rope_kind="rope", theta=1e4, window=None, softcap=0.0):
     """x (B,1,D); cache_k/v (B,Smax,KVH,Dh) with cur_len valid entries.
@@ -158,8 +172,8 @@ def attn_decode(params, x, cache_k, cache_v, cur_len, *, n_heads, n_kv_heads,
     """
     b = x.shape[0]
     cur = _cur_rows(cur_len, b, x.device)
-    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, d_head, cur[:, None],
-                           rope_kind, theta)
+    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, d_head,
+                           rope_positions(cur[:, None], rope_kind), rope_kind, theta)
     rows = torch.arange(b, device=x.device)
     cache_k[rows, cur] = k[:, 0].to(cache_k.dtype)
     cache_v[rows, cur] = v[:, 0].to(cache_v.dtype)
@@ -191,8 +205,8 @@ def paged_attn_decode(params, x, pool_k, pool_v, block_table, tail_k, tail_v,
     b = x.shape[0]
     cur = _cur_rows(cur_len, b, x.device)
     plen = _cur_rows(prefix_len, b, x.device)
-    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, d_head, cur[:, None],
-                           rope_kind, theta)
+    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, d_head,
+                           rope_positions(cur[:, None], rope_kind), rope_kind, theta)
     rows = torch.arange(b, device=x.device)
     t_new = cur - plen                     # the engine keeps t_new < Tmax
     tail_k[rows, t_new] = k[:, 0].to(tail_k.dtype)

@@ -27,6 +27,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as tfm
+from repro_torch.models.attention import rope_positions
 from repro_torch.models.layers import COMPUTE_DTYPE, embed_init, embed_tokens
 
 
@@ -69,8 +70,6 @@ def _unsupported(cfg: ArchConfig) -> str | None:
         return "meta tokens"
     if cfg.ffn == "moe":
         return "ffn='moe'"
-    if cfg.rope_kind == "mrope":
-        return "rope_kind='mrope'"
     return None
 
 
@@ -135,7 +134,10 @@ def _make_decoder(cfg: ArchConfig) -> Model:
         tokens = batch["tokens"]
         b, s = tokens.shape
         h = _embed(cfg, params, tokens)
-        positions = torch.arange(s, device=h.device).expand(b, s)
+        positions = batch.get("positions") if cfg.rope_kind == "mrope" else None
+        if positions is None:            # M-RoPE's (B, 3, S) streams may be given
+            positions = rope_positions(torch.arange(s, device=h.device).expand(b, s),
+                                       cfg.rope_kind)
         ks, vs = [], []
         for p_l, w_l, t_l in zip(params["blocks"], windows, thetas):
             h, (k, v) = tfm.attn_block_apply(cfg, p_l, h, positions, w_l, t_l)

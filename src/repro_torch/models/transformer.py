@@ -4,8 +4,8 @@ Port of the attention-block part of ``repro.models.transformer``, forward
 only.  A block's parameters keep the JAX package's names and layout
 (``ln1``, ``attn``, ``mlp``, ``ln2``).  The JAX layer ``scan`` becomes a
 Python loop over blocks in ``model.py``; window and theta are per-layer
-Python numbers.  The JAX package's other families (hymba, xLSTM, MoE) and
-LayerNorm are not ported yet and raise.
+Python numbers.  Norms are RMSNorm or LayerNorm (``cfg.norm``).  The JAX
+package's other families (hymba, xLSTM, MoE) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -13,17 +13,19 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (gelu_mlp, gelu_mlp_init, rmsnorm,
-                                       rmsnorm_init, swiglu, swiglu_init)
+from repro_torch.models.layers import (gelu_mlp, gelu_mlp_init, layernorm,
+                                       layernorm_init, rmsnorm, rmsnorm_init,
+                                       swiglu, swiglu_init)
 
 
 def _norm_init(cfg, device, d=None):
-    if cfg.norm != "rms":
-        raise NotImplementedError(f"norm={cfg.norm!r} is not yet ported")
-    return rmsnorm_init(d or cfg.d_model, device)
+    d = d or cfg.d_model
+    return layernorm_init(d, device) if cfg.norm == "ln" else rmsnorm_init(d, device)
 
 
 def _norm(cfg, p, x):
+    if cfg.norm == "ln":
+        return layernorm(p, x, cfg.norm_eps)
     return rmsnorm(p, x, cfg.norm_eps)
 
 

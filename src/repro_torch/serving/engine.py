@@ -141,12 +141,18 @@ def continuation_prefill(cfg: ArchConfig, params, tokens, kv_prefix,
     b, s = tokens.shape
     h = _embed(cfg, params, tokens)
     positions = prefix_len + torch.arange(s, device=tokens.device)[None, :]
+    # M-RoPE rotates by (B, 3, S) streams, as the JAX model path does.  The
+    # port departs here on purpose from the JAX engine, which hands M-RoPE
+    # the (B, S) positions (src/repro/serving/engine.py:260, :329): its
+    # _mrope_pos (src/repro/models/layers.py:214-217) then reads the batch
+    # axis as the stream axis and fills the missing streams with NaN.
+    rope_pos = attn_mod.rope_positions(positions, cfg.rope_kind)
     ks, vs = [], []
     for l, (p_l, w_l, t_l) in enumerate(zip(params["blocks"], cfg.windows(),
                                             cfg.thetas())):
         x = tfm._norm(cfg, p_l["ln1"], h)
         q, k, v = attn_mod._project_qkv(p_l["attn"], x, cfg.n_heads, cfg.n_kv_heads,
-                                        cfg.head_dim, positions, cfg.rope_kind, t_l)
+                                        cfg.head_dim, rope_pos, cfg.rope_kind, t_l)
         k_full, v_full = k, v
         if kv_prefix is not None:
             k_full = torch.cat([kv_prefix[0][l], k], dim=1)
@@ -185,12 +191,14 @@ def batched_continuation_prefill(cfg: ArchConfig, params, tokens, tok_lens,
     else:
         k_pos = positions
         k_valid = torch.ones((b, s), dtype=torch.bool, device=dev)
+    # M-RoPE's (B, 3, S) streams, as in continuation_prefill; masks keep (B, S)
+    rope_pos = attn_mod.rope_positions(positions, cfg.rope_kind)
     ks, vs = [], []
     for l, (p_l, w_l, t_l) in enumerate(zip(params["blocks"], cfg.windows(),
                                             cfg.thetas())):
         x = tfm._norm(cfg, p_l["ln1"], h)
         q, k, v = attn_mod._project_qkv(p_l["attn"], x, cfg.n_heads, cfg.n_kv_heads,
-                                        cfg.head_dim, positions, cfg.rope_kind, t_l)
+                                        cfg.head_dim, rope_pos, cfg.rope_kind, t_l)
         k_full, v_full = k, v
         if pb:
             k_full = torch.cat([kv_prefix[0][l], k], dim=1)

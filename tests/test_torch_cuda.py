@@ -291,6 +291,30 @@ def test_paged_kernel_matches_plain(cuda, h, kvh, dh, window, softcap):
                                rtol=0.05, atol=0.02)
 
 
+# (h, kvh, dh, window): the head dims and GQA ratios the attention-decoder
+# families add: Dh 16 and 24 (smoke configs, one or no chunk per quarter),
+# Dh 32 rep 4 on one KV head (gemma3-smoke), rep 9 at Dh 128 (starcoder2-7b:
+# more value-pass slots than threads), rep 8 (command-r-35b, qwen2-vl-72b),
+# Dh 256 (gemma3-1b, dynamic shared memory) and rep 16 (the most built)
+FAMILY_CASES = [(8, 2, 16, None), (6, 2, 24, 32), (4, 1, 32, 16), (36, 4, 128, None),
+                (64, 8, 128, None), (4, 1, 256, None), (4, 1, 256, 40), (16, 1, 64, None),
+                (32, 2, 256, 24)]
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("h,kvh,dh,window", FAMILY_CASES)
+def test_paged_kernel_takes_every_family_shape(cuda, h, kvh, dh, window, softcap):
+    """Each new (Dh, rep) against the plain version, within the JAX
+    package's gate: rows with a prefix, with none, with a one-token tail."""
+    args = paged_args(paged_case(6, h=h, kvh=kvh, dh=dh), cuda)
+    before = paged_attn.LAUNCHES["paged_attn"]
+    got = paged_attn.paged_attn_decode_call(*args, window=window, softcap=softcap)
+    assert paged_attn.LAUNCHES["paged_attn"] == before + 1
+    want = paged_attn.paged_attn_decode_plain(*args, window=window, softcap=softcap)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=0.05, atol=0.02)
+
+
 # (h, kvh, dh, plens, used, window): rows of up to 256 positions (one of
 # 400, so that a block walks two tiles), lengths that are no multiple of
 # the cluster's split, windows whose first position falls inside a split
@@ -299,6 +323,9 @@ CLUSTER_CASES = [
     (8, 2, 128, (208, 0, 96, 33), (47, 255, 0, 11), 100),
     (16, 4, 64, (176, 16, 0, 80), (79, 3, 190, 0), 37),
     (8, 8, 32, (384, 0, 224, 16), (15, 1, 31, 200), None),
+    (36, 4, 128, (208, 0, 96, 33), (47, 255, 0, 11), None),
+    (4, 1, 256, (384, 0, 224, 16), (15, 1, 31, 200), 100),
+    (8, 2, 16, (176, 16, 0, 80), (79, 3, 190, 0), 37),
 ]
 
 
@@ -328,16 +355,21 @@ def test_paged_kernel_refuses_what_it_was_not_built_for(cuda):
     args = paged_args(paged_case(4, h=6, kvh=4, dh=64), cuda)
     with pytest.raises(ValueError, match="not a multiple"):
         paged_attn.paged_attn_decode_call(*args)
+    args = paged_args(paged_case(4, h=17, kvh=1, dh=64), cuda)
+    with pytest.raises(ValueError, match="17 > 16"):
+        paged_attn.paged_attn_decode_call(*args)
 
 
-def test_paged_serving_runs_the_kernel_on_the_card(cuda):
-    """The launcher's paged path at smoke size on the card: one kernel
-    launch per layer per decode launch, one one-pass launch per
-    prefix-cache call, no prefix copy."""
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "gemma3-1b", "starcoder2-7b",
+                                  "command-r-35b", "qwen2-vl-72b"])
+def test_paged_serving_runs_the_kernel_on_the_card(cuda, arch):
+    """The launcher's paged path at smoke size on the card, for each
+    architecture: one kernel launch per layer per decode launch, one
+    one-pass launch per prefix-cache call, no prefix copy."""
     from repro_torch.launch import serve
 
     args = serve.parser().parse_args(["--kv-mode", "paged", "--device", "cuda",
-                                      "--requests", "8"])
+                                      "--requests", "8", "--arch", arch])
     eng = serve.build(args)
     for req in serve.make_requests(eng.cfg, args):
         eng.submit(req)

@@ -8,7 +8,11 @@ the port's paged engine against its own contiguous one (tokens
 bit-identical, as in the JAX package).
 """
 
+import dataclasses
+import functools
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -332,6 +336,134 @@ def test_engine_rejects_what_is_not_ported(models):
     eng = ServeEngine(model, params, slots=1, max_len=32)
     with pytest.raises(ValueError, match="exceeds max_len"):
         eng.submit(Request(rid=0, prompt=np.ones(30, np.int32), max_new_tokens=3))
+
+
+# ---------------------------------------------------------------------------
+# the attention-decoder families
+# ---------------------------------------------------------------------------
+
+FAMILIES = ["gemma3-1b", "starcoder2-7b", "command-r-35b"]
+MROPE = "qwen2-vl-72b"
+
+
+@functools.lru_cache(maxsize=None)
+def _family(arch):
+    """A family's JAX smoke model and parameters, carried into the port."""
+    jcfg, cfg = jax_get_config(arch, smoke=True), get_config(arch, smoke=True)
+    jm = jax_make_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    return (jcfg, jm, jp), (cfg, make_model(cfg), tp)
+
+
+@pytest.mark.parametrize("decode_mode", ["inflight", "megastep"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_engine_matches_jax(arch, decode_mode):
+    """Each family's smoke config through the paged engine against the
+    JAX engine: finish order, prefill split, ticks, counters, refcounts and
+    prefix-cache stats equal, and every token stream equal but where the
+    two split at a bf16 tie (``_assert_streams_equal_or_tied``).  Prompts
+    of 37-45 tokens with 6 new: gemma3's windows of 16 bind, starcoder2's
+    of 32 too."""
+    (jcfg, jm, jp), port_stack = _family(arch)
+    prompts = _prompts(jcfg)
+    kw = dict(decode_mode=decode_mode)
+    got = _summary(_drive(True, port_stack, prompts, kv_mode="paged", **kw))
+    want = _summary(_drive(False, (jcfg, jm, jp), prompts, kv_mode="paged", **kw))
+    _assert_streams_equal_or_tied(jm, jp, prompts, got.pop("tokens"), want.pop("tokens"))
+    assert got == want
+    assert got["stats"]["gather_calls"] == 0
+    if decode_mode == "megastep":
+        assert got["stats"]["megastep_windows"] > 0
+
+
+def _assert_streams_equal_or_tied(jm, jp, prompts, got, want):
+    """Every request served in full, and each port stream equal to JAX's
+    but where the first step at which they differ is a bf16 tie: the JAX
+    model path's logits over the prompt and JAX's tokens before that step
+    put the two tokens within the model tests' logit tolerance (0.03).
+    Port and JAX round bf16 sums in other orders (logits differ by up to
+    about 0.008 at |logit| < 1), so random weights leave one-ulp ties that
+    either side may break; past a split the streams go their own ways."""
+    assert sorted(got) == sorted(want) == list(range(len(prompts)))
+    for rid, toks in want.items():
+        assert len(got[rid]) == len(toks)
+        if got[rid] == toks:
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(got[rid], toks)) if a != b)
+        seq = np.concatenate([prompts[rid], np.asarray(toks[:j], np.int32)])[None]
+        logits = np.asarray(jm.prefill(jp, {"tokens": jnp.asarray(seq)})[0])[0]
+        gap = abs(float(logits[toks[j]] - logits[got[rid][j]]))
+        assert gap <= 0.03, (rid, j, toks[j], got[rid][j], gap)
+
+
+def _equal_length_prompts(cfg, n=6, prefix=32, suffix=8, seed=3):
+    """Prompts of one length (shared 32-token templates, 8-token suffixes),
+    so that the JAX model path prefills them all in one batch."""
+    rng = np.random.default_rng(seed)
+    tmpl = [rng.integers(1, cfg.vocab_size, prefix).astype(np.int32) for _ in range(3)]
+    return [np.concatenate([tmpl[i % 3], rng.integers(1, cfg.vocab_size, suffix)
+                            .astype(np.int32)]) for i in range(n)]
+
+
+def test_mrope_serve_gives_the_jax_model_path_tokens():
+    """qwen2-vl-smoke through the port's paged engine gives the greedy
+    tokens of the JAX *model* path (``prefill`` over each whole prompt, then
+    ``decode_step``, both on (B, 3, S) position streams), up to bf16 ties
+    in JAX's own teacher-forced logits.  The JAX engine cannot be the
+    reference here: it hands M-RoPE (B, S) positions, which make NaN."""
+    (jcfg, jm, jp), port_stack = _family(MROPE)
+    prompts = _equal_length_prompts(jcfg)
+    eng = _drive(True, port_stack, prompts, kv_mode="paged")
+    assert len(eng.finished) == len(prompts) and eng.stats()["gather_calls"] == 0
+    assert sum(r.prefill_skipped for r in eng.finished) > 0     # prefix hits
+    toks = np.array([next(r for r in eng.finished if r.rid == i).out_tokens
+                     for i in range(len(prompts))], np.int32)     # (B, 6)
+    n, steps = len(prompts[0]), toks.shape[1]
+    cache = jm.init_cache(len(prompts), n + steps)
+    logits, c = jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(np.stack(prompts))})
+    cache = {k: cache[k].at[:, :, :n].set(c[k]) for k in cache}
+    decode = jax.jit(jm.decode_step)
+    for j in range(steps):
+        _assert_same_greedy(logits, toks[:, j])
+        if j + 1 < steps:
+            logits, cache = decode(jp, jnp.asarray(toks[:, j:j + 1]), cache,
+                                   jnp.int32(n + j))
+
+
+def _assert_same_greedy(jl, port_tokens):
+    """JAX's greedy tokens are the port's, except where JAX's logits of the
+    two lie within the model tests' logit tolerance (0.03, a bf16 tie)."""
+    jl = np.asarray(jl)
+    jt = jl.argmax(-1)
+    rows = np.arange(len(jt))
+    margin = jl[rows, jt] - jl[rows, port_tokens]
+    assert np.all((jt == port_tokens) | (margin <= 0.03)), (jt, port_tokens, margin)
+
+
+def test_mrope_paged_serve_equals_contiguous_and_rope():
+    """Inside the port: qwen2-vl-smoke's paged serve equals its contiguous
+    serve, and, bit for bit (tokens, counters, every page of the pool), the
+    serve of the same config and weights with ``rope_kind="rope"``: three
+    equal M-RoPE streams are RoPE."""
+    _, (cfg, model, params) = _family(MROPE)
+    prompts = _prompts(cfg, seed=5)
+    paged = _drive(True, (cfg, model, params), prompts, kv_mode="paged")
+    contig = _drive(True, (cfg, model, params), prompts, kv_mode="contiguous")
+    assert _summary(paged)["tokens"] == _summary(contig)["tokens"]
+    rope_cfg = dataclasses.replace(cfg, rope_kind="rope")
+    rope = _drive(True, (rope_cfg, make_model(rope_cfg), params), prompts, kv_mode="paged")
+    assert _summary(paged) == _summary(rope)
+    assert torch.equal(paged.pool.k, rope.pool.k) and torch.equal(paged.pool.v, rope.pool.v)
+
+
+@pytest.mark.parametrize("arch", FAMILIES + [MROPE])
+def test_launcher_serves_each_arch_on_the_cpu(arch, capsys):
+    """``python -m repro_torch.launch.serve --device cpu --kv-mode paged
+    --arch <arch>``: every request served, no prefix copy."""
+    serve.main(["--device", "cpu", "--kv-mode", "paged", "--arch", arch, "--requests", "8"])
+    out = capsys.readouterr().out
+    assert "8 requests in" in out and "gather_calls=0" in out
 
 
 def test_launcher_serves_on_the_cpu(capsys):
