@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the multi-step LRU cache and of its
-prefix-cached serving path (every attention-decoder architecture the port
-runs) on one NVIDIA GPU.
+prefix-cached serving path (every architecture the port runs: the
+attention decoders, the MoE decoders and the hymba hybrid) on one NVIDIA
+GPU.
 
 Run from the root of a checkout, with one card visible:
 
@@ -45,8 +46,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    equal wherever decisive); then at the attention-decoder families'
    shapes, each with and without a softcap: Dh 16 rep 4, Dh 24 rep 3
    (window 32), Dh 32 rep 4 on one KV head (window 16), Dh 128 rep 9 and
-   rep 8, Dh 256 rep 4 (windows 0 and 40), Dh 64 rep 16; Dh 80 and rep 17
-   must raise;
+   rep 8, Dh 256 rep 4 (windows 0 and 40), Dh 64 rep 16; then the MoE
+   decoders' full-width shapes, Dh 128 rep 1 on 16 KV heads (olmoe-1b-7b)
+   and Dh 128 rep 4 on 8 (phi3.5-moe-42b); Dh 80 and rep 17 must raise;
 8. the serving path: ``repro_torch.launch.serve.build`` with
    ``--no-smoke --kv-mode paged`` (phi3-mini-3.8b at its published width
    and depth, random weights from a seeded generator on the card), the
@@ -73,11 +75,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    streams but where one splits at a near-tie (the teacher-forced logits of
    the two tokens within LOGIT_ULPS bf16 ulps); one ``msl_onepass`` launch
    per prefix-cache call;
-13. the attention-decoder families at smoke width: gemma3-, starcoder2-,
-   command-r- and qwen2-vl-smoke, each served through ``serve.build`` with
-   ``--kv-mode paged`` and phase 8's checks (the windows of 16 and 32
-   bind), and through a contiguous twin on the same weights: streams equal
-   or split at a near-tie; the paged kernel's record at each one's shapes;
+13. the families at smoke width: gemma3-, starcoder2-, command-r-,
+   qwen2-vl-, olmoe- and phi3.5-moe-smoke, each served through
+   ``serve.build`` with ``--kv-mode paged`` and phase 8's checks (the
+   windows of 16 and 32 bind), and through a contiguous twin on the same
+   weights: streams equal or split at a near-tie (for MoE also a near-tie
+   of the router, two experts' gates within ROUTER_TIE); the paged
+   kernel's record at each one's shapes;
 14. starcoder2-7b at its published width and depth (32 layers, d_model
    4608, 36 heads on 4 KV heads, Dh 128, d_ff 18432, vocab 49152; random
    weights; nothing cut): the in-flight serve with phase 8's checks, then a
@@ -87,11 +91,25 @@ Phases, in order; any failure raises and the script exits non-zero:
 15. gemma3-1b at its published width and depth (26 layers, d_model 1152, 4
    heads on 1 KV head, Dh 256, vocab 262144): the in-flight serve, the same
    checks and numbers.  Each full-width model is freed before the next is
-   built; neither's window (4096, 512) binds at the launcher's max_len 256.
+   built; neither's window (4096, 512) binds at the launcher's max_len 256;
+16. olmoe-1b-7b at its published width and depth (16 layers, d_model 2048,
+   16 heads, 64 experts top-8, expert d_ff 1024, vocab 50304; random
+   weights; nothing cut): phase 14's in-flight and megastep serves and
+   numbers, and the MoE FFN's device time per decode step beside its
+   expert-weight read;
+17. hymba at smoke width, then at its published width and depth (32
+   layers, d_model 1600, 25 heads on 5 KV heads, Mamba state 16, 128 meta
+   tokens, windows 1024 but three global layers), served through
+   ``serve.build`` with the default ``--kv-mode contiguous`` as the JAX
+   engine serves it (no prefix cache: no kernel launches): in-flight, a
+   megastep twin (window graphs captured mid-serve, each capture leaving
+   the Mamba state bit-equal; tokens, ticks, finish order and prefill split
+   equal the in-flight serve's) and a round-robin twin (tokens equal or
+   split at a near-tie); at smoke width the window of 16 binds.
 
-Then the JSON lines: the main path, the serving path (phases 8, 9, 11-15)
+Then the JSON lines: the main path, the serving path (phases 8, 9, 11-17)
 and every kernel's record (the paged kernel's with ``shapes``: its record
-at phases 13-15's shapes).
+at phases 13-16's shapes).
 
 The msl_cache comparisons are bit-exact (all state is int32).  The last
 line is ``{"ok": true, "device": {...}}``.
@@ -99,6 +117,7 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -822,6 +841,9 @@ PAGED_CASES = [
         ("gemma3-1b: Dh 256, rep 4, KVH 1, window 40", 4, 1, 256, 40),
         ("Dh 64, rep 16", 16, 1, 64, None)]
     for cap in (0.0, 30.0)
+] + [  # the MoE decoders' full-width shapes (no window, no softcap)
+    ("olmoe-1b-7b: Dh 128, rep 1, KVH 16", 16, 16, 128, None, 0.0),
+    ("phi3.5-moe-42b: Dh 128, rep 4, KVH 8", 32, 8, 128, None, 0.0),
 ]
 # (what, H, KVH, Dh) outside the built set: the wrapper raises, no fallback
 PAGED_REFUSED = [("head dim 80", 4, 4, 80), ("rep 17", 17, 1, 64)]
@@ -1040,7 +1062,8 @@ def teacher_forced_logits(torch, eng, prompt, tokens, paged):
     back: the prefill's, then one decode step per token.  ``paged`` keeps
     the prompt's whole chunks before its last token in pool pages and
     decodes through ``paged_decode_step`` (the kernel); otherwise a
-    contiguous cache and ``decode_step`` (plain attention)."""
+    contiguous cache and ``decode_step`` (plain attention; hymba's Mamba
+    state carried from step to step)."""
     from repro_torch.serving.engine import paged_decode_step
     from repro_torch.serving.kv_cache import PagedKVPool
 
@@ -1069,11 +1092,14 @@ def teacher_forced_logits(torch, eng, prompt, tokens, paged):
             out.append(logits[0])
     else:
         cache = model.init_cache(1, eng.max_len, device=dev)
-        cache["k"][:, 0, :n] = pc["k"][:, 0]
-        cache["v"][:, 0, :n] = pc["v"][:, 0]
+        s = pc["k"].shape[2]                  # the prompt's KV (and meta tokens')
+        cache["k"][:, 0, :s] = pc["k"][:, 0]
+        cache["v"][:, 0, :s] = pc["v"][:, 0]
+        if "mamba" in pc:
+            cache["mamba"] = pc["mamba"]      # hymba: the state after the prompt
         for j, tok in enumerate(feed):
             cur = torch.tensor([n + j], dtype=torch.int32, device=dev)
-            logits, _ = model.decode_step(params, tok, cache, cur)
+            logits, cache = model.decode_step(params, tok, cache, cur)
             out.append(logits[0])
     return torch.stack(out)
 
@@ -1417,26 +1443,61 @@ def run_megastep(torch, eng, reqs, serving):
     return out
 
 
+# an MoE routing choice may flip between two paths where the router's k-th
+# and (k+1)-th probabilities lie within this gap (the CPU tests' bound
+# against the JAX router: the router reads a bf16 hidden state that two
+# paths round differently)
+ROUTER_TIE = 2 ** -7
+
+
+@contextlib.contextmanager
+def router_margins():
+    """Log, per call of the MoE router (``models.moe.route``), the smallest
+    gap between a token's k-th and (k+1)-th probabilities."""
+    from repro_torch.models import moe
+
+    route, margins = moe.route, []
+
+    def logged(params, x, top_k):
+        out = route(params, x, top_k)
+        top = out[1].topk(top_k + 1, dim=-1).values
+        margins.append(float((top[..., top_k - 1] - top[..., top_k]).min()))
+        return out
+
+    moe.route = logged
+    try:
+        yield margins
+    finally:
+        moe.route = route
+
+
 def near_ties(torch, eng, reqs, got, want):
     """Where the token streams ``got`` and ``want`` (rid -> tokens) differ:
     the first differing step of each, and the gap there between the two
-    tokens' logits, teacher-forced with ``want``'s tokens through the paged
-    path of ``eng``.  Raises unless every gap is under LOGIT_ULPS bf16 ulps
-    of the step's largest |logit| (a near-tie that two roundings break
-    apart, as in phase 9)."""
+    tokens' logits, teacher-forced with ``want``'s tokens through ``eng``'s
+    path (paged or contiguous).  Raises unless every gap is under LOGIT_ULPS
+    bf16 ulps of the step's largest |logit| (a near-tie that two roundings
+    break apart, as in phase 9), or, for an MoE model, the teacher-forced
+    path up to that step passes a routing near-tie (two experts' gates
+    within ROUTER_TIE), which two roundings may flip."""
     ties = {}
     for r in reqs:
         a, b = want[r.rid], got[r.rid]
         if a == b:
             continue
         j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-        lg = teacher_forced_logits(torch, eng, r.prompt, a, paged=True)[j]
+        with router_margins() as margins:
+            lg = teacher_forced_logits(torch, eng, r.prompt, a, paged=eng.paged)[j]
         gap = float((lg[a[j]] - lg[b[j]]).abs())
         tol = float(LOGIT_ULPS * 2.0 ** (torch.floor(torch.log2(lg.abs().max())) - 7))
-        ties[r.rid] = {"step": j, "gap": gap, "tol": tol}
+        # the prefill's router calls, then one per layer per decode step
+        router = min(margins[: eng.cfg.n_layers * (j + 1)], default=None)
+        ties[r.rid] = {"step": j, "gap": gap, "tol": tol, "router_margin": router}
         log(f"request {r.rid}: streams first differ at step {j}; teacher-forced logit "
-            f"gap between the two tokens {gap:.5f} (tolerance {tol:.5f})")
-        if gap >= tol:
+            f"gap between the two tokens {gap:.5f} (tolerance {tol:.5f})"
+            + ("" if router is None else f"; smallest router margin on the path "
+               f"{router:.6f} (tolerance {ROUTER_TIE})"))
+        if gap >= tol and (router is None or router >= ROUTER_TIE):
             raise AssertionError(f"request {r.rid}: streams differ at step {j} with a "
                                  f"decisive gap {gap}")
     return ties
@@ -1490,8 +1551,10 @@ def run_split_roundrobin(torch, eng, reqs, serving):
 
 # gemma3 (QK-norm, windows, Dh 32 and 256 on one KV head), starcoder2
 # (LayerNorm, GeLU, a window, rep 9 at full width), command-r (LayerNorm,
-# parallel block) and qwen2-vl (M-RoPE)
-FAMILIES = ["gemma3-1b", "starcoder2-7b", "command-r-35b", "qwen2-vl-72b"]
+# parallel block), qwen2-vl (M-RoPE), and the MoE decoders olmoe (QK-norm,
+# 8 experts top-2 at smoke width) and phi3.5-moe (4 experts top-2, rep 2)
+FAMILIES = ["gemma3-1b", "starcoder2-7b", "command-r-35b", "qwen2-vl-72b",
+            "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b"]
 
 
 def release(torch):
@@ -1551,16 +1614,19 @@ def run_family_smoke(torch, arch, err):
 
 
 def run_full_width(torch, arch, err, buckets=()):
-    """Phases 14-15: ``arch`` at its published width and depth (random
+    """Phases 14-16: ``arch`` at its published width and depth (random
     weights from a seeded generator on the card; nothing cut) through the
     launcher's paged path with phase 8's checks, the paged kernel's record
     at its shapes and, given window ``buckets``, the megastep serve
     (``megastep_serve``; phase 11's buckets: the launcher's request mix
     plans the same windows for every architecture, since no stream ends
-    early).  Returns the summary and the record."""
+    early).  An MoE model adds its FFN's device time per decode step
+    (``moe_ffn_step``).  Returns the summary and the record."""
     eng, reqs, summary, snapshot = run_serving(
         torch, serve_args("--arch", arch, "--kv-mode", "paged"))
     summary.update(windows_walked(eng, reqs))
+    if eng.cfg.ffn == "moe":
+        summary["moe_ffn"] = moe_ffn_step(torch, eng)
     record = paged_record(torch, eng, snapshot, summary, err,
                           path=f"{eng.cfg.name} serving path")
     if buckets:
@@ -1579,6 +1645,190 @@ def run_full_width(torch, arch, err, buckets=()):
         f"{'binding ' + str(summary['binding']) if summary['binding'] else 'no window binds here'}")
     log_record(record)
     return summary, record
+
+def moe_ffn_step(torch, eng):
+    """The MoE FFN's device time per decode step: ``moe_decode`` of every
+    layer on a decode tick's rows (B = slots, random hidden states), the sum
+    of its kernels in the profiler over 10 steps, beside the bytes it must
+    read (every expert's SwiGLU weights, bf16) and the whole step's weight
+    read (every parameter but the embedding table)."""
+    from repro_torch.models.moe import moe_decode
+
+    cfg = eng.cfg
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    x = torch.randn((eng.slots, 1, cfg.d_model), generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    mlps = [p["mlp"] for p in eng.params["blocks"]]
+
+    def step():
+        for p in mlps:
+            moe_decode(p, x, n_experts=cfg.n_experts, top_k=cfg.moe_top_k)
+
+    kernels = profile_kernels(torch, step, 10)
+    ms = sum(v[0] for v in kernels.values()) / 10 / 1e3
+    expert_bytes = cfg.n_layers * cfg.n_experts * 3 * cfg.d_model * cfg.d_ff * 2
+    step_bytes = (sum(p.numel() for p in eng.params.parameters())
+                  - eng.params["head"]["embed"].numel()) * 2
+    out = {"device_ms_per_step": ms, "kernels_per_step": sum(v[1] for v in kernels.values())
+           / 10, "expert_bytes": expert_bytes,
+           "expert_bound_ms": 1e3 * expert_bytes / HBM_BYTES_PER_S,
+           "step_weight_bytes": step_bytes,
+           "step_bound_ms": 1e3 * step_bytes / HBM_BYTES_PER_S}
+    log(f"{cfg.name}: MoE FFN (moe_decode, {cfg.n_layers} layers, B {eng.slots}) "
+        f"{ms:.4f} ms of device time per decode step in {out['kernels_per_step']:.0f} "
+        f"kernels; its expert-weight read {expert_bytes / 1e9:.2f} GB is "
+        f"{out['expert_bound_ms']:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s (the whole "
+        f"step's weight read {step_bytes / 1e9:.2f} GB, {out['step_bound_ms']:.3f} ms)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Slice 7: the hymba hybrid, served contiguous, with its Mamba state frozen
+# per row
+# ---------------------------------------------------------------------------
+
+HYMBA = "hymba-1.5b"
+
+
+def mamba_leaves(eng):
+    return [eng.cache["mamba"]["h"], eng.cache["mamba"]["conv"]]
+
+
+def run_hymba(torch, smoke):
+    """Phase 17: hymba through ``serve.build`` with the default
+    ``--kv-mode contiguous``, as the JAX engine serves it: plain admission,
+    the prefix cache unused (``msl_onepass`` and ``paged_attn`` launch 0
+    times).  The launcher's requests in-flight; then a megastep twin, whose
+    window graphs are captured at first use mid-serve, each capture leaving
+    the Mamba leaves bit-equal, and a second serve through replays only; then
+    a round-robin twin.  Megastep gives the in-flight tokens, ticks, finish
+    order and prefill split exactly; round-robin the tokens, or differs only
+    at a near-tie (``near_ties``)."""
+    from repro_torch.launch import serve
+
+    args = serve_args("--arch", HYMBA, smoke=smoke)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    eng = serve.build(args)
+    torch.cuda.synchronize()
+    cfg = eng.cfg
+    n_params = sum(p.numel() for p in eng.params.parameters())
+    kv_mb = 2 * eng.cache["k"].numel() * 2 / 1e6
+    state_mb = sum(x.numel() * x.element_size() for x in mamba_leaves(eng)) / 1e6
+    log(f"{cfg.name}: {n_params / 1e9:.3f}B parameters ({n_params * 2 / 1e9:.2f} GB bf16), "
+        f"{cfg.meta_tokens} meta tokens, slot KV {kv_mb:.0f} MB over "
+        f"{eng.cache['k'].shape[2]} positions, Mamba state {state_mb:.1f} MB; built in "
+        f"{time.perf_counter() - t:.1f} s")
+    reqs = serve.make_requests(cfg, args)
+    zero_launches()
+    wall, decode_ticks, _ = serve_requests(torch, eng, reqs)
+    launches = read_launches()
+    st, pc = eng.stats(), eng.prefix_cache.stats()
+    if len(eng.finished) != len(reqs) or any(len(r.out_tokens) != args.max_new
+                                             for r in eng.finished):
+        raise AssertionError("not every request was served in full")
+    if any(launches.values()) or pc["device_calls"] or any(r.prefill_skipped
+                                                           for r in eng.finished):
+        raise AssertionError(f"hymba reached the prefix cache or a kernel: {launches}, "
+                             f"{pc['device_calls']} prefix-cache calls")
+    dec_s = sum(s for s, _ in decode_ticks)
+    longest = max(len(r.prompt) + r.max_new_tokens for r in reqs) + cfg.meta_tokens
+    windows = sorted({w for w in cfg.windows() if w > 0})
+    summary = {
+        "arch": cfg.name, "params": n_params, "requests": len(reqs),
+        "finished": len(eng.finished), "ticks": st["ticks"], "wall_s": wall,
+        "ms_per_decode_tick": 1e3 * dec_s / len(decode_ticks),
+        "decode_tokens_per_s": sum(n for _, n in decode_ticks) / dec_s,
+        "decode_launches": st["decode_launches"], "host_syncs": st["host_syncs"],
+        "prefill_computed": sum(r.prefill_computed for r in eng.finished),
+        "launches": launches, "prefix_cache_device_calls": pc["device_calls"],
+        "windows": windows, "longest_row": longest,
+        "binding": [w for w in windows if w < longest],
+    }
+    log(f"served {len(eng.finished)}/{len(reqs)} requests in {st['ticks']} ticks, "
+        f"{wall:.3f} s wall: {summary['ms_per_decode_tick']:.3f} ms per decode tick, "
+        f"{summary['decode_tokens_per_s']:.1f} decode tokens/s, decode_launches "
+        f"{st['decode_launches']}, host_syncs {st['host_syncs']}; launches {launches}, "
+        f"prefix cache {pc['device_calls']} device calls")
+    summary["device"] = busy_share(torch, eng, fresh(reqs, 1000))
+
+    twin = engine_twin(eng, kv_mode="contiguous", decode_mode="megastep")
+    captures, capture = [], twin.capture_window
+
+    def checked_capture(steps, inputs=None):
+        before = [x.clone() for x in mamba_leaves(twin)]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        win = capture(steps, inputs)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(before, mamba_leaves(twin)))
+        captures.append({"steps": steps, "ms": 1e3 * (time.perf_counter() - t),
+                         "nodes": graph_nodes(win.graph), "live_rows": len(twin.active),
+                         "mamba_state_equal": equal})
+        log(f"captured the {steps}-step window mid-serve ({len(twin.active)} live rows): "
+            f"{captures[-1]['ms']:.1f} ms, {captures[-1]['nodes']} graph nodes; Mamba "
+            f"leaves {'bit-equal' if equal else 'CHANGED'} after the warm-up and capture")
+        if not equal:
+            raise AssertionError("a window graph's capture changed the Mamba state")
+        return win
+
+    twin.capture_window = checked_capture
+    serve_windows(torch, twin, fresh(reqs))              # captures at first use
+    twin.capture_window = capture
+    if not captures:
+        raise AssertionError("the megastep serve captured no window graph")
+    if served(twin, reqs) != served(eng, reqs) or twin.ticks != st["ticks"]:
+        raise AssertionError("megastep tokens, finish order, prefill split or ticks "
+                             "differ from the in-flight serve")
+    before = twin.stats()
+    zero_launches()
+    mwall, wins = serve_windows(torch, twin, fresh(reqs, 2000))
+    if any(read_launches().values()):
+        raise AssertionError("the megastep serve launched a kernel")
+    d = {k: twin.stats()[k] - before[k] for k in ("ticks", "decode_launches",
+                                                  "host_syncs", "megastep_windows",
+                                                  "megastep_steps")}
+    again = [(rid - 2000, *rest) for rid, *rest in served(twin, fresh(reqs, 2000))]
+    if again != served(eng, reqs) or d["ticks"] != st["ticks"]:
+        raise AssertionError("the replayed megastep serve differs from the in-flight one")
+    win_s, win_ticks = sum(w[0] for w in wins), sum(w[1] for w in wins)
+    summary["megastep"] = {
+        **d, "wall_s": mwall, "graphs": captures,
+        "ms_per_decode_tick": 1e3 * win_s / win_ticks,
+        "decode_tokens_per_s": sum(w[2] for w in wins) / win_s,
+        "masked_step_share": 1 - win_ticks / d["megastep_steps"]}
+    log(f"megastep: the in-flight tokens, ticks, finish order and prefill split; "
+        f"{summary['megastep']['ms_per_decode_tick']:.3f} ms per decode tick, "
+        f"{summary['megastep']['decode_tokens_per_s']:.1f} tokens/s, serve {mwall:.3f} s "
+        f"wall, {d['decode_launches']} decode launches and {d['host_syncs']} host syncs "
+        f"(in-flight {st['decode_launches']} and {st['host_syncs']}), "
+        f"{d['megastep_windows']} windows over {d['megastep_steps']} steps")
+
+    rr = engine_twin(eng, kv_mode="contiguous", decode_mode="roundrobin")
+    for r in fresh(reqs):
+        rr.submit(r)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rr.run_until_done()
+    torch.cuda.synchronize()
+    got = {rid: toks for rid, toks, _, _ in served(rr, reqs)}
+    want = {rid: toks for rid, toks, _, _ in served(eng, reqs)}
+    if sorted(got) != sorted(want) or any(len(got[r]) != len(want[r]) for r in want):
+        raise AssertionError("round-robin did not serve every request in full")
+    ties = near_ties(torch, eng, reqs, got, want)
+    summary["roundrobin"] = {"ticks": rr.ticks, "wall_s": time.perf_counter() - t,
+                             "decode_launches": rr.decode_launches,
+                             "streams_equal": len(reqs) - len(ties), "near_ties": ties}
+    summary["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"round-robin: {summary['roundrobin']['streams_equal']} of {len(reqs)} streams "
+        f"equal the in-flight serve's, the rest split at near-ties; {rr.ticks} ticks, "
+        f"{rr.decode_launches} decode launches")
+    log(f"{cfg.name}: windows {windows} against rows of at most {longest} positions "
+        f"(meta tokens included): "
+        f"{'binding ' + str(summary['binding']) if summary['binding'] else 'no window binds here'}; "
+        f"peak device memory {summary['peak_memory_gb']:.2f} GB, busy share "
+        f"{summary['device']['busy_share']:.3f}")
+    return summary
 
 # ---------------------------------------------------------------------------
 
@@ -1682,6 +1932,18 @@ def main() -> int:
     phase("15. gemma3-1b at full width and depth, paged")
     serving["gemma3-1b"], rec = run_full_width(torch, "gemma3-1b", errs["paged_attn"])
     shapes.append(rec)
+    release(torch)
+
+    phase("16. olmoe-1b-7b at full width and depth, paged: in-flight and megastep")
+    serving["olmoe-1b-7b"], rec = run_full_width(torch, "olmoe-1b-7b", errs["paged_attn"],
+                                                buckets)
+    shapes.append(rec)
+    release(torch)
+
+    phase("17. hymba at smoke width and at full width and depth, contiguous")
+    serving["hymba-smoke"] = run_hymba(torch, smoke=True)
+    release(torch)
+    serving[HYMBA] = run_hymba(torch, smoke=False)
     release(torch)
     # the paged kernel's record at every other path's shapes
     records[2]["shapes"] = shapes

@@ -27,7 +27,7 @@ _ARCH_IDS = [
     "phi3.5-moe-42b-a6.6b",
 ]
 _PORTED = ["phi3-mini-3.8b", "gemma3-1b", "starcoder2-7b", "command-r-35b",
-           "qwen2-vl-72b"]
+           "qwen2-vl-72b", "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,20 +102,29 @@ class ArchConfig:
         return tuple(float(pat[i % len(pat)]) for i in range(self.n_layers))
 
     def param_count(self) -> int:
-        """Parameters of the attention decoder the port builds: embedding,
-        blocks and norms.  The JAX package's analytic count leaves the
-        norms out; here each counts per family: LayerNorm has a scale and a
-        bias, RMSNorm a scale; a parallel block has no ``ln2``; QK-norm adds
-        2 * Dh per layer."""
+        """Parameters the port's decoder builds: embedding, blocks and norms.
+        The JAX package's analytic count leaves the norms out and
+        approximates the Mamba branch; here every leaf counts: LayerNorm has
+        a scale and a bias, RMSNorm a scale; a parallel block has no
+        ``ln2``; QK-norm adds 2 * Dh per layer; an MoE FFN is E experts'
+        SwiGLU plus the (d, E) router; a hymba block adds the Mamba branch
+        (d_inner = d, a 4-tap conv) and the two fuse vectors; meta tokens add
+        meta_tokens * d."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         dh, h, kvh = self.head_dim, self.n_heads, self.n_kv_heads
         emb = v * d * (1 if self.tie_embeddings else 2)
         att = d * (h * dh) * 2 + d * (kvh * dh) * 2
-        ffn = {"swiglu": 3 * d * f, "gelu": 2 * d * f}.get(self.ffn, 0)
+        ffn = {"swiglu": 3 * d * f, "gelu": 2 * d * f,
+               "moe": self.n_experts * (3 * d * f + d)}.get(self.ffn, 0)
         norm = d * (2 if self.norm == "ln" else 1)
         norms = norm * (1 if self.parallel_block or self.ffn == "none" else 2)
         norms += 2 * dh if self.qk_norm else 0
-        return emb + self.n_layers * (att + ffn + norms) + norm
+        per = att + ffn + norms
+        if self.mixer == "hymba":
+            n = self.ssm_state
+            # w_in, w_dt, w_out; conv_w, dt_bias, d_skip; w_bc, a_log; fuse_a/m
+            per += 4 * d * d + 6 * d + 3 * d * n + 2 * d
+        return emb + self.n_layers * per + norm + self.meta_tokens * d
 
 
 _MODULE_FOR = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")

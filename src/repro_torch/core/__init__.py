@@ -89,30 +89,35 @@ def table_to_numpy(table: torch.Tensor) -> np.ndarray:
 def params_from_numpy(tree: dict, cfg, device="cuda"):
     """The JAX package's decoder parameter pytree, as numpy arrays (block
     leaves stacked ``(L, ...)``), as this package's model parameters
-    (``models.model.ParamTree``) on ``device``: weights bf16, norm
-    parameters (RMSNorm's and LayerNorm's ``scale``, LayerNorm's ``bias``)
-    f32 as in the JAX package, exactly the JAX values.  ``cfg`` is the
-    ``ArchConfig``."""
-    from repro_torch.models.layers import COMPUTE_DTYPE
+    (``models.model.ParamTree``) on ``device``: every leaf of the tree
+    (``blocks``, ``head`` and any other, such as hymba's ``meta``) with its
+    JAX value and dtype (bf16 weights stay bf16; f32 leaves, such as the
+    norms, the MoE router and the Mamba and fuse vectors, stay f32).
+    ``cfg`` is the ``ArchConfig``."""
     from repro_torch.models.model import ParamTree
 
     device = resolve_device(device)
 
-    def conv(x, dtype):
+    def conv(x):
         arr = np.asarray(x)
         if arr.dtype.name == "bfloat16":
+            dtype = torch.bfloat16
             arr = arr.astype(np.float32)   # exact; numpy has no bf16 of its own
+        elif arr.dtype == np.float32:
+            dtype = torch.float32
+        else:
+            raise TypeError(f"a parameter of dtype {arr.dtype}: expected bf16 or f32")
         arr = np.require(arr, requirements=["C_CONTIGUOUS", "WRITEABLE"])
         return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
-    def walk(t, index):
-        return {name: walk(v, index) if isinstance(v, dict) else
-                conv(v if index is None else np.asarray(v)[index],
-                     torch.float32 if name in ("scale", "bias") else COMPUTE_DTYPE)
-                for name, v in t.items()}
+    def walk(t, index=None):
+        if isinstance(t, dict):
+            return {name: walk(v, index) for name, v in t.items()}
+        return conv(t if index is None else np.asarray(t)[index])
 
-    blocks = [walk(tree["blocks"], i) for i in range(cfg.n_layers)]
-    return ParamTree({"blocks": blocks, "head": walk(tree["head"], None)})
+    return ParamTree({name: [walk(v, i) for i in range(cfg.n_layers)]
+                      if name == "blocks" else walk(v)
+                      for name, v in tree.items()})
 
 
 class MultiStepLRUCache:

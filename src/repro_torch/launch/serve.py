@@ -8,7 +8,12 @@ followed by a short random suffix.  ``build(args)`` returns the engine and
 repository's ``chip_smoke.py``) run exactly this path.
 
 ``--arch`` picks any architecture the port runs (``configs.list_archs()``:
-phi3-mini-3.8b, gemma3-1b, starcoder2-7b, command-r-35b, qwen2-vl-72b).
+phi3-mini-3.8b, gemma3-1b, starcoder2-7b, command-r-35b, qwen2-vl-72b, the
+MoE decoders olmoe-1b-7b and phi3.5-moe-42b-a6.6b, and the hymba-1.5b
+hybrid).  hymba serves with ``--kv-mode contiguous`` only, through plain
+admission (its Mamba state cannot resume from cached KV pages, so the
+prefix cache stays unused, as in the JAX engine); ``--kv-mode paged``
+raises for it.
 Defaults as in the JAX launcher: phi3-mini-3.8b at smoke size, 24
 requests over 8 templates of 64 tokens, suffixes of 4-16 tokens, 8 new
 tokens each; ``PrefixCache(num_sets=256, m=2, p=4, chunk_tokens=16)``,

@@ -5,17 +5,25 @@ returns a Model of functions with the JAX package's signatures:
 
     init(gen)                          -> params (a ParamTree on gen.device)
     prefill(params, batch)             -> (last_logits, cache)
-    init_cache(batch, max_len, device) -> zeroed cache {"k", "v"}
+    init_cache(batch, max_len, device) -> zeroed cache {"k", "v"[, "mamba"]}
     decode_step(params, tokens, cache, cur_len) -> (logits, cache)
 
 ``params`` is an ``nn.Module`` whose nested parameters keep the JAX pytree's
 names: ``params["blocks"][l]["attn"]["wq"]`` is layer l's slice of the JAX
 package's stacked ``params["blocks"]["attn"]["wq"]``, a ``(d_in, d_out)``
 matrix applied as ``x @ W``; ``params["head"]`` holds ``embed``,
-``lm_head`` and ``out_norm``.  The JAX layer ``scan`` is a Python loop.
-Decode writes the new token's KV into the cache in place.  Training
-(``loss``) and the JAX package's other families (hymba, xLSTM,
-encoder-decoder, meta tokens) are not ported yet.
+``lm_head`` and ``out_norm``; hymba's meta tokens are ``params["meta"]``.
+The JAX layer ``scan`` is a Python loop.
+
+The attention decoder and the hymba hybrid are ported, with every FFN (MoE
+too).  Decode writes the new token's KV into the cache in place and returns
+a cache whose ``"k"``/``"v"`` are those same tensors; hymba's position-free
+Mamba state (``cache["mamba"]``, ``{"h", "conv"}`` per layer) comes back as
+new tensors, so that a caller keeps or drops each row's advance (the serving
+engine's freeze).  Hymba prepends its meta tokens in ``prefill``, so its KV
+holds ``meta_tokens`` positions before the prompt, and ``decode_step`` adds
+them to ``cur_len``.  Training (``loss``) and the JAX package's xLSTM and
+encoder-decoder families are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import rope_positions
-from repro_torch.models.layers import COMPUTE_DTYPE, embed_init, embed_tokens
+from repro_torch.models.layers import COMPUTE_DTYPE, _normal, embed_init, embed_tokens
 
 
 class Model(NamedTuple):
@@ -64,12 +72,8 @@ class ParamTree(nn.Module):
 def _unsupported(cfg: ArchConfig) -> str | None:
     if cfg.enc_dec:
         return "encoder-decoder"
-    if cfg.mixer != "attn":
+    if cfg.mixer not in ("attn", "hymba"):
         return f"mixer={cfg.mixer!r}"
-    if cfg.meta_tokens:
-        return "meta tokens"
-    if cfg.ffn == "moe":
-        return "ffn='moe'"
     return None
 
 
@@ -82,11 +86,15 @@ def make_model(cfg: ArchConfig) -> Model:
 
 def cache_batch_axes(cfg: ArchConfig) -> dict:
     """Each cache leaf's batch axis (the axis a per-row mask broadcasts
-    along); the attention decoder's KV leads with layers, so axis 1."""
+    along), in the structure of ``init_cache``: every leaf leads with
+    layers, so axis 1."""
     what = _unsupported(cfg)
     if what is not None:
         raise NotImplementedError(f"{cfg.name}: {what} is not yet ported")
-    return {"k": 1, "v": 1}
+    axes = {"k": 1, "v": 1}
+    if cfg.mixer == "hymba":
+        axes["mamba"] = {"h": 1, "conv": 1}
+    return axes
 
 
 # ---------------------------------------------------------------------------
@@ -118,49 +126,87 @@ def _final(cfg: ArchConfig, params, h):
 
 
 # ---------------------------------------------------------------------------
-# decoder-only attention stack
+# decoder-only stacks (attention blocks and hymba blocks)
 # ---------------------------------------------------------------------------
 
 def _make_decoder(cfg: ArchConfig) -> Model:
     windows = cfg.windows()
     thetas = cfg.thetas()
+    is_hymba = cfg.mixer == "hymba"
+    meta = cfg.meta_tokens
 
     def init(gen: torch.Generator) -> ParamTree:
-        blocks = [tfm.attn_block_init(gen, cfg) for _ in range(cfg.n_layers)]
-        return ParamTree({"blocks": blocks, "head": _head_init(cfg, gen)})
+        block_init = tfm.hymba_block_init if is_hymba else tfm.attn_block_init
+        params = {"blocks": [block_init(gen, cfg) for _ in range(cfg.n_layers)],
+                  "head": _head_init(cfg, gen)}
+        if meta:
+            params["meta"] = (_normal(gen, (meta, cfg.d_model)) * 0.02).to(COMPUTE_DTYPE)
+        return ParamTree(params)
 
     def prefill(params, batch):
-        """Returns (last-position logits (B, V) f32, cache at cur_len = S)."""
+        """Returns (last-position logits (B, V) f32, cache at cur_len = S;
+        hymba's KV holds the meta tokens' positions before the prompt, and
+        its cache the Mamba state after the sequence)."""
         tokens = batch["tokens"]
         b, s = tokens.shape
         h = _embed(cfg, params, tokens)
+        if meta:
+            h = torch.cat([params["meta"][None].expand(b, meta, cfg.d_model), h], dim=1)
+            s += meta
         positions = batch.get("positions") if cfg.rope_kind == "mrope" else None
         if positions is None:            # M-RoPE's (B, 3, S) streams may be given
             positions = rope_positions(torch.arange(s, device=h.device).expand(b, s),
                                        cfg.rope_kind)
-        ks, vs = [], []
+        ks, vs, ms = [], [], []
         for p_l, w_l, t_l in zip(params["blocks"], windows, thetas):
-            h, (k, v) = tfm.attn_block_apply(cfg, p_l, h, positions, w_l, t_l)
+            if is_hymba:
+                h, (k, v), mst = tfm.hymba_block_apply(cfg, p_l, h, positions, w_l, t_l)
+                ms.append(mst)
+            else:
+                h, (k, v) = tfm.attn_block_apply(cfg, p_l, h, positions, w_l, t_l)
             ks.append(k)
             vs.append(v)
         h = _final(cfg, params, h)
-        return _logits_fn(cfg, params)(h[:, -1]), {"k": torch.stack(ks),
-                                                   "v": torch.stack(vs)}
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        if is_hymba:
+            cache["mamba"] = {n: torch.stack([m[n] for m in ms]) for n in ("h", "conv")}
+        return _logits_fn(cfg, params)(h[:, -1]), cache
 
     def init_cache(batch_size: int, max_len: int, device="cuda") -> dict:
-        shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
-                "v": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)}
+        shape = (cfg.n_layers, batch_size, max_len + meta, cfg.n_kv_heads, cfg.head_dim)
+        cache = {"k": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
+                 "v": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)}
+        if is_hymba:
+            lb = (cfg.n_layers, batch_size)
+            cache["mamba"] = {
+                "h": torch.zeros((*lb, cfg.d_model, cfg.ssm_state), dtype=torch.float32,
+                                 device=device),
+                "conv": torch.zeros((*lb, 3, cfg.d_model), dtype=COMPUTE_DTYPE,
+                                    device=device)}
+        return cache
 
     def decode_step(params, tokens, cache, cur_len):
-        """tokens (B,1); cur_len an int (lockstep) or a (B,) tensor
-        (in-flight batching: every row at its own length).  Row outputs
-        are independent of which other rows share the launch."""
+        """tokens (B,1); cur_len counts the real tokens (an int, lockstep, or
+        a (B,) tensor, in-flight: every row at its own length); the meta
+        offset is added here.  Row outputs are independent of which other
+        rows share the launch."""
         h = _embed(cfg, params, tokens)
+        pos = cur_len + meta
+        hs, convs = [], []
         for l, (p_l, w_l, t_l) in enumerate(zip(params["blocks"], windows, thetas)):
-            h, _, _ = tfm.attn_block_decode(cfg, p_l, h, cache["k"][l], cache["v"][l],
-                                            cur_len, w_l, t_l)
+            if is_hymba:
+                mst = {n: cache["mamba"][n][l] for n in ("h", "conv")}
+                h, _, _, mst = tfm.hymba_block_decode(cfg, p_l, h, cache["k"][l],
+                                                      cache["v"][l], mst, pos, w_l, t_l)
+                hs.append(mst["h"])
+                convs.append(mst["conv"])
+            else:
+                h, _, _ = tfm.attn_block_decode(cfg, p_l, h, cache["k"][l],
+                                                cache["v"][l], pos, w_l, t_l)
         h = _final(cfg, params, h)
+        if is_hymba:
+            cache = {"k": cache["k"], "v": cache["v"],
+                     "mamba": {"h": torch.stack(hs), "conv": torch.stack(convs)}}
         return _logits_fn(cfg, params)(h[:, -1]), cache
 
     return Model(cfg, init, prefill, init_cache, decode_step)

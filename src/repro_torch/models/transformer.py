@@ -1,11 +1,15 @@
-"""The attention block: init, prefill, contiguous decode and paged decode.
+"""Decoder blocks: the attention block (prefill, contiguous decode, paged
+decode) and the hymba hybrid block.
 
-Port of the attention-block part of ``repro.models.transformer``, forward
+Port of the decoder-block part of ``repro.models.transformer``, forward
 only.  A block's parameters keep the JAX package's names and layout
-(``ln1``, ``attn``, ``mlp``, ``ln2``).  The JAX layer ``scan`` becomes a
-Python loop over blocks in ``model.py``; window and theta are per-layer
-Python numbers.  Norms are RMSNorm or LayerNorm (``cfg.norm``).  The JAX
-package's other families (hymba, xLSTM, MoE) are not ported yet and raise.
+(``ln1``, ``attn``, ``mlp``, ``ln2``; hymba adds ``mamba``, ``fuse_a`` and
+``fuse_m``).  The JAX layer ``scan`` becomes a Python loop over blocks in
+``model.py``; window and theta are per-layer Python numbers.  Norms are
+RMSNorm or LayerNorm (``cfg.norm``).  The FFN is SwiGLU, GeLU or MoE; as in
+the JAX package, prefill runs the MoE with capacity dispatch
+(``_ffn_apply``) and decode computes every expert (``_ffn_decode``).  The
+JAX package's xLSTM and Whisper blocks are not ported yet.
 """
 
 from __future__ import annotations
@@ -13,9 +17,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (gelu_mlp, gelu_mlp_init, layernorm,
-                                       layernorm_init, rmsnorm, rmsnorm_init,
-                                       swiglu, swiglu_init)
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
+from repro_torch.models.layers import (COMPUTE_DTYPE, gelu_mlp, gelu_mlp_init,
+                                       layernorm, layernorm_init, rmsnorm,
+                                       rmsnorm_init, swiglu, swiglu_init)
 
 
 def _norm_init(cfg, device, d=None):
@@ -39,16 +45,28 @@ def attn_block_init(gen: torch.Generator, cfg) -> dict:
         p["mlp"] = swiglu_init(gen, cfg.d_model, cfg.d_ff)
     elif cfg.ffn == "gelu":
         p["mlp"] = gelu_mlp_init(gen, cfg.d_model, cfg.d_ff)
-    elif cfg.ffn != "none":
-        raise NotImplementedError(f"ffn={cfg.ffn!r} is not yet ported")
+    elif cfg.ffn == "moe":
+        p["mlp"] = moe_mod.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts)
     if not cfg.parallel_block and cfg.ffn != "none":
         p["ln2"] = _norm_init(cfg, gen.device)
     return p
 
 
 def _ffn_apply(cfg, p, x):
-    """The block's FFN; the same for prefill and decode (the JAX package's
-    ``_ffn_decode`` differs from ``_ffn_apply`` only for MoE)."""
+    """The block's FFN in prefill: MoE with capacity dispatch (its aux
+    losses wait for training)."""
+    if cfg.ffn == "moe":
+        return moe_mod.moe_apply(p["mlp"], x, n_experts=cfg.n_experts,
+                                 top_k=cfg.moe_top_k,
+                                 capacity_factor=cfg.capacity_factor)[0]
+    return _ffn_decode(cfg, p, x)
+
+
+def _ffn_decode(cfg, p, x):
+    """The block's FFN in decode: MoE computes every expert on the B tokens."""
+    if cfg.ffn == "moe":
+        return moe_mod.moe_decode(p["mlp"], x, n_experts=cfg.n_experts,
+                                  top_k=cfg.moe_top_k)
     if cfg.ffn == "swiglu":
         return swiglu(p["mlp"], x)
     if cfg.ffn == "gelu":
@@ -56,13 +74,14 @@ def _ffn_apply(cfg, p, x):
     return torch.zeros_like(x)
 
 
-def _residual(cfg, p, h, x, a_out):
-    """h + attention out (+ FFN), sequential or parallel block."""
+def _residual(cfg, p, h, x, a_out, ffn=_ffn_apply):
+    """h + attention out (+ ``ffn``: ``_ffn_apply`` in prefill,
+    ``_ffn_decode`` in decode), sequential or parallel block."""
     if cfg.parallel_block:
-        return h + a_out + _ffn_apply(cfg, p, x)
+        return h + a_out + ffn(cfg, p, x)
     h = h + a_out
     if cfg.ffn != "none":
-        h = h + _ffn_apply(cfg, p, _norm(cfg, p["ln2"], h))
+        h = h + ffn(cfg, p, _norm(cfg, p["ln2"], h))
     return h
 
 
@@ -82,7 +101,7 @@ def attn_block_decode(cfg, p, h, cache_k, cache_v, cur_len, window, theta):
         p["attn"], x, cache_k, cache_v, cur_len, n_heads=cfg.n_heads,
         n_kv_heads=cfg.n_kv_heads, d_head=cfg.head_dim, rope_kind=cfg.rope_kind,
         theta=theta, window=window, softcap=cfg.softcap)
-    return _residual(cfg, p, h, x, a_out), ck, cv
+    return _residual(cfg, p, h, x, a_out, _ffn_decode), ck, cv
 
 
 def attn_block_decode_paged(cfg, p, h, pool_k, pool_v, block_table,
@@ -99,4 +118,52 @@ def attn_block_decode_paged(cfg, p, h, pool_k, pool_v, block_table,
         n_kv_heads=cfg.n_kv_heads, d_head=cfg.head_dim,
         rope_kind=cfg.rope_kind, theta=theta, window=window,
         softcap=cfg.softcap)
-    return _residual(cfg, p, h, x, a_out), tk, tv
+    return _residual(cfg, p, h, x, a_out, _ffn_decode), tk, tv
+
+
+# -- hymba: parallel attention and Mamba heads, learned fusion gates ---------
+
+def hymba_block_init(gen: torch.Generator, cfg) -> dict:
+    dev = gen.device
+    return {
+        "ln1": _norm_init(cfg, dev),
+        "attn": attn.attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.head_dim),
+        "mamba": ssm.mamba_init(gen, cfg.d_model, cfg.d_model, cfg.ssm_state),
+        "fuse_a": torch.full((cfg.d_model,), 0.5, dtype=torch.float32, device=dev),
+        "fuse_m": torch.full((cfg.d_model,), 0.5, dtype=torch.float32, device=dev),
+        "ln2": _norm_init(cfg, dev),
+        "mlp": swiglu_init(gen, cfg.d_model, cfg.d_ff),
+    }
+
+
+def _hymba_mix(cfg, p, h, a_out, m_out):
+    """h + the fused attention and Mamba outputs (f32 gates cast to bf16),
+    then the SwiGLU sublayer."""
+    h = h + (p["fuse_a"].to(COMPUTE_DTYPE) * a_out
+             + p["fuse_m"].to(COMPUTE_DTYPE) * m_out)
+    return h + swiglu(p["mlp"], _norm(cfg, p["ln2"], h))
+
+
+def hymba_block_apply(cfg, p, h, positions, window, theta):
+    """Prefill.  Returns (h, (k, v), the Mamba state after the sequence)."""
+    x = _norm(cfg, p["ln1"], h)
+    a_out, kv = attn.attn_apply(
+        p["attn"], x, positions, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        d_head=cfg.head_dim, rope_kind=cfg.rope_kind, theta=theta,
+        window=window, chunk=cfg.attn_chunk)
+    m_out, mstate = ssm.mamba_apply(p["mamba"], x, d_state=cfg.ssm_state,
+                                    chunk=cfg.ssm_chunk, return_state=True)
+    return _hymba_mix(cfg, p, h, a_out, m_out), kv, mstate
+
+
+def hymba_block_decode(cfg, p, h, cache_k, cache_v, mstate, cur_len, window, theta):
+    """Decode: the KV written in place, the new Mamba state returned (the
+    caller decides which rows keep it)."""
+    x = _norm(cfg, p["ln1"], h)
+    a_out, ck, cv = attn.attn_decode(
+        p["attn"], x, cache_k, cache_v, cur_len, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, d_head=cfg.head_dim, rope_kind=cfg.rope_kind,
+        theta=theta, window=window)
+    m_out, mstate = ssm.mamba_decode(p["mamba"], x, mstate, d_state=cfg.ssm_state)
+    return _hymba_mix(cfg, p, h, a_out, m_out), ck, cv, mstate

@@ -1,7 +1,7 @@
 """Continuous-batching serve engine with multi-step-LRU prefix reuse.
 
-Port of ``repro.serving.engine`` for the attention decoder.  Flow per
-request:
+Port of ``repro.serving.engine`` for the attention decoder (every FFN, MoE
+too) and the hymba hybrid.  Flow per request:
 
   1. chunk-hash the prompt; find every admitted request's longest cached
      prefix — ``admit_mode``:
@@ -43,9 +43,16 @@ token and gets one follow-up launch).  The megastep planner
 (``_plan_window``) is the JAX package's: K is the largest horizon in which
 no host-visible event (an admission into a freed slot) can fall.
 
+As in the JAX package, the prefix cache serves only attention decoders
+without meta tokens (``mixer == "attn"``): hymba's Mamba state summarises
+the whole sequence, so a cached page of KV is not a prefix it can resume
+from.  Hymba admits through plain prefill, which installs every cache leaf
+(the KV over meta tokens and prompt, the Mamba ``h`` and ``conv``) into
+the slot, and ``kv_mode="paged"`` raises for it.
+
 Differences from the JAX package, none visible in tokens or counters:
 
-  * PyTorch updates the caches in place, so a decode launch writes each
+  * PyTorch updates the KV caches in place, so a decode launch writes each
     row's new KV straight into the slot cache (or tail) instead of
     returning a cache that ``_merge_cache`` merges per slot.  A row whose
     output a launch discards decodes at a parked position chosen so that
@@ -60,6 +67,14 @@ Differences from the JAX package, none visible in tokens or counters:
       exactly the KV that its next real step writes, bit for bit (rows are
       row-local and the inputs are the same), into a position nothing has
       read yet.
+    Recurrent state has no position, so that shortcut would advance it:
+    every cache leaf that ``cache_batch_axes`` names beyond ``k`` and ``v``
+    (hymba's Mamba ``h`` and ``conv``) comes back from the decode step as a
+    new tensor and is written back only for the rows that emit
+    (``freeze_rows``: ``torch.where`` along the leaf's batch axis, copied
+    in place into the persistent tensor, so a captured graph keeps its
+    storage).  The KV is never select-merged: that would copy the whole
+    cache four times per step.
   * A megastep window is a Python loop of ``steps`` decode steps.  On a CUDA
     device the engine captures it as one ``torch.cuda.CUDAGraph`` per pow2
     ``steps`` bucket (the counterpart of the JAX package's one compile per
@@ -104,7 +119,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import paged_attn
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.model import Model, _embed, _final, _logits_fn
+from repro_torch.models.model import (Model, _embed, _final, _logits_fn,
+                                      cache_batch_axes)
 from repro_torch.serving.kv_cache import PagedKVPool
 from repro_torch.serving.prefix_cache import (PrefixCache, chunk_chain_hashes,
                                               service_tick_percentiles)
@@ -262,20 +278,57 @@ def paged_decode_step(cfg: ArchConfig, params, tokens, tail_cache, pool_k,
     return _logits_fn(cfg, params)(h[:, -1]), tail_cache
 
 
+def state_leaves(axes: dict, path: tuple = ()) -> list:
+    """(path, batch axis) of every cache leaf in ``axes`` (the structure of
+    ``model.cache_batch_axes``) beyond the positional ``k`` and ``v``."""
+    out = []
+    for name, ax in axes.items():
+        if isinstance(ax, dict):
+            out += state_leaves(ax, path + (name,))
+        elif path or name not in ("k", "v"):
+            out.append((path + (name,), ax))
+    return out
+
+
+def _leaf(tree: dict, path: tuple) -> torch.Tensor:
+    for name in path:
+        tree = tree[name]
+    return tree
+
+
+def freeze_rows(cache: dict, new: dict, leaves: list, keep) -> None:
+    """The freeze: each recurrent leaf (``state_leaves``) of ``cache`` takes
+    ``new``'s rows where ``keep`` (B,) bool (a tensor, or a host array) is
+    set and keeps its own elsewhere, written in place."""
+    if not leaves:
+        return
+    keep = torch.as_tensor(keep, device=_leaf(cache, leaves[0][0]).device)
+    for path, ax in leaves:
+        old = _leaf(cache, path)
+        shape = [1] * old.ndim
+        shape[ax] = keep.shape[0]
+        old.copy_(torch.where(keep.view(shape), _leaf(new, path), old))
+
+
 def megastep_decode(decode_fn, params, last_tok, cache, cur_lens, live, rem, *,
-                    eos: int, max_len: int, steps: int, k_limit, park):
+                    eos: int, max_len: int, steps: int, k_limit, park,
+                    state=()):
     """Up to ``steps`` in-flight decode ticks in one device program.
 
     ``decode_fn(params, tokens, cache, cur_lens) -> (logits, cache)`` is a
     row-local decode step that writes each row's new KV at its
-    ``cur_lens`` entry in place (``model.decode_step`` or a paged wrapper).
+    ``cur_lens`` entry in place (``model.decode_step`` or a paged wrapper)
+    and returns the recurrent leaves ``state`` (``state_leaves``) new;
+    after each step those take the new rows only where a row emits
+    (``freeze_rows``).
     Each step: decode -> argmax -> ``emit = live & (i < k_limit)`` ->
     advance ``last_tok``/``cur_len``/``rem`` where emitting -> retire a row
     (live -> False) after the emission that exhausts ``rem`` (callers pass
     min(max_new budget, max_len-1 - cur_len)), emits ``eos``, or reaches
     ``max_len - 1``: the in-flight retirement test verbatim.  A live row
     decodes at its own ``cur_len`` (past ``k_limit`` it rewrites the KV its
-    next real step writes, bit for bit); a retired or idle row at ``park``.
+    next real step writes, bit for bit, from its frozen state); a retired
+    or idle row at ``park``.
 
     ``last_tok`` (B, 1) int32; ``cur_lens``/``rem``/``park`` (B,) int32;
     ``live`` (B,) bool; ``k_limit`` an int or a 0-d int tensor on the
@@ -288,7 +341,8 @@ def megastep_decode(decode_fn, params, last_tok, cache, cur_lens, live, rem, *,
     toks, emits = [], []
     for i in range(steps):
         emit = lv & (k_limit > i)
-        logits, cache = decode_fn(params, lt, cache, torch.where(lv, cu, park))
+        logits, new = decode_fn(params, lt, cache, torch.where(lv, cu, park))
+        freeze_rows(cache, new, state, emit)
         tok = torch.argmax(logits, -1).to(torch.int32)
         lt = torch.where(emit[:, None], tok[:, None], lt)
         cu = cu + emit.to(cu.dtype)
@@ -343,13 +397,19 @@ class ServeEngine:
         self.eos = eos_token
         self.prefix_cache = prefix_cache
         self.pool = pool
-        self.use_prefix = prefix_cache is not None and pool is not None
+        # the prefix cache serves attention decoders without meta tokens only
+        self.use_prefix = (prefix_cache is not None and pool is not None
+                           and self.cfg.mixer == "attn" and not self.cfg.enc_dec
+                           and self.cfg.meta_tokens == 0)
         self.kv_mode = kv_mode
         self.paged = kv_mode == "paged"
+        # recurrent cache leaves: written back only for the rows that emit
+        self._state = state_leaves(cache_batch_axes(self.cfg))
         if self.paged:
             if not self.use_prefix:
                 raise ValueError("kv_mode='paged' needs a prefix cache and a "
-                                 "pool (the pool is the resident KV store)")
+                                 "pool (the pool is the resident KV store) on "
+                                 "an attention decoder without meta tokens")
             self.cache = pool.attach_slots(slots, max_len, tail_tokens)
             self.tail_cap = pool.tail_tokens
         else:
@@ -449,9 +509,12 @@ class ServeEngine:
                 self.pool.clear_slot(req.slot)
             batch = {"tokens": self._tensor(req.prompt[None].astype(np.int32))}
             logits, pc = self.model.prefill(self.params, batch)
-            s = pc["k"].shape[2]
+            s = pc["k"].shape[2]         # the prompt (and meta tokens) KV
             self.cache["k"][:, req.slot, :s] = pc["k"][:, 0]
             self.cache["v"][:, req.slot, :s] = pc["v"][:, 0]
+            for path, ax in self._state:
+                _leaf(self.cache, path).select(ax, req.slot).copy_(
+                    _leaf(pc, path).select(ax, 0))
             req.prefill_computed = len(req.prompt)
             self.cur_len[req.slot] = len(req.prompt)
             self._mark_active(req)
@@ -832,10 +895,11 @@ class ServeEngine:
             x = torch.stack(list(x))
         return x.cpu().numpy()
 
-    def _launch_decode(self, live: np.ndarray) -> torch.Tensor:
+    def _launch_decode(self, live: np.ndarray, emit: np.ndarray) -> torch.Tensor:
         """ONE decode launch over the per-slot token buffer; rows in ``live``
         decode at their ``cur_len``, the others at a parked position (see
-        the module docstring).  Paged mode reads the pool planes and block
+        the module docstring); only the rows in ``emit`` keep their advanced
+        recurrent state.  Paged mode reads the pool planes and block
         tables at launch time, so pages a borrower wave published earlier
         this tick are visible.  Counts the launch and its active rows and
         returns the argmax tokens ON DEVICE — callers batch the fetch into
@@ -844,13 +908,14 @@ class ServeEngine:
         if self.paged:
             plens = self.pool.prefix_lens
             curs = self._tensor(np.where(live, self.cur_len, plens).astype(np.int32))
-            logits, _ = paged_decode_step(
+            logits, new = paged_decode_step(
                 self.cfg, self.params, tokens, self.cache, self.pool.k, self.pool.v,
                 self.pool.device_block_tables(), self._tensor(plens), curs,
                 smax=self.max_len)
         else:
             curs = self._tensor(np.where(live, self.cur_len, 0).astype(np.int32))
-            logits, _ = self.model.decode_step(self.params, tokens, self.cache, curs)
+            logits, new = self.model.decode_step(self.params, tokens, self.cache, curs)
+        freeze_rows(self.cache, new, self._state, emit)
         self.decode_launches += 1
         self.launch_rows += len(self.active)
         return torch.argmax(logits, -1)
@@ -911,7 +976,7 @@ class ServeEngine:
             ready_a = ready.copy()
             ready_a[late_slots] = False
             accept_a = accept & ready_a
-            nxt_a = self._launch_decode(ready_a)
+            nxt_a = self._launch_decode(ready_a, accept_a)
             for th in pending:
                 th()
             late_due = accept & ~accept_a
@@ -919,7 +984,7 @@ class ServeEngine:
             if late_due.any():
                 # a borrower slot admitted by a later wave owes this tick's
                 # token — follow-up launch now that its prefill ran
-                nxt_b = self._launch_decode(ready)
+                nxt_b = self._launch_decode(ready, late_due)
             if nxt_b is None:
                 nxt_a = self._sync(nxt_a)
             else:
@@ -929,7 +994,7 @@ class ServeEngine:
         else:
             for th in pending:
                 th()
-            nxt[accept] = self._sync(self._launch_decode(ready))[accept]
+            nxt[accept] = self._sync(self._launch_decode(ready, accept))[accept]
         done = []
         for r in self.active.values():
             if accept[r.slot]:
@@ -1038,7 +1103,7 @@ class ServeEngine:
         _, cu, lv, toks, emits = megastep_decode(
             decode_fn, self.params, seg[0][:, None], self.cache, seg[1], seg[2] != 0,
             seg[3], eos=self.eos, max_len=self.max_len, steps=steps,
-            k_limit=inb[5 * w], park=park)
+            k_limit=inb[5 * w], park=park, state=self._state)
         return torch.cat([toks, emits.to(torch.int32), cu[None], lv[None].to(torch.int32)])
 
     def capture_window(self, steps: int, inputs: np.ndarray | None = None) -> WindowGraph:
@@ -1046,7 +1111,8 @@ class ServeEngine:
         only), after one eager warm-up on a side stream.  The warm-up runs
         on ``inputs`` (default: the engine's current state) with
         ``k_limit = 0``, so no row emits: live rows rewrite the KV their
-        next step writes and idle rows park.  Raises if capture fails."""
+        next step writes, idle rows park, and the recurrent leaves stay
+        bit-equal.  Raises if capture fails."""
         if self.device.type != "cuda":
             raise ValueError("window graphs are captured on a CUDA device only")
         x = self._window_inputs(0) if inputs is None else inputs.copy()

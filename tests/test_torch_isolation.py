@@ -40,3 +40,13 @@ def test_importing_the_port_loads_no_jax():
             + repr(FORBIDDEN) + ")\nassert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
                    env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=120)
+
+
+def test_every_port_module_is_checked():
+    """The rule covers every module of the port, the MoE and Mamba modules
+    and the configs of the MoE and hymba families among them."""
+    checked = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES
+               if p.is_relative_to(ROOT / "src" / "repro_torch")}
+    assert {"models/moe.py", "models/ssm.py", "models/transformer.py",
+            "configs/olmoe_1b_7b.py", "configs/phi3_5_moe_42b_a6_6b.py",
+            "configs/hymba_1_5b.py", "serving/engine.py"} <= checked

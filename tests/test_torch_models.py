@@ -17,6 +17,7 @@ from repro.configs import get_config as jax_get_config
 from repro.configs.base import ArchConfig as JaxArchConfig
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
+from repro.models.model import cache_batch_axes as jax_cache_batch_axes
 from repro.models.model import make_model as jax_make_model
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
@@ -45,6 +46,9 @@ SMOKE = "phi3-mini-3.8b"
 # window (starcoder2); LayerNorm and the parallel block (command-r); M-RoPE
 # (qwen2-vl)
 FAMILIES = ["gemma3-1b", "starcoder2-7b", "command-r-35b", "qwen2-vl-72b"]
+# the MoE decoders and the hymba hybrid (their own tests are in
+# test_torch_moe.py and test_torch_hymba.py)
+NEW_FAMILIES = ["olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b"]
 # the GQA case: 4 query heads on 2 KV heads (rep = 2)
 GQA = dict(name="gqa-smoke", family="dense", n_layers=2, d_model=128, n_heads=4,
            n_kv_heads=2, d_ff=256, vocab_size=512, attn_chunk=32, loss_chunk=32)
@@ -73,6 +77,13 @@ def pair(request):
 @pytest.fixture(scope="module", params=FAMILIES)
 def family(request):
     """``pair`` for a family's smoke config."""
+    return _pair(jax_get_config(request.param, smoke=True),
+                 get_config(request.param, smoke=True))
+
+
+@pytest.fixture(scope="module", params=FAMILIES + NEW_FAMILIES)
+def any_family(request):
+    """``family``, the MoE and hymba smoke configs too."""
     return _pair(jax_get_config(request.param, smoke=True),
                  get_config(request.param, smoke=True))
 
@@ -364,10 +375,15 @@ def test_family_prefill_and_teacher_forced_decode_match_jax(family):
         _assert_same_greedy(jl, tl)
 
 
-def _check_prefill_and_decode(pair_):
+def _check_prefill_and_decode(pair_, rows=3, kv_layers=2):
+    """Prefill of ``rows`` 24-token prompts, then six teacher-forced decode
+    steps at per-row lengths (row 1 rewinds to 20), against JAX; the KV of
+    the first ``kv_layers`` layers is compared.  A hymba cache holds the
+    meta tokens' positions before the prompt and carries the Mamba state
+    from the prefill."""
     jcfg, cfg, jm, jp, tm, tp = pair_
     rng = np.random.default_rng(7)
-    toks = rng.integers(1, cfg.vocab_size, (3, 24)).astype(np.int32)
+    toks = rng.integers(1, cfg.vocab_size, (rows, 24)).astype(np.int32)
     jprefill, jdecode = jax.jit(jm.prefill), jax.jit(jm.decode_step)
     jl, jc = jprefill(jp, {"tokens": jnp.asarray(toks)})
     tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)})
@@ -375,16 +391,20 @@ def _check_prefill_and_decode(pair_):
     # the KV of the first two layers, at most two bf16 layers deep (all of
     # it for the two-layer configs; gemma3-smoke has three, and each block
     # given the same input agrees with JAX's to one bf16 ulp)
-    _close(jc["k"][:2], tc["k"][:2], DEEP_TOL)
+    _close(jc["k"][:kv_layers], tc["k"][:kv_layers], DEEP_TOL)
     _assert_same_greedy(jl, tl)
 
-    jcache = jm.init_cache(3, 40)
-    jcache = {k: jcache[k].at[:, :, :24].set(jc[k]) for k in jcache}
-    tcache = tm.init_cache(3, 40, device="cpu")
-    for k in tcache:
-        tcache[k][:, :, :24] = tc[k]
-    cur = np.array([24, 20, 24], np.int32)       # row 1 rewinds: unequal lengths
-    feed = rng.integers(1, cfg.vocab_size, (6, 3, 1)).astype(np.int32)
+    s = jc["k"].shape[2]                          # 24 + meta tokens
+    jcache = jm.init_cache(rows, 40)
+    tcache = tm.init_cache(rows, 40, device="cpu")
+    for k in ("k", "v"):
+        jcache[k] = jcache[k].at[:, :, :s].set(jc[k])
+        tcache[k][:, :, :s] = tc[k]
+    if "mamba" in jc:
+        jcache["mamba"] = jc["mamba"]
+        tcache["mamba"] = tc["mamba"]
+    cur = np.array([24, 20, 24, 22][:rows], np.int32)   # row 1 rewinds: unequal lengths
+    feed = rng.integers(1, cfg.vocab_size, (6, rows, 1)).astype(np.int32)
     for step in range(6):
         jl, jcache = jdecode(jp, jnp.asarray(feed[step]), jcache, jnp.asarray(cur))
         tl, tcache = tm.decode_step(tp, torch.from_numpy(feed[step]), tcache,
@@ -408,11 +428,14 @@ def test_params_carry_exactly(pair):
     assert n == sum(x.size for x in jax.tree.leaves(jp))
 
 
-def test_family_params_carry_exactly(family):
-    """Every leaf of the JAX parameters arrives with its value and dtype:
-    norm parameters f32 (LayerNorm's bias too), everything else bf16."""
-    _, cfg, _, jp, _, tp = family
+def test_family_params_carry_exactly(any_family):
+    """Every leaf of the JAX parameters arrives with its value and its JAX
+    dtype: f32 stays f32 (norm parameters, LayerNorm's bias too, the MoE
+    router, Mamba's ``dt_bias``, ``a_log`` and ``d_skip``, hymba's fuse
+    vectors), bf16 stays bf16; top-level leaves (hymba's ``meta``) too."""
+    _, cfg, _, jp, _, tp = any_family
     leaves = jax.tree_util.tree_flatten_with_path(jp)[0]
+    f32 = set()
     for path, leaf in leaves:
         names = [k.key for k in path]
         layers_ = range(cfg.n_layers) if names[0] == "blocks" else [None]
@@ -420,34 +443,65 @@ def test_family_params_carry_exactly(family):
             t = tp[names[0]] if l is None else tp[names[0]][l]
             for name in names[1:]:
                 t = t[name]
-            want = np.asarray(leaf if l is None else leaf[l], np.float32)
-            assert t.dtype == (torch.float32 if names[-1] in ("scale", "bias")
-                               else torch.bfloat16), names
-            np.testing.assert_array_equal(want, t.float().numpy(), err_msg=str(names))
+            want = np.asarray(leaf if l is None else leaf[l])
+            assert t.dtype == {"float32": torch.float32,
+                               "bfloat16": torch.bfloat16}[want.dtype.name], names
+            np.testing.assert_array_equal(want.astype(np.float32), t.float().numpy(),
+                                          err_msg=str(names))
+            if t.dtype == torch.float32:
+                f32.add(names[-1])
+    assert {"scale"} <= f32
     if cfg.norm == "ln":
         assert tp["blocks"][0]["ln1"]["bias"].dtype == torch.float32
+    if cfg.ffn == "moe":
+        assert "router" in f32
+    if cfg.mixer == "hymba":
+        assert {"dt_bias", "a_log", "d_skip", "fuse_a", "fuse_m"} <= f32
+        assert tp["meta"].shape == (cfg.meta_tokens, cfg.d_model)
+    assert sum(x.numel() for x in tp.parameters()) == sum(x.size for x in
+                                                          jax.tree.leaves(jp))
 
 
-@pytest.mark.parametrize("arch", [SMOKE] + FAMILIES)
+@pytest.mark.parametrize("arch", [SMOKE] + FAMILIES + NEW_FAMILIES)
 def test_init_draws_the_published_shapes_on_the_generators_device(arch):
     """The port's init draws as many parameters as ``param_count`` says,
-    norms per family included, and as many as the JAX init's leaves hold."""
-    cfg = get_config(arch, smoke=True)
+    norms per family included (and experts, routers, Mamba branches and
+    meta tokens), as many as the JAX init's leaves hold, each leaf of its
+    JAX shape and dtype; the cache's batch axes are JAX's."""
+    cfg, jcfg = get_config(arch, smoke=True), jax_get_config(arch, smoke=True)
     params = make_model(cfg).init(torch.Generator(device="cpu").manual_seed(0))
     n = sum(x.numel() for x in params.parameters())
-    jshapes = jax.eval_shape(jax_make_model(jax_get_config(arch, smoke=True)).init,
-                             jax.random.PRNGKey(0))
+    jshapes = jax.eval_shape(jax_make_model(jcfg).init, jax.random.PRNGKey(0))
     assert n == cfg.param_count() == sum(x.size for x in jax.tree.leaves(jshapes))
-    assert params["blocks"][1]["mlp"]["w_down"].shape == (cfg.d_ff, cfg.d_model)
-    assert cache_batch_axes(cfg) == {"k": 1, "v": 1}
+    want = {jax.tree_util.keystr(path): (tuple(leaf.shape[1:] if path[0].key == "blocks"
+                                               else leaf.shape), leaf.dtype.name)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(jshapes)[0]}
+    got = {}
+    for name, t in params.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            if parts[1] != "1":
+                continue
+            parts = parts[:1] + parts[2:]
+        got["".join(f"['{p}']" for p in parts)] = (tuple(t.shape),
+                                                   str(t.dtype).removeprefix("torch."))
+    assert got == want
+    assert cache_batch_axes(cfg) == jax_cache_batch_axes(jcfg)
 
 
 def test_unported_archs_and_families_raise():
-    with pytest.raises(KeyError, match="not yet ported"):
-        get_config("hymba-1.5b")
+    """What the port does not run yet (xLSTM, the Whisper encoder-decoder)
+    raises, by name and by family."""
+    for arch in ("xlstm-1.3b", "whisper-medium"):
+        with pytest.raises(KeyError, match="not yet ported"):
+            get_config(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
-    cfg = ArchConfig(name="moe", family="moe", n_layers=1, d_model=64, n_heads=2,
-                     n_kv_heads=2, d_ff=64, vocab_size=64, ffn="moe")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_model(cfg)
+    base = dict(family="ssm", n_layers=1, d_model=64, n_heads=2, n_kv_heads=2,
+                d_ff=64, vocab_size=64)
+    for cfg in (ArchConfig(name="xlstm", mixer="xlstm", **base),
+                ArchConfig(name="whisper", enc_dec=True, **base)):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            make_model(cfg)
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            cache_batch_axes(cfg)
