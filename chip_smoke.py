@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the multi-step LRU cache and of its
-prefix-cached serving path (every architecture the port runs: the
-attention decoders, the MoE decoders and the hymba hybrid) on one NVIDIA
-GPU.
+prefix-cached serving path (every architecture of the JAX package: the
+attention decoders, the MoE decoders, the hymba hybrid, xLSTM and the
+Whisper encoder-decoder) on one NVIDIA GPU.
 
 Run from the root of a checkout, with one card visible:
 
@@ -105,9 +105,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    megastep twin (window graphs captured mid-serve, each capture leaving
    the Mamba state bit-equal; tokens, ticks, finish order and prefill split
    equal the in-flight serve's) and a round-robin twin (tokens equal or
-   split at a near-tie); at smoke width the window of 16 binds.
+   split at a near-tie); at smoke width the window of 16 binds;
+18. xLSTM at smoke width, then xlstm-1.3b at its published width and depth
+   (48 blocks in 6 groups of 7 mLSTM and 1 sLSTM, d_model 2048, 4 heads,
+   mLSTM Dh 1024, vocab 50304; 3.57B parameters; random weights; nothing
+   cut), through phase 17's path: in-flight, a megastep twin whose every
+   capture leaves each mLSTM and sLSTM leaf bit-equal (tokens, ticks,
+   finish order and prefill split equal), and a round-robin twin whose
+   tokens must equal the in-flight ones;
+19. Whisper at smoke width, then whisper-medium at its published width and
+   depth (24 encoder and 24 decoder layers, d_model 1024, 16 heads of 64,
+   d_ff 4096, vocab 51865, 1500 frames per request drawn from the seed in
+   place of the stubbed conv frontend): in-flight and a megastep twin whose
+   every capture leaves the cross-attention KV and the written KV
+   bit-equal, with phase 17's checks.
+   Phases 17-19 print ms per decode tick, tokens/s, serve wall, kernels per
+   in-flight tick and per window step, the busy share, peak memory, one
+   admission's prefill device time (and the encoder's), and the freeze's
+   device time per decode step beside the bytes it moves.
 
-Then the JSON lines: the main path, the serving path (phases 8, 9, 11-17)
+Then the JSON lines: the main path, the serving path (phases 8, 9, 11-19)
 and every kernel's record (the paged kernel's with ``shapes``: its record
 at phases 13-16's shapes).
 
@@ -143,12 +160,15 @@ SEED = 0
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/msl_cache.cu"
 
 
+T0 = time.perf_counter()
+
+
 def log(*args):
     print(*args, flush=True)
 
 
 def phase(name):
-    log(f"== {name}")
+    log(f"== {name} (at {time.perf_counter() - T0:.1f} s)")
 
 
 # ---------------------------------------------------------------------------
@@ -1057,19 +1077,23 @@ def engine_twin(eng, **kw):
 
 
 
-def teacher_forced_logits(torch, eng, prompt, tokens, paged):
+def teacher_forced_logits(torch, eng, prompt, tokens, paged, frames=None):
     """Logits for every emitted token of one request, its own tokens fed
-    back: the prefill's, then one decode step per token.  ``paged`` keeps
-    the prompt's whole chunks before its last token in pool pages and
-    decodes through ``paged_decode_step`` (the kernel); otherwise a
-    contiguous cache and ``decode_step`` (plain attention; hymba's Mamba
-    state carried from step to step)."""
+    back: the prefill's (of ``frames`` too, for an encoder-decoder), then one
+    decode step per token.  ``paged`` keeps the prompt's whole chunks before
+    its last token in pool pages and decodes through ``paged_decode_step``
+    (the kernel); otherwise a contiguous cache and ``decode_step`` (plain
+    attention; recurrent state and cross-attention KV carried from the
+    prefill)."""
     from repro_torch.serving.engine import paged_decode_step
     from repro_torch.serving.kv_cache import PagedKVPool
 
     cfg, model, params, dev = eng.cfg, eng.model, eng.params, eng.device
     n, ct = len(prompt), eng.prefix_cache.chunk_tokens
-    logits, pc = model.prefill(params, {"tokens": torch.tensor(prompt[None], device=dev)})
+    batch = {"tokens": torch.tensor(prompt[None], device=dev)}
+    if frames is not None:
+        batch["frames"] = frames[None].to(dev)
+    logits, pc = model.prefill(params, batch)
     out = [logits[0]]
     feed = [torch.tensor([[t]], dtype=torch.int32, device=dev) for t in tokens[:-1]]
     if paged:
@@ -1092,11 +1116,11 @@ def teacher_forced_logits(torch, eng, prompt, tokens, paged):
             out.append(logits[0])
     else:
         cache = model.init_cache(1, eng.max_len, device=dev)
-        s = pc["k"].shape[2]                  # the prompt's KV (and meta tokens')
-        cache["k"][:, 0, :s] = pc["k"][:, 0]
-        cache["v"][:, 0, :s] = pc["v"][:, 0]
-        if "mamba" in pc:
-            cache["mamba"] = pc["mamba"]      # hymba: the state after the prompt
+        for name, x in pc.items():
+            if name in ("k", "v"):            # the prompt's KV (and meta tokens')
+                cache[name][:, 0, :x.shape[2]] = x[:, 0]
+            else:                             # the state after the prompt, cross KV
+                cache[name] = x
         for j, tok in enumerate(feed):
             cur = torch.tensor([n + j], dtype=torch.int32, device=dev)
             logits, cache = model.decode_step(params, tok, cache, cur)
@@ -1249,8 +1273,8 @@ def fresh(reqs, offset=0):
     """Copies of ``reqs`` with no tokens yet (rids shifted by ``offset``)."""
     from repro_torch.serving.engine import Request
 
-    return [Request(rid=offset + r.rid, prompt=r.prompt, max_new_tokens=r.max_new_tokens)
-            for r in reqs]
+    return [Request(rid=offset + r.rid, prompt=r.prompt, max_new_tokens=r.max_new_tokens,
+                    frames=r.frames) for r in reqs]
 
 
 def served(eng, reqs):
@@ -1487,7 +1511,8 @@ def near_ties(torch, eng, reqs, got, want):
             continue
         j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
         with router_margins() as margins:
-            lg = teacher_forced_logits(torch, eng, r.prompt, a, paged=eng.paged)[j]
+            lg = teacher_forced_logits(torch, eng, r.prompt, a, paged=eng.paged,
+                                       frames=r.frames)[j]
         gap = float((lg[a[j]] - lg[b[j]]).abs())
         tol = float(LOGIT_ULPS * 2.0 ** (torch.floor(torch.log2(lg.abs().max())) - 7))
         # the prefill's router calls, then one per layer per decode step
@@ -1683,42 +1708,115 @@ def moe_ffn_step(torch, eng):
 
 
 # ---------------------------------------------------------------------------
-# Slice 7: the hymba hybrid, served contiguous, with its Mamba state frozen
-# per row
+# Slices 7 and 8: the families served contiguous through plain admission (the
+# hymba hybrid, xLSTM, the Whisper encoder-decoder), their recurrent state
+# frozen per row
 # ---------------------------------------------------------------------------
 
 HYMBA = "hymba-1.5b"
+XLSTM = "xlstm-1.3b"
+WHISPER = "whisper-medium"
 
 
-def mamba_leaves(eng):
-    return [eng.cache["mamba"]["h"], eng.cache["mamba"]["conv"]]
+def kept_leaves(eng):
+    """The slot cache's leaves that no decode step may change for a row
+    that does not emit: the recurrent state (``eng._state``: hymba's Mamba,
+    every xLSTM leaf) and Whisper's cross-attention KV."""
+    from repro_torch.serving.engine import CROSS_KV, _leaf
+
+    return ([_leaf(eng.cache, path) for path, _ in eng._state]
+            + [eng.cache[n] for n in CROSS_KV if n in eng.cache])
 
 
-def run_hymba(torch, smoke):
-    """Phase 17: hymba through ``serve.build`` with the default
-    ``--kv-mode contiguous``, as the JAX engine serves it: plain admission,
-    the prefix cache unused (``msl_onepass`` and ``paged_attn`` launch 0
-    times).  The launcher's requests in-flight; then a megastep twin, whose
-    window graphs are captured at first use mid-serve, each capture leaving
-    the Mamba leaves bit-equal, and a second serve through replays only; then
-    a round-robin twin.  Megastep gives the in-flight tokens, ticks, finish
-    order and prefill split exactly; round-robin the tokens, or differs only
-    at a near-tie (``near_ties``)."""
+def written_kv(eng):
+    """Each live row's KV up to its cur_len (meta tokens included): what a
+    window's warm-up and capture must leave as it is."""
+    if "k" not in eng.cache:
+        return []
+    return [eng.cache[n][:, r.slot, :int(eng.cur_len[r.slot]) + eng.cfg.meta_tokens]
+            for r in eng.active.values() for n in ("k", "v")]
+
+
+def freeze_ms(torch, eng):
+    """The freeze's device time per decode step: ``freeze_rows`` over the
+    slot cache's recurrent leaves, every other row emitting, from fresh
+    copies of the leaves (as a decode step returns them), timed with CUDA
+    events over 10 calls (a short profile of it drops kernel records);
+    beside the bytes it must move (read the new and the old leaves, write
+    the old) at the memory rate."""
+    from repro_torch.serving.engine import _leaf, freeze_rows
+
+    new = {}
+    for path, _ in eng._state:
+        t = new
+        for name in path[:-1]:
+            t = t.setdefault(name, {})
+        t[path[-1]] = _leaf(eng.cache, path).clone()
+    keep = torch.arange(eng.slots, device=DEVICE) % 2 == 0
+    ms = time_ms(torch, lambda: freeze_rows(eng.cache, new, eng._state, keep), 10)
+    state_bytes = sum(x.numel() * x.element_size() for x in kept_leaves(eng))
+    out = {"device_ms_per_step": ms, "kernels_per_step": len(eng._state),
+           "state_bytes": state_bytes,
+           "bound_ms": 1e3 * 3 * state_bytes / HBM_BYTES_PER_S}
+    log(f"{eng.cfg.name}: the freeze (freeze_rows, {len(eng._state)} leaves, one select "
+        f"each, {state_bytes / 1e6:.1f} MB of state at {eng.slots} slots) {ms:.4f} ms "
+        f"of device time per decode step (CUDA events); moving 3 x the state is "
+        f"{out['bound_ms']:.4f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    return out
+
+
+def admission_ms(torch, eng, req):
+    """One plain admission's prefill (B = 1, the launcher's first request)
+    and, for an encoder-decoder, its encoder alone: device ms and kernels
+    of one call (after a warm-up) from the profiler."""
+    batch = {"tokens": torch.tensor(req.prompt[None], device=DEVICE)}
+    if req.frames is not None:
+        batch["frames"] = req.frames[None].to(DEVICE)
+    out = {}
+    calls = {"prefill": lambda: eng.model.prefill(eng.params, batch)}
+    if eng.cfg.enc_dec:
+        calls["encoder"] = lambda: eng.model.encode(eng.params, batch["frames"])
+    for name, fn in calls.items():
+        kernels = profile_kernels(torch, fn, 1)
+        out[name] = {"device_ms": sum(v[0] for v in kernels.values()) / 1e3,
+                     "kernels": sum(v[1] for v in kernels.values())}
+        log(f"{eng.cfg.name}: {name} of one {len(req.prompt)}-token admission"
+            + (f" over {eng.cfg.enc_len} frames" if name == "encoder" else "")
+            + f": {out[name]['device_ms']:.3f} ms of device time in "
+            f"{out[name]['kernels']:.0f} kernels")
+    return out
+
+
+def run_contiguous(torch, arch, smoke, roundrobin="near-tie"):
+    """Phases 17-19: ``arch`` (hymba, xLSTM or Whisper) through ``serve.build``
+    with the default ``--kv-mode contiguous``: plain admission, the prefix
+    cache unused (``msl_onepass`` and ``paged_attn`` launch 0 times).  The
+    launcher's requests in-flight, with the device's busy share, one
+    admission's device time (and the encoder's) and the freeze's; then a
+    megastep twin, whose window graphs are captured at first use mid-serve,
+    each capture leaving the recurrent state, the cross-attention KV and the
+    KV the live rows have written bit-equal, then a second serve through
+    replays only (timed), and each captured window replayed alone, timed
+    with CUDA events (its device time per step; its graph nodes per step are
+    its kernels); then, unless ``roundrobin`` is None, a round-robin twin.  Megastep gives the in-flight tokens, ticks, finish order and
+    prefill split exactly; round-robin the tokens, or (``roundrobin =
+    "near-tie"``) differs only at a near-tie (``near_ties``); with
+    ``"exact"`` a split is logged with its gap and fails."""
     from repro_torch.launch import serve
 
-    args = serve_args("--arch", HYMBA, smoke=smoke)
+    args = serve_args("--arch", arch, smoke=smoke)
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     eng = serve.build(args)
     torch.cuda.synchronize()
     cfg = eng.cfg
     n_params = sum(p.numel() for p in eng.params.parameters())
-    kv_mb = 2 * eng.cache["k"].numel() * 2 / 1e6
-    state_mb = sum(x.numel() * x.element_size() for x in mamba_leaves(eng)) / 1e6
+    kv_mb = sum(eng.cache[n].numel() * 2 for n in ("k", "v") if n in eng.cache) / 1e6
+    kept_mb = sum(x.numel() * x.element_size() for x in kept_leaves(eng)) / 1e6
     log(f"{cfg.name}: {n_params / 1e9:.3f}B parameters ({n_params * 2 / 1e9:.2f} GB bf16), "
-        f"{cfg.meta_tokens} meta tokens, slot KV {kv_mb:.0f} MB over "
-        f"{eng.cache['k'].shape[2]} positions, Mamba state {state_mb:.1f} MB; built in "
-        f"{time.perf_counter() - t:.1f} s")
+        f"{cfg.meta_tokens} meta tokens, slot KV {kv_mb:.0f} MB, recurrent state and "
+        f"cross-attention KV {kept_mb:.1f} MB ({kept_mb / eng.slots:.1f} MB per slot); "
+        f"built in {time.perf_counter() - t:.1f} s")
     reqs = serve.make_requests(cfg, args)
     zero_launches()
     wall, decode_ticks, _ = serve_requests(torch, eng, reqs)
@@ -1729,7 +1827,7 @@ def run_hymba(torch, smoke):
         raise AssertionError("not every request was served in full")
     if any(launches.values()) or pc["device_calls"] or any(r.prefill_skipped
                                                            for r in eng.finished):
-        raise AssertionError(f"hymba reached the prefix cache or a kernel: {launches}, "
+        raise AssertionError(f"{cfg.name} reached the prefix cache or a kernel: {launches}, "
                              f"{pc['device_calls']} prefix-cache calls")
     dec_s = sum(s for s, _ in decode_ticks)
     longest = max(len(r.prompt) + r.max_new_tokens for r in reqs) + cfg.meta_tokens
@@ -1742,34 +1840,41 @@ def run_hymba(torch, smoke):
         "decode_launches": st["decode_launches"], "host_syncs": st["host_syncs"],
         "prefill_computed": sum(r.prefill_computed for r in eng.finished),
         "launches": launches, "prefix_cache_device_calls": pc["device_calls"],
-        "windows": windows, "longest_row": longest,
-        "binding": [w for w in windows if w < longest],
+        "state_and_cross_kv_bytes": int(kept_mb * 1e6),
     }
+    if windows:
+        summary.update(windows=windows, longest_row=longest,
+                       binding=[w for w in windows if w < longest])
     log(f"served {len(eng.finished)}/{len(reqs)} requests in {st['ticks']} ticks, "
         f"{wall:.3f} s wall: {summary['ms_per_decode_tick']:.3f} ms per decode tick, "
         f"{summary['decode_tokens_per_s']:.1f} decode tokens/s, decode_launches "
         f"{st['decode_launches']}, host_syncs {st['host_syncs']}; launches {launches}, "
         f"prefix cache {pc['device_calls']} device calls")
     summary["device"] = busy_share(torch, eng, fresh(reqs, 1000))
+    summary["admission"] = admission_ms(torch, eng, reqs[0])
+    if eng._state:
+        summary["freeze"] = freeze_ms(torch, eng)
 
     twin = engine_twin(eng, kv_mode="contiguous", decode_mode="megastep")
     captures, capture = [], twin.capture_window
 
     def checked_capture(steps, inputs=None):
-        before = [x.clone() for x in mamba_leaves(twin)]
+        before = [x.clone() for x in kept_leaves(twin) + written_kv(twin)]
         torch.cuda.synchronize()
         t = time.perf_counter()
         win = capture(steps, inputs)
         torch.cuda.synchronize()
-        equal = all(torch.equal(a, b) for a, b in zip(before, mamba_leaves(twin)))
+        equal = all(torch.equal(a, b) for a, b in
+                    zip(before, kept_leaves(twin) + written_kv(twin)))
         captures.append({"steps": steps, "ms": 1e3 * (time.perf_counter() - t),
                          "nodes": graph_nodes(win.graph), "live_rows": len(twin.active),
-                         "mamba_state_equal": equal})
+                         "state_equal": equal})
         log(f"captured the {steps}-step window mid-serve ({len(twin.active)} live rows): "
-            f"{captures[-1]['ms']:.1f} ms, {captures[-1]['nodes']} graph nodes; Mamba "
-            f"leaves {'bit-equal' if equal else 'CHANGED'} after the warm-up and capture")
+            f"{captures[-1]['ms']:.1f} ms, {captures[-1]['nodes']} graph nodes; recurrent "
+            f"state, cross KV and written KV {'bit-equal' if equal else 'CHANGED'} after "
+            f"the warm-up and capture")
         if not equal:
-            raise AssertionError("a window graph's capture changed the Mamba state")
+            raise AssertionError("a window graph's capture changed the slot cache")
         return win
 
     twin.capture_window = checked_capture
@@ -1780,54 +1885,70 @@ def run_hymba(torch, smoke):
     if served(twin, reqs) != served(eng, reqs) or twin.ticks != st["ticks"]:
         raise AssertionError("megastep tokens, finish order, prefill split or ticks "
                              "differ from the in-flight serve")
+    keys = ("ticks", "decode_launches", "host_syncs", "megastep_windows", "megastep_steps")
     before = twin.stats()
     zero_launches()
     mwall, wins = serve_windows(torch, twin, fresh(reqs, 2000))
     if any(read_launches().values()):
         raise AssertionError("the megastep serve launched a kernel")
-    d = {k: twin.stats()[k] - before[k] for k in ("ticks", "decode_launches",
-                                                  "host_syncs", "megastep_windows",
-                                                  "megastep_steps")}
+    d = {k: twin.stats()[k] - before[k] for k in keys}
     again = [(rid - 2000, *rest) for rid, *rest in served(twin, fresh(reqs, 2000))]
     if again != served(eng, reqs) or d["ticks"] != st["ticks"]:
         raise AssertionError("the replayed megastep serve differs from the in-flight one")
+    replay_ms = {}
+    for c in captures:
+        replay_ms[c["steps"]] = c["replay_ms"] = time_ms(
+            torch, twin.window_graphs[c["steps"]].graph.replay, 5)
     win_s, win_ticks = sum(w[0] for w in wins), sum(w[1] for w in wins)
+    big = max(captures, key=lambda c: c["steps"])
     summary["megastep"] = {
         **d, "wall_s": mwall, "graphs": captures,
         "ms_per_decode_tick": 1e3 * win_s / win_ticks,
         "decode_tokens_per_s": sum(w[2] for w in wins) / win_s,
-        "masked_step_share": 1 - win_ticks / d["megastep_steps"]}
+        "masked_step_share": 1 - win_ticks / d["megastep_steps"],
+        "kernels_per_step": big["nodes"] / big["steps"],
+        "busy_ms_per_step": big["replay_ms"] / big["steps"],
+        "busy_share": sum(replay_ms[w[3]] for w in wins) / (1e3 * win_s)}
     log(f"megastep: the in-flight tokens, ticks, finish order and prefill split; "
         f"{summary['megastep']['ms_per_decode_tick']:.3f} ms per decode tick, "
         f"{summary['megastep']['decode_tokens_per_s']:.1f} tokens/s, serve {mwall:.3f} s "
         f"wall, {d['decode_launches']} decode launches and {d['host_syncs']} host syncs "
         f"(in-flight {st['decode_launches']} and {st['host_syncs']}), "
-        f"{d['megastep_windows']} windows over {d['megastep_steps']} steps")
+        f"{d['megastep_windows']} windows over {d['megastep_steps']} steps; a window "
+        f"replayed alone: {summary['megastep']['kernels_per_step']:.0f} graph nodes and "
+        f"{summary['megastep']['busy_ms_per_step']:.3f} ms of device time per step, busy "
+        f"share of the windows {summary['megastep']['busy_share']:.3f}")
 
-    rr = engine_twin(eng, kv_mode="contiguous", decode_mode="roundrobin")
-    for r in fresh(reqs):
-        rr.submit(r)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    rr.run_until_done()
-    torch.cuda.synchronize()
-    got = {rid: toks for rid, toks, _, _ in served(rr, reqs)}
-    want = {rid: toks for rid, toks, _, _ in served(eng, reqs)}
-    if sorted(got) != sorted(want) or any(len(got[r]) != len(want[r]) for r in want):
-        raise AssertionError("round-robin did not serve every request in full")
-    ties = near_ties(torch, eng, reqs, got, want)
-    summary["roundrobin"] = {"ticks": rr.ticks, "wall_s": time.perf_counter() - t,
-                             "decode_launches": rr.decode_launches,
-                             "streams_equal": len(reqs) - len(ties), "near_ties": ties}
+    if roundrobin is not None:
+        rr = engine_twin(eng, kv_mode="contiguous", decode_mode="roundrobin")
+        for r in fresh(reqs):
+            rr.submit(r)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rr.run_until_done()
+        torch.cuda.synchronize()
+        got = {rid: toks for rid, toks, _, _ in served(rr, reqs)}
+        want = {rid: toks for rid, toks, _, _ in served(eng, reqs)}
+        if sorted(got) != sorted(want) or any(len(got[r]) != len(want[r]) for r in want):
+            raise AssertionError("round-robin did not serve every request in full")
+        ties = near_ties(torch, eng, reqs, got, want)
+        if roundrobin == "exact" and ties:
+            raise AssertionError(f"round-robin tokens differ from the in-flight serve's: {ties}")
+        summary["roundrobin"] = {"ticks": rr.ticks, "wall_s": time.perf_counter() - t,
+                                 "decode_launches": rr.decode_launches,
+                                 "streams_equal": len(reqs) - len(ties), "near_ties": ties}
+        log(f"round-robin: {summary['roundrobin']['streams_equal']} of {len(reqs)} streams "
+            f"equal the in-flight serve's; {rr.ticks} ticks, {rr.decode_launches} decode "
+            f"launches")
+        del rr
     summary["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    log(f"round-robin: {summary['roundrobin']['streams_equal']} of {len(reqs)} streams "
-        f"equal the in-flight serve's, the rest split at near-ties; {rr.ticks} ticks, "
-        f"{rr.decode_launches} decode launches")
-    log(f"{cfg.name}: windows {windows} against rows of at most {longest} positions "
-        f"(meta tokens included): "
-        f"{'binding ' + str(summary['binding']) if summary['binding'] else 'no window binds here'}; "
-        f"peak device memory {summary['peak_memory_gb']:.2f} GB, busy share "
-        f"{summary['device']['busy_share']:.3f}")
+    if "windows" in summary:
+        log(f"{cfg.name}: windows {windows} against rows of at most {longest} positions "
+            f"(meta tokens included): " + (f"binding {summary['binding']}"
+                                           if summary["binding"] else "no window binds here"))
+    log(f"{cfg.name}: peak device memory {summary['peak_memory_gb']:.2f} GB, busy share "
+        f"{summary['device']['busy_share']:.3f} in-flight, "
+        f"{summary['device']['kernels_per_tick']:.0f} kernels per in-flight tick")
     return summary
 
 # ---------------------------------------------------------------------------
@@ -1941,9 +2062,21 @@ def main() -> int:
     release(torch)
 
     phase("17. hymba at smoke width and at full width and depth, contiguous")
-    serving["hymba-smoke"] = run_hymba(torch, smoke=True)
+    serving["hymba-smoke"] = run_contiguous(torch, HYMBA, smoke=True)
     release(torch)
-    serving[HYMBA] = run_hymba(torch, smoke=False)
+    serving[HYMBA] = run_contiguous(torch, HYMBA, smoke=False)
+    release(torch)
+
+    phase("18. xlstm at smoke width and at full width and depth, contiguous")
+    serving["xlstm-smoke"] = run_contiguous(torch, XLSTM, smoke=True, roundrobin="exact")
+    release(torch)
+    serving[XLSTM] = run_contiguous(torch, XLSTM, smoke=False, roundrobin="exact")
+    release(torch)
+
+    phase("19. whisper at smoke width and at full width and depth, contiguous")
+    serving["whisper-smoke"] = run_contiguous(torch, WHISPER, smoke=True, roundrobin=None)
+    release(torch)
+    serving[WHISPER] = run_contiguous(torch, WHISPER, smoke=False, roundrobin=None)
     release(torch)
     # the paged kernel's record at every other path's shapes
     records[2]["shapes"] = shapes

@@ -4,8 +4,7 @@ A copy of ``repro.configs.base`` (``ArchConfig``, ``get_config``): the
 port keeps its own so that it imports nothing of the JAX package.  Each
 ported architecture ships as ``configs/<id>.py`` defining ``CONFIG`` (the
 published dims) and ``SMOKE`` (a reduced same-family config for CPU
-tests).  An architecture of the JAX package that the port does not run
-yet raises a ``KeyError`` that says so.
+tests).  The port runs every architecture of the JAX package.
 """
 
 from __future__ import annotations
@@ -13,21 +12,10 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-# The JAX package's architectures; only those in _PORTED have a module here.
-_ARCH_IDS = [
-    "xlstm-1.3b",
-    "qwen2-vl-72b",
-    "hymba-1.5b",
-    "phi3-mini-3.8b",
-    "command-r-35b",
-    "gemma3-1b",
-    "starcoder2-7b",
-    "whisper-medium",
-    "olmoe-1b-7b",
-    "phi3.5-moe-42b-a6.6b",
-]
-_PORTED = ["phi3-mini-3.8b", "gemma3-1b", "starcoder2-7b", "command-r-35b",
-           "qwen2-vl-72b", "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b"]
+# The JAX package's architectures, in the order the port took them up.
+_ARCH_IDS = ["phi3-mini-3.8b", "gemma3-1b", "starcoder2-7b", "command-r-35b",
+             "qwen2-vl-72b", "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b",
+             "xlstm-1.3b", "whisper-medium"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,21 +90,34 @@ class ArchConfig:
         return tuple(float(pat[i % len(pat)]) for i in range(self.n_layers))
 
     def param_count(self) -> int:
-        """Parameters the port's decoder builds: embedding, blocks and norms.
+        """Parameters the port's model builds: embedding, blocks and norms.
         The JAX package's analytic count leaves the norms out and
         approximates the Mamba branch; here every leaf counts: LayerNorm has
         a scale and a bias, RMSNorm a scale; a parallel block has no
         ``ln2``; QK-norm adds 2 * Dh per layer; an MoE FFN is E experts'
         SwiGLU plus the (d, E) router; a hymba block adds the Mamba branch
         (d_inner = d, a 4-tap conv) and the two fuse vectors; meta tokens add
-        meta_tokens * d."""
+        meta_tokens * d.  xLSTM counts its groups of (g-1) mLSTM blocks and
+        one sLSTM block with its GeLU MLP; Whisper its encoder blocks, the
+        decoder blocks' self- and cross-attention and the encoder's norm."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         dh, h, kvh = self.head_dim, self.n_heads, self.n_kv_heads
         emb = v * d * (1 if self.tie_embeddings else 2)
+        norm = d * (2 if self.norm == "ln" else 1)
+        if self.mixer == "xlstm":
+            di, g = int(d * self.mlstm_proj_factor), self.scan_group
+            # ln; w_up, w_down; conv_w, skip_scale; wq/wk/wv; w_if, if_bias
+            per_m = norm + 3 * d * di + 5 * di + 3 * di * di + 2 * h * di + 2 * h
+            # ln, ln_ffn; w_gates, r_gates, gate_bias; the GeLU MLP
+            per_s = (2 * norm + 4 * d * d + 4 * h * (d // h) ** 2 + 4 * d
+                     + 2 * d * xlstm_ffn_dim(self))
+            return emb + self.n_layers // g * ((g - 1) * per_m + per_s) + norm
         att = d * (h * dh) * 2 + d * (kvh * dh) * 2
         ffn = {"swiglu": 3 * d * f, "gelu": 2 * d * f,
                "moe": self.n_experts * (3 * d * f + d)}.get(self.ffn, 0)
-        norm = d * (2 if self.norm == "ln" else 1)
+        if self.enc_dec:
+            enc = self.n_enc_layers * (att + ffn + 2 * norm) + norm
+            return emb + enc + self.n_layers * (2 * att + ffn + 3 * norm) + norm
         norms = norm * (1 if self.parallel_block or self.ffn == "none" else 2)
         norms += 2 * dh if self.qk_norm else 0
         per = att + ffn + norms
@@ -127,20 +128,25 @@ class ArchConfig:
         return emb + self.n_layers * per + norm + self.meta_tokens * d
 
 
+def xlstm_ffn_dim(cfg: ArchConfig) -> int:
+    """The sLSTM block's post-MLP width (pf = 4/3), rounded up to a multiple
+    of 128 (16 below 1024), as the JAX package rounds it."""
+    raw = int(cfg.d_model * 4 / 3)
+    m = 128 if raw >= 1024 else 16
+    return (raw + m - 1) // m * m
+
+
 _MODULE_FOR = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
-               for a in _PORTED}
+               for a in _ARCH_IDS}
 
 
 def list_archs():
     """The architectures the port runs."""
-    return list(_PORTED)
+    return list(_ARCH_IDS)
 
 
 def get_config(name: str, smoke: bool = False) -> ArchConfig:
     if name not in _MODULE_FOR:
-        if name in _ARCH_IDS:
-            raise KeyError(f"arch {name!r} is not yet ported to PyTorch; "
-                           f"ported: {_PORTED}")
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCH_IDS)}")
     mod = importlib.import_module(_MODULE_FOR[name])
     return mod.SMOKE if smoke else mod.CONFIG

@@ -5,7 +5,7 @@ Public API:
     MultiStepLRUCache  — stateful host-side wrapper on one device
     table_from_numpy / table_to_numpy — carry a cache table between this
                          package and the JAX package (as numpy int32)
-    params_from_numpy  — carry the JAX package's decoder parameters (as
+    params_from_numpy  — carry the JAX package's model parameters (as
                          numpy arrays) into this package's model
     row/engine functions — see multistep.py and engine.py
 """
@@ -87,16 +87,23 @@ def table_to_numpy(table: torch.Tensor) -> np.ndarray:
 
 
 def params_from_numpy(tree: dict, cfg, device="cuda"):
-    """The JAX package's decoder parameter pytree, as numpy arrays (block
-    leaves stacked ``(L, ...)``), as this package's model parameters
-    (``models.model.ParamTree``) on ``device``: every leaf of the tree
-    (``blocks``, ``head`` and any other, such as hymba's ``meta``) with its
-    JAX value and dtype (bf16 weights stay bf16; f32 leaves, such as the
-    norms, the MoE router and the Mamba and fuse vectors, stay f32).
-    ``cfg`` is the ``ArchConfig``."""
+    """The JAX package's parameter pytree, as numpy arrays, as this
+    package's model parameters (``models.model.ParamTree``) on ``device``.
+    The JAX package stacks each layer stack's leaves along a leading axis;
+    here each layer is a tree of its own: ``blocks`` (``n_layers`` blocks, or
+    xLSTM's ``n_layers / scan_group`` groups, each with its ``scan_group - 1``
+    mLSTM blocks stacked once more), Whisper's ``enc`` (``n_enc_layers``) and
+    ``dec`` (``n_layers``).  Every other leaf (``head``, hymba's ``meta``,
+    Whisper's ``enc_norm``) comes as it is.  Each leaf keeps its JAX value
+    and dtype (bf16 weights stay bf16; f32 leaves, such as the norms, the MoE
+    router, the Mamba and fuse vectors and the xLSTM gate biases and skip
+    scale, stay f32).  ``cfg`` is the ``ArchConfig``."""
     from repro_torch.models.model import ParamTree
 
     device = resolve_device(device)
+    xlstm = cfg.mixer == "xlstm"
+    stacks = {"blocks": cfg.n_layers // cfg.scan_group if xlstm else cfg.n_layers,
+              "enc": cfg.n_enc_layers, "dec": cfg.n_layers}
 
     def conv(x):
         arr = np.asarray(x)
@@ -110,13 +117,19 @@ def params_from_numpy(tree: dict, cfg, device="cuda"):
         arr = np.require(arr, requirements=["C_CONTIGUOUS", "WRITEABLE"])
         return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
-    def walk(t, index=None):
+    def walk(t, index=()):
         if isinstance(t, dict):
             return {name: walk(v, index) for name, v in t.items()}
-        return conv(t if index is None else np.asarray(t)[index])
+        return conv(np.asarray(t)[index])
 
-    return ParamTree({name: [walk(v, i) for i in range(cfg.n_layers)]
-                      if name == "blocks" else walk(v)
+    def layer(name, t, i):
+        if name == "blocks" and xlstm:     # group i: its mLSTM blocks one by one
+            return {"mlstm": [walk(t["mlstm"], (i, j)) for j in range(cfg.scan_group - 1)],
+                    "slstm": walk(t["slstm"], (i,))}
+        return walk(t, (i,))
+
+    return ParamTree({name: [layer(name, v, i) for i in range(stacks[name])]
+                      if name in stacks else walk(v)
                       for name, v in tree.items()})
 
 

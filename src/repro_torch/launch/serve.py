@@ -7,13 +7,16 @@ followed by a short random suffix.  ``build(args)`` returns the engine and
 ``make_requests(cfg, args)`` the requests, so that other scripts (the
 repository's ``chip_smoke.py``) run exactly this path.
 
-``--arch`` picks any architecture the port runs (``configs.list_archs()``:
-phi3-mini-3.8b, gemma3-1b, starcoder2-7b, command-r-35b, qwen2-vl-72b, the
-MoE decoders olmoe-1b-7b and phi3.5-moe-42b-a6.6b, and the hymba-1.5b
-hybrid).  hymba serves with ``--kv-mode contiguous`` only, through plain
-admission (its Mamba state cannot resume from cached KV pages, so the
-prefix cache stays unused, as in the JAX engine); ``--kv-mode paged``
-raises for it.
+``--arch`` picks any architecture of ``configs.list_archs()``: the
+attention decoders phi3-mini-3.8b, gemma3-1b, starcoder2-7b, command-r-35b
+and qwen2-vl-72b, the MoE decoders olmoe-1b-7b and phi3.5-moe-42b-a6.6b,
+the hymba-1.5b hybrid, xlstm-1.3b and the whisper-medium encoder-decoder.
+hymba, xLSTM and Whisper serve with ``--kv-mode contiguous`` only, through
+plain admission (their recurrent state, or a decoder KV that depends on the
+request's audio, cannot resume from cached KV pages, so the prefix cache
+stays unused, as in the JAX engine); ``--kv-mode paged`` raises for them.
+A Whisper request carries audio frames (enc_len, d_model) drawn from
+``--seed``, standard normal, in place of the stubbed conv frontend.
 Defaults as in the JAX launcher: phi3-mini-3.8b at smoke size, 24
 requests over 8 templates of 64 tokens, suffixes of 4-16 tokens, 8 new
 tokens each; ``PrefixCache(num_sets=256, m=2, p=4, chunk_tokens=16)``,
@@ -102,8 +105,11 @@ def build(args) -> ServeEngine:
 
 def make_requests(cfg, args) -> list[Request]:
     """The launcher's request mix: ``args.requests`` prompts, each a Zipf(1.0)
-    pick of ``args.templates`` shared templates plus a 4-16 token suffix."""
+    pick of ``args.templates`` shared templates plus a 4-16 token suffix;
+    for an encoder-decoder, each with its own frames (enc_len, d_model) bf16,
+    standard normal from a generator seeded ``args.seed + 2``."""
     rng = np.random.default_rng(args.seed)
+    frames_rng = np.random.default_rng(args.seed + 2)
     templates = [rng.integers(1, cfg.vocab_size, args.prefix_tokens).astype(np.int32)
                  for _ in range(args.templates)]
     picks = zipfian(args.templates, args.requests, alpha=1.0, seed=args.seed + 1) - 1
@@ -111,7 +117,12 @@ def make_requests(cfg, args) -> list[Request]:
     for i in range(args.requests):
         suffix = rng.integers(1, cfg.vocab_size, 4 + i % 13).astype(np.int32)
         prompt = np.concatenate([templates[int(picks[i]) % args.templates], suffix])
-        reqs.append(Request(rid=i, prompt=prompt, max_new_tokens=args.max_new))
+        frames = None
+        if cfg.enc_dec:
+            frames = torch.from_numpy(frames_rng.standard_normal(
+                (cfg.enc_len, cfg.d_model), np.float32)).to(torch.bfloat16)
+        reqs.append(Request(rid=i, prompt=prompt, max_new_tokens=args.max_new,
+                            frames=frames))
     return reqs
 
 

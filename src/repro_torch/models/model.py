@@ -1,29 +1,39 @@
-"""Public Model API: init / prefill / init_cache / decode_step.
+"""Public Model API: init / prefill / init_cache / decode_step per architecture.
 
-Port of ``repro.models.model`` for the attention decoder.  ``make_model(cfg)``
-returns a Model of functions with the JAX package's signatures:
+Port of ``repro.models.model``, forward only.  ``make_model(cfg)`` returns a
+Model of functions with the JAX package's signatures:
 
     init(gen)                          -> params (a ParamTree on gen.device)
     prefill(params, batch)             -> (last_logits, cache)
-    init_cache(batch, max_len, device) -> zeroed cache {"k", "v"[, "mamba"]}
+    init_cache(batch, max_len, device) -> zeroed cache
     decode_step(params, tokens, cache, cur_len) -> (logits, cache)
+
+and, for the encoder-decoder, ``encode(params, frames)``.
 
 ``params`` is an ``nn.Module`` whose nested parameters keep the JAX pytree's
 names: ``params["blocks"][l]["attn"]["wq"]`` is layer l's slice of the JAX
 package's stacked ``params["blocks"]["attn"]["wq"]``, a ``(d_in, d_out)``
 matrix applied as ``x @ W``; ``params["head"]`` holds ``embed``,
 ``lm_head`` and ``out_norm``; hymba's meta tokens are ``params["meta"]``.
-The JAX layer ``scan`` is a Python loop.
+An xLSTM model's ``params["blocks"][g]`` is group g, its mLSTM blocks
+``["mlstm"][j]``; Whisper's are ``params["enc"][l]``, ``params["dec"][l]``
+and ``params["enc_norm"]``.  The JAX layer ``scan`` is a Python loop.
 
-The attention decoder and the hymba hybrid are ported, with every FFN (MoE
-too).  Decode writes the new token's KV into the cache in place and returns
-a cache whose ``"k"``/``"v"`` are those same tensors; hymba's position-free
-Mamba state (``cache["mamba"]``, ``{"h", "conv"}`` per layer) comes back as
-new tensors, so that a caller keeps or drops each row's advance (the serving
-engine's freeze).  Hymba prepends its meta tokens in ``prefill``, so its KV
-holds ``meta_tokens`` positions before the prompt, and ``decode_step`` adds
-them to ``cur_len``.  Training (``loss``) and the JAX package's xLSTM and
-encoder-decoder families are not ported yet.
+Every family of the JAX package is ported: the attention decoder (every
+FFN, MoE too), the hymba hybrid, xLSTM and the Whisper encoder-decoder.
+Decode writes the new token's KV into the cache in place and returns a cache
+whose ``"k"``/``"v"`` are those same tensors.  Recurrent state comes back
+as new tensors, so that a caller keeps or drops each row's advance (the
+serving engine's freeze): hymba's Mamba state (``cache["mamba"]``, ``{"h",
+"conv"}`` per layer) and xLSTM's whole cache (``cache["mlstm"]`` leaves
+``(n_groups, g-1, B, ...)``, ``cache["slstm"]`` leaves ``(n_groups, B,
+D)``, the JAX layout; xLSTM decode is position-free and ignores
+``cur_len``).  Whisper's cache adds the cross-attention KV ``xk``/``xv``
+``(L, B, enc_len, KVH, Dh)``, written by ``prefill`` and only read by
+decode; its decoder positions are sinusoids of ``cur_len`` computed on the
+device.  Hymba prepends its meta tokens in ``prefill``, so its KV holds
+``meta_tokens`` positions before the prompt, and ``decode_step`` adds them
+to ``cur_len``.  Training (``loss``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ class Model(NamedTuple):
     prefill: Callable
     init_cache: Callable
     decode_step: Callable
+    encode: Callable | None = None     # the encoder-decoder's encoder
 
 
 class ParamTree(nn.Module):
@@ -69,28 +80,31 @@ class ParamTree(nn.Module):
         return name in self._parameters or name in self._modules
 
 
-def _unsupported(cfg: ArchConfig) -> str | None:
-    if cfg.enc_dec:
-        return "encoder-decoder"
-    if cfg.mixer not in ("attn", "hymba"):
-        return f"mixer={cfg.mixer!r}"
-    return None
+# the xLSTM cache's leaves, in the JAX package's order
+MLSTM_LEAVES = ("c", "n", "m", "conv")
+SLSTM_LEAVES = ("c", "n", "h", "m")
 
 
 def make_model(cfg: ArchConfig) -> Model:
-    what = _unsupported(cfg)
-    if what is not None:
-        raise NotImplementedError(f"{cfg.name}: {what} is not yet ported")
+    if cfg.enc_dec:
+        return _make_encdec(cfg)
+    if cfg.mixer == "xlstm":
+        return _make_xlstm(cfg)
+    if cfg.mixer not in ("attn", "hymba"):
+        raise ValueError(f"{cfg.name}: unknown mixer {cfg.mixer!r}")
     return _make_decoder(cfg)
 
 
 def cache_batch_axes(cfg: ArchConfig) -> dict:
     """Each cache leaf's batch axis (the axis a per-row mask broadcasts
-    along), in the structure of ``init_cache``: every leaf leads with
-    layers, so axis 1."""
-    what = _unsupported(cfg)
-    if what is not None:
-        raise NotImplementedError(f"{cfg.name}: {what} is not yet ported")
+    along), in the structure of ``init_cache``: the JAX package's tree.
+    Most leaves lead with layers, so axis 1; xLSTM's mLSTM leaves lead with
+    (n_groups, g-1), so axis 2."""
+    if cfg.enc_dec:
+        return {"k": 1, "v": 1, "xk": 1, "xv": 1}
+    if cfg.mixer == "xlstm":
+        return {"mlstm": dict.fromkeys(MLSTM_LEAVES, 2),
+                "slstm": dict.fromkeys(SLSTM_LEAVES, 1)}
     axes = {"k": 1, "v": 1}
     if cfg.mixer == "hymba":
         axes["mamba"] = {"h": 1, "conv": 1}
@@ -210,3 +224,136 @@ def _make_decoder(cfg: ArchConfig) -> Model:
         return _logits_fn(cfg, params)(h[:, -1]), cache
 
     return Model(cfg, init, prefill, init_cache, decode_step)
+
+
+# ---------------------------------------------------------------------------
+# xLSTM (groups of g-1 mLSTM blocks and one sLSTM block)
+# ---------------------------------------------------------------------------
+
+def _make_xlstm(cfg: ArchConfig) -> Model:
+    g = cfg.scan_group
+    n_groups = cfg.n_layers // g
+    if n_groups * g != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not groups of {g}")
+    d, h = cfg.d_model, cfg.n_heads
+    di = int(d * cfg.mlstm_proj_factor)
+    dh = di // h
+
+    def init(gen: torch.Generator) -> ParamTree:
+        return ParamTree({"blocks": [tfm.xlstm_group_init(gen, cfg) for _ in range(n_groups)],
+                          "head": _head_init(cfg, gen)})
+
+    def cache_of(states):
+        """Every group's state (``xlstm_group_apply``'s layout) as the cache:
+        one stack per leaf."""
+        return {"mlstm": {n: torch.stack([st[n] for grp in states for st in grp["mlstm"]]
+                                         ).unflatten(0, (n_groups, g - 1))
+                          for n in MLSTM_LEAVES},
+                "slstm": {n: torch.stack([grp["slstm"][n] for grp in states])
+                          for n in SLSTM_LEAVES}}
+
+    def run(params, h, step):
+        states = []
+        for gi, p_g in enumerate(params["blocks"]):
+            h, st = step(gi, p_g, h)
+            states.append(st)
+        return _logits_fn(cfg, params)(_final(cfg, params, h)[:, -1]), cache_of(states)
+
+    def prefill(params, batch):
+        """Returns (last-position logits, the recurrent state after the
+        prompt as the cache)."""
+        return run(params, _embed(cfg, params, batch["tokens"]),
+                   lambda gi, p_g, h: tfm.xlstm_group_apply(cfg, p_g, h))
+
+    def init_cache(batch_size: int, max_len: int, device="cuda") -> dict:
+        gb = (n_groups, g - 1, batch_size)
+
+        def zeros(shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return {"mlstm": {"c": zeros((*gb, h, dh, dh)), "n": zeros((*gb, h, dh)),
+                          "m": zeros((*gb, h)), "conv": zeros((*gb, 3, di), COMPUTE_DTYPE)},
+                "slstm": {"c": zeros((n_groups, batch_size, d)),
+                          "n": zeros((n_groups, batch_size, d)) + 1e-6,
+                          "h": zeros((n_groups, batch_size, d)),
+                          "m": zeros((n_groups, batch_size, d))}}
+
+    def decode_step(params, tokens, cache, cur_len):
+        """tokens (B, 1).  Position-free: ``cur_len`` is not read.  Returns
+        (logits, a new cache of the whole recurrent state)."""
+        def step(gi, p_g, h):
+            st = {part: {n: x[gi] for n, x in cache[part].items()}
+                  for part in ("mlstm", "slstm")}
+            return tfm.xlstm_group_decode(cfg, p_g, h, st)
+
+        return run(params, _embed(cfg, params, tokens), step)
+
+    return Model(cfg, init, prefill, init_cache, decode_step)
+
+
+# ---------------------------------------------------------------------------
+# Whisper-style encoder-decoder
+# ---------------------------------------------------------------------------
+
+def _make_encdec(cfg: ArchConfig) -> Model:
+    d = cfg.d_model
+
+    def init(gen: torch.Generator) -> ParamTree:
+        return ParamTree({
+            "enc": [tfm.enc_block_init(gen, cfg) for _ in range(cfg.n_enc_layers)],
+            "enc_norm": tfm._norm_init(cfg, gen.device),
+            "dec": [tfm.dec_block_init(gen, cfg) for _ in range(cfg.n_layers)],
+            "head": _head_init(cfg, gen),
+        })
+
+    def encode(params, frames):
+        """frames (B, Senc, D) -> the encoder's output (B, Senc, D) bf16."""
+        h = frames.to(COMPUTE_DTYPE) + tfm.sinusoid_positions(frames.shape[1], d,
+                                                             device=frames.device)
+        for p_l in params["enc"]:
+            h = tfm.enc_block_apply(cfg, p_l, h, None)
+        return tfm._norm(cfg, params["enc_norm"], h)
+
+    def prefill(params, batch):
+        """batch {"tokens" (B, S), "frames" (B, enc_len, D)}.  Returns
+        (last-position logits, cache {"k", "v"} over the S tokens and the
+        cross-attention {"xk", "xv"} over the frames)."""
+        enc_h = encode(params, batch["frames"])
+        tokens = batch["tokens"]
+        h = _embed(cfg, params, tokens) + tfm.sinusoid_positions(tokens.shape[1], d,
+                                                                 device=tokens.device)
+        cache = {"k": [], "v": [], "xk": [], "xv": []}
+        for p_l in params["dec"]:
+            ek, ev = tfm.cross_kv(cfg, p_l["cross_attn"], enc_h)
+            h, (k, v) = tfm.dec_block_apply(cfg, p_l, h, None, ek, ev)
+            for name, x in zip(("k", "v", "xk", "xv"), (k, v, ek, ev)):
+                cache[name].append(x)
+        h = _final(cfg, params, h)
+        return (_logits_fn(cfg, params)(h[:, -1]),
+                {name: torch.stack(xs) for name, xs in cache.items()})
+
+    def init_cache(batch_size: int, max_len: int, device="cuda") -> dict:
+        lb = (cfg.n_layers, batch_size)
+        kv = (cfg.n_kv_heads, cfg.head_dim)
+        return {name: torch.zeros((*lb, n, *kv), dtype=COMPUTE_DTYPE, device=device)
+                for name, n in (("k", max_len), ("v", max_len), ("xk", cfg.enc_len),
+                                ("xv", cfg.enc_len))}
+
+    def decode_step(params, tokens, cache, cur_len):
+        """tokens (B, 1); cur_len an int or a (B,) tensor (each row at its
+        own position).  The position's sinusoid is computed from ``cur_len``
+        on its device, so a captured graph reads it at replay."""
+        h = _embed(cfg, params, tokens) + _sinusoid_at(cur_len, d, tokens.device)
+        for l, p_l in enumerate(params["dec"]):
+            h, _, _ = tfm.dec_block_decode(cfg, p_l, h, cache["k"][l], cache["v"][l],
+                                           cache["xk"][l], cache["xv"][l], cur_len)
+        h = _final(cfg, params, h)
+        return _logits_fn(cfg, params)(h[:, -1]), cache
+
+    return Model(cfg, init, prefill, init_cache, decode_step, encode)
+
+
+def _sinusoid_at(pos, d: int, device="cpu") -> torch.Tensor:
+    """The encoding at ``pos``: an int -> (1, 1, d), a (B,) tensor -> (B, 1,
+    d) (each row at its own position)."""
+    return tfm.sinusoid(torch.as_tensor(pos, device=device).reshape(-1), d)[:, None, :]

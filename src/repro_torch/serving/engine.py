@@ -1,7 +1,8 @@
 """Continuous-batching serve engine with multi-step-LRU prefix reuse.
 
-Port of ``repro.serving.engine`` for the attention decoder (every FFN, MoE
-too) and the hymba hybrid.  Flow per request:
+Port of ``repro.serving.engine`` for every family of the JAX package: the
+attention decoder (every FFN, MoE too), the hymba hybrid, xLSTM and the
+Whisper encoder-decoder.  Flow per request:
 
   1. chunk-hash the prompt; find every admitted request's longest cached
      prefix — ``admit_mode``:
@@ -44,11 +45,17 @@ token and gets one follow-up launch).  The megastep planner
 no host-visible event (an admission into a freed slot) can fall.
 
 As in the JAX package, the prefix cache serves only attention decoders
-without meta tokens (``mixer == "attn"``): hymba's Mamba state summarises
-the whole sequence, so a cached page of KV is not a prefix it can resume
-from.  Hymba admits through plain prefill, which installs every cache leaf
-(the KV over meta tokens and prompt, the Mamba ``h`` and ``conv``) into
-the slot, and ``kv_mode="paged"`` raises for it.
+without meta tokens (``mixer == "attn"``, not ``enc_dec``): hymba's Mamba
+state and xLSTM's memories summarise the whole sequence, and a Whisper
+decoder's KV depends on its request's audio, so a cached page of KV is not
+a prefix any of them can resume from.  They admit through plain prefill,
+which installs every leaf of the prefill's cache into the slot along the
+leaf's batch axis (``cache_batch_axes``): the KV over meta tokens and
+prompt where the family has one, hymba's Mamba ``h`` and ``conv``, xLSTM's
+mLSTM and sLSTM state, Whisper's cross-attention KV ``xk``/``xv``.  A
+Whisper request carries its audio as ``Request.frames`` (the stubbed conv
+frontend's output), which the prefill encodes.  ``kv_mode="paged"`` raises
+for these families.
 
 Differences from the JAX package, none visible in tokens or counters:
 
@@ -68,13 +75,15 @@ Differences from the JAX package, none visible in tokens or counters:
       row-local and the inputs are the same), into a position nothing has
       read yet.
     Recurrent state has no position, so that shortcut would advance it:
-    every cache leaf that ``cache_batch_axes`` names beyond ``k`` and ``v``
-    (hymba's Mamba ``h`` and ``conv``) comes back from the decode step as a
-    new tensor and is written back only for the rows that emit
-    (``freeze_rows``: ``torch.where`` along the leaf's batch axis, copied
+    every cache leaf that ``cache_batch_axes`` names beyond ``k``, ``v``
+    and the cross-attention ``xk``, ``xv`` (``state_leaves``: hymba's Mamba
+    ``h`` and ``conv``, every xLSTM leaf) comes back from the decode step as
+    a new tensor and is written back only for the rows that emit
+    (``freeze_rows``: ``torch.where`` along the leaf's batch axis, written
     in place into the persistent tensor, so a captured graph keeps its
     storage).  The KV is never select-merged: that would copy the whole
-    cache four times per step.
+    cache four times per step; nor is the cross-attention KV, which no
+    decode step writes.
   * A megastep window is a Python loop of ``steps`` decode steps.  On a CUDA
     device the engine captures it as one ``torch.cuda.CUDAGraph`` per pow2
     ``steps`` bucket (the counterpart of the JAX package's one compile per
@@ -131,6 +140,8 @@ class Request:
     rid: int
     prompt: np.ndarray           # (n,) int32
     max_new_tokens: int = 16
+    frames: torch.Tensor | None = None  # (enc_len, d_model) bf16: an enc_dec
+                                        # model's audio frames, else None
     out_tokens: list = dataclasses.field(default_factory=list)
     slot: int = -1
     pinned_pages: list = dataclasses.field(default_factory=list)
@@ -278,14 +289,22 @@ def paged_decode_step(cfg: ArchConfig, params, tokens, tail_cache, pool_k,
     return _logits_fn(cfg, params)(h[:, -1]), tail_cache
 
 
+# top-level cache leaves that are not recurrent state: the KV a decode step
+# writes in place at a position, and the cross-attention KV that admission
+# writes and no decode step touches
+POSITIONAL = ("k", "v")
+CROSS_KV = ("xk", "xv")
+
+
 def state_leaves(axes: dict, path: tuple = ()) -> list:
-    """(path, batch axis) of every cache leaf in ``axes`` (the structure of
-    ``model.cache_batch_axes``) beyond the positional ``k`` and ``v``."""
+    """(path, batch axis) of every recurrent cache leaf in ``axes`` (the
+    structure of ``model.cache_batch_axes``): all but ``POSITIONAL`` and
+    ``CROSS_KV``."""
     out = []
     for name, ax in axes.items():
         if isinstance(ax, dict):
             out += state_leaves(ax, path + (name,))
-        elif path or name not in ("k", "v"):
+        elif path or name not in POSITIONAL + CROSS_KV:
             out.append((path + (name,), ax))
     return out
 
@@ -299,7 +318,8 @@ def _leaf(tree: dict, path: tuple) -> torch.Tensor:
 def freeze_rows(cache: dict, new: dict, leaves: list, keep) -> None:
     """The freeze: each recurrent leaf (``state_leaves``) of ``cache`` takes
     ``new``'s rows where ``keep`` (B,) bool (a tensor, or a host array) is
-    set and keeps its own elsewhere, written in place."""
+    set and keeps its own elsewhere, written in place (one select pass per
+    leaf, its output the leaf itself)."""
     if not leaves:
         return
     keep = torch.as_tensor(keep, device=_leaf(cache, leaves[0][0]).device)
@@ -307,7 +327,7 @@ def freeze_rows(cache: dict, new: dict, leaves: list, keep) -> None:
         old = _leaf(cache, path)
         shape = [1] * old.ndim
         shape[ax] = keep.shape[0]
-        old.copy_(torch.where(keep.view(shape), _leaf(new, path), old))
+        torch.where(keep.view(shape), _leaf(new, path), old, out=old)
 
 
 def megastep_decode(decode_fn, params, last_tok, cache, cur_lens, live, rem, *,
@@ -466,6 +486,9 @@ class ServeEngine:
                 f"request {req.rid}: prompt ({len(req.prompt)}) + "
                 f"max_new_tokens ({req.max_new_tokens}) = {need} exceeds "
                 f"max_len={self.max_len}")
+        if (req.frames is None) == self.cfg.enc_dec:
+            raise ValueError(f"request {req.rid}: an encoder-decoder request "
+                             "needs its frames, any other none")
         if req.submit_tick < 0:
             req.submit_tick = self.ticks
         self.queue.append(req)
@@ -500,7 +523,8 @@ class ServeEngine:
                 "(default max_len is always safe)")
 
     def _admit_plain(self, reqs: list[Request]):
-        """Prompts shorter than a chunk (or no prefix cache): plain prefill."""
+        """Prompts shorter than a chunk (or no prefix cache): plain prefill,
+        its cache installed into the slot leaf by leaf."""
         emits = []
         for req in reqs:
             if self.paged:
@@ -508,10 +532,15 @@ class ServeEngine:
                 self._check_tail(req, len(req.prompt))
                 self.pool.clear_slot(req.slot)
             batch = {"tokens": self._tensor(req.prompt[None].astype(np.int32))}
+            if req.frames is not None:
+                batch["frames"] = req.frames[None].to(self.device)
             logits, pc = self.model.prefill(self.params, batch)
-            s = pc["k"].shape[2]         # the prompt (and meta tokens) KV
-            self.cache["k"][:, req.slot, :s] = pc["k"][:, 0]
-            self.cache["v"][:, req.slot, :s] = pc["v"][:, 0]
+            for name in POSITIONAL:      # the prompt's (and meta tokens') KV
+                if name in pc:
+                    self.cache[name][:, req.slot, :pc[name].shape[2]] = pc[name][:, 0]
+            for name in CROSS_KV:
+                if name in pc:
+                    self.cache[name][:, req.slot] = pc[name][:, 0]
             for path, ax in self._state:
                 _leaf(self.cache, path).select(ax, req.slot).copy_(
                     _leaf(pc, path).select(ax, 0))
@@ -1253,6 +1282,9 @@ class ServeEngine:
         }
 
     def _kv_bytes_per_token(self) -> int:
-        """Device bytes one token's K+V occupies across all layers."""
+        """Device bytes one token's K+V occupies across all layers (0 for a
+        family without KV)."""
+        if "k" not in self.cache:
+            return 0
         return (2 * self.cfg.n_layers * self.cfg.n_kv_heads * self.cfg.head_dim
                 * self.cache["k"].element_size())

@@ -490,18 +490,20 @@ def test_init_draws_the_published_shapes_on_the_generators_device(arch):
 
 
 def test_unported_archs_and_families_raise():
-    """What the port does not run yet (xLSTM, the Whisper encoder-decoder)
-    raises, by name and by family."""
-    for arch in ("xlstm-1.3b", "whisper-medium"):
-        with pytest.raises(KeyError, match="not yet ported"):
-            get_config(arch)
+    """Every architecture of the JAX package resolves (xLSTM and the Whisper
+    encoder-decoder among them, the last two ported) and builds a model and
+    its cache axes; a name or a mixer the JAX package does not have raises."""
+    from repro.configs import list_archs as jax_list_archs
+    from repro_torch.configs import list_archs
+
+    assert sorted(list_archs()) == sorted(jax_list_archs())
+    for arch in list_archs():
+        cfg = get_config(arch, smoke=True)
+        make_model(cfg)
+        assert cache_batch_axes(cfg) == jax_cache_batch_axes(jax_get_config(arch, smoke=True))
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
     base = dict(family="ssm", n_layers=1, d_model=64, n_heads=2, n_kv_heads=2,
                 d_ff=64, vocab_size=64)
-    for cfg in (ArchConfig(name="xlstm", mixer="xlstm", **base),
-                ArchConfig(name="whisper", enc_dec=True, **base)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            make_model(cfg)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            cache_batch_axes(cfg)
+    with pytest.raises(ValueError, match="unknown mixer"):
+        make_model(ArchConfig(name="rwkv", mixer="rwkv", **base))

@@ -223,7 +223,9 @@ def _prompts(cfg, n=10, prefix=32, n_templates=4, seed=0):
 
 
 def _drive(port: bool, stack, prompts, *, kv_mode, n_pages=48, slots=3,
-           max_len=128, max_new=6, **engine_kw):
+           max_len=128, max_new=6, frames=None, **engine_kw):
+    """Serve ``prompts`` (with ``frames``, one per prompt, for the port's
+    encoder-decoder) through the port's engine or the JAX package's."""
     cfg, model, params = stack
     if port:
         pool = PagedKVPool(cfg, n_pages=n_pages, page_tokens=16, device="cpu")
@@ -239,7 +241,8 @@ def _drive(port: bool, stack, prompts, *, kv_mode, n_pages=48, slots=3,
                                   **engine_kw)
         mk = jengine.Request
     for i, p in enumerate(prompts):
-        eng.submit(mk(rid=i, prompt=p, max_new_tokens=max_new))
+        eng.submit(mk(rid=i, prompt=p, max_new_tokens=max_new,
+                      **({} if frames is None else {"frames": frames[i]})))
     eng.run_until_done()
     return eng
 
