@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the multi-step LRU cache and of its
-prefix-cached serving path (every architecture of the JAX package: the
-attention decoders, the MoE decoders, the hymba hybrid, xLSTM and the
-Whisper encoder-decoder) on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of the multi-step LRU cache, of its sharded
+form, and of its prefix-cached serving path (every architecture of the JAX
+package: the attention decoders, the MoE decoders, the hymba hybrid, xLSTM
+and the Whisper encoder-decoder) on one NVIDIA GPU.
 
 Run from the root of a checkout, with one card visible:
 
@@ -122,10 +122,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    Phases 17-19 print ms per decode tick, tokens/s, serve wall, kernels per
    in-flight tick and per window step, the busy share, peak memory, one
    admission's prefill device time (and the encoder's), and the freeze's
-   device time per decode step beside the bytes it moves.
+   device time per decode step beside the bytes it moves;
+20. the sharded cache at the main path's size: ``make_sharded_stream_runner``
+   over ``SHARDS`` = 8 logical shards on the card, cap full, one-pass, fed
+   phase 5's stream (kept on the host from phase 6 to here): the table bit-equal to phase 5's and its hits over the timed
+   half equal; from phase 5's post-stream table, the one-pass and rounds
+   sharded engines (``msl_onepass``, ``msl_access``) equal the local cache on
+   the four batches after the stream; at caps 2.0 and 1.0 the first batch's
+   shed rate, its admitted rows equal to the local cache fed only them; one
+   batch at D = 7 (a table padded with EMPTY sets) equal to the local cache;
+   queries/s, ms per batch, kernel launches per batch, the idle share;
+21. phi3-mini-3.8b at full width and depth, paged, behind a
+   ``ShardedCacheClient`` of 8 shards through ``serve.build(--sharded 8)``:
+   cap full in-flight and megastep give phase 8's tokens, ticks and prefill
+   split (or a near-tie split); then ``BOUNDED`` (cap 2, split placement,
+   throttle 0.75, ``--chaos-seed 28``: two resizes to 7 shards, a shard
+   lost) twice in-flight and once megastep: every request completes, the
+   pool ends balanced, both in-flight runs give the same fault log,
+   counters and tokens, the megastep run in-flight's ticks, faults and
+   counters with at least one window capped at a fault's tick, and the
+   tokens equal phase 8's or split at a near-tie; the shed, split, throttle and
+   fallback stats, ms per decode tick, host ms per cache call and peak
+   memory, ``msl_onepass`` and ``paged_attn`` launches on the path.
 
-Then the JSON lines: the main path, the serving path (phases 8, 9, 11-19)
-and every kernel's record (the paged kernel's with ``shapes``: its record
+Then the JSON lines: the main path (phase 20 under ``sharded``), the
+serving path (phases 8, 9, 11-19, 21 under ``sharded``) and every kernel's
+record (the paged kernel's with ``shapes``: its record
 at phases 13-16's shapes).
 
 The msl_cache comparisons are bit-exact (all state is int32).  The last
@@ -492,7 +514,7 @@ def read_launches():
 
 
 def run_main_path(torch, cfg, keys, vals):
-    """Phase 5.  Returns the summary dict.  Launches are counted on two
+    """Phase 5.  Returns the summary dict and the table after the stream.  Launches are counted on two
     paths, each from zero just before it to just after it: the one-pass
     stream (the main path) and the rounds engine's cross-check, the path
     that runs the access kernel."""
@@ -518,6 +540,7 @@ def run_main_path(torch, cfg, keys, vals):
         evictions += res.evicted_valid.sum()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    stream_table = cache.table.clone()     # phase 20's reference
     timed_queries = (n_batches - half) * BATCH
     stream_launches = read_launches()
     occupancy = cache.occupancy
@@ -580,6 +603,7 @@ def run_main_path(torch, cfg, keys, vals):
         "seconds": seconds,
         "qps": timed_queries / seconds,
         "ms_per_batch": 1e3 * seconds / (n_batches - half),
+        "hits": int(hits),
         "hit_ratio": int(hits) / timed_queries,
         "evictions": int(evictions),
         "occupancy": occupancy,
@@ -598,7 +622,7 @@ def run_main_path(torch, cfg, keys, vals):
     if rounds_launches["msl_access"] == 0:
         raise AssertionError("msl_access was not launched by the rounds engine")
     del cache
-    return summary
+    return summary, stream_table
 
 
 def device_breakdown(torch, cache, keys, vals, first, wall_ms_per_batch, n=16):
@@ -1952,6 +1976,409 @@ def run_contiguous(torch, arch, smoke, roundrobin="near-tie"):
     return summary
 
 # ---------------------------------------------------------------------------
+# Slice 9: the sharded cache (D logical shards on the card) and the serving
+# engine's sheds, retries, split placement, throttling and fault plans
+# ---------------------------------------------------------------------------
+
+SHARDS = 8
+# phase 21's bounded serve: FaultPlan.seeded(28, ticks=24, ndev=8) resizes to
+# 7 shards at ticks 6 and 16 (a table padded with EMPTY sets) and loses shard
+# 1 at tick 20; at cap 2 the launcher's requests shed whole chains and chunk
+# suffixes, split chains over slabs, throttle admissions and fall back
+BOUNDED = ("--sharded", str(SHARDS), "--cap", "2", "--placement", "split",
+           "--throttle-threshold", "0.75", "--chaos-seed", "28")
+
+
+def sharded_step_profile(torch, cfg, mesh, table, keys, vals, first, n=16):
+    """The device's idle share over ``n`` sharded batches (one-pass, cap
+    full, updating ``table`` in place) from batch ``first``: the profiler's
+    kernels against the wall time of the same batches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import pad_dummy_row
+    from repro_torch.core.sharded import make_sharded_engine
+
+    run = make_sharded_engine(cfg, mesh, cap="full", engine="onepass", in_place=True)
+    table = pad_dummy_row(table)
+    run(table, keys[:BATCH], vals[:BATCH])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for i in range(first, first + n):
+            q = slice(i * BATCH, (i + 1) * BATCH)
+            run(table, keys[q], vals[q])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    kernels = cuda_kernels(torch, prof)
+    busy_ms = sum(v[0] for v in kernels.values()) / 1e3
+    return {"busy_ms_per_batch": busy_ms / n, "wall_ms_per_batch_profiled": wall_ms / n,
+            "kernels_per_batch": sum(v[1] for v in kernels.values()) / n,
+            "idle_share": 1.0 - busy_ms / wall_ms}
+
+
+def host_pace_ab(torch, cfg, mesh, table, keys, vals, first, blocks=8, per=32):
+    """Like for like, in one phase: the local cache (phase 5's path) and the
+    one-pass sharded engine (cap full) over the same ``blocks * per``
+    batches from batch ``first``, alternating blocks of ``per``, each on
+    its own copy of ``table``.  Returns wall ms per batch of each."""
+    from repro_torch.core import MultiStepLRUCache, pad_dummy_row
+    from repro_torch.core.sharded import make_sharded_engine, shard_table
+
+    local = MultiStepLRUCache(cfg, device=DEVICE)
+    local.load_table(table)
+    run = make_sharded_engine(cfg, mesh, cap="full", engine="onepass", in_place=True)
+    padded = pad_dummy_row(shard_table(table, mesh))
+    qk = keys[:, None]
+    seconds = {"local": 0.0, "sharded": 0.0}
+    for b in range(blocks):
+        for name in seconds:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for i in range(first + b * per, first + (b + 1) * per):
+                q = slice(i * BATCH, (i + 1) * BATCH)
+                if name == "local":
+                    local.access(keys[q], vals[q])
+                else:
+                    run(padded, qk[q], vals[q])
+            torch.cuda.synchronize()
+            seconds[name] += time.perf_counter() - t
+    return {f"{k}_ms_per_batch": 1e3 * v / (blocks * per) for k, v in seconds.items()}
+
+
+def run_sharded_cache(torch, cfg, keys, vals, stream_table, main):
+    """Phase 20: the sharded engine with ``SHARDS`` logical shards on the
+    card at the main path's size.  The one-pass stream runner over phase
+    5's stream must leave phase 5's table bit for bit, with phase 5's hits
+    over the timed half; on the batches after the stream, from that table,
+    the one-pass and rounds sharded engines (each through its kernel) must
+    give the local cache's results and table; at cap 2.0 the admitted rows
+    must give what the local cache gives fed only them; one batch at D = 7
+    (a padded table) must give the local cache's.  Launches are counted on
+    the stream, from zero just before it to just after."""
+    from repro_torch.core import EMPTY_KEY, MultiStepLRUCache, init_table
+    from repro_torch.core.sharded import (make_sharded_engine, make_sharded_stream_runner,
+                                          shard_table)
+    from repro_torch.launch.mesh import make_cache_mesh
+
+    n_batches = keys.numel() // BATCH - CHECK_BATCHES
+    half = n_batches // 2
+    mesh = make_cache_mesh(SHARDS, device=DEVICE)
+    stream = make_sharded_stream_runner(cfg, mesh, cap="full", batch=BATCH,
+                                        engine="onepass")
+    qk, qv = keys[:, None], vals
+    table = shard_table(init_table(cfg, DEVICE), mesh)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table, _, _ = stream(table, qk[: half * BATCH], qv[: half * BATCH])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    table, hits, served = stream(table, qk[half * BATCH: n_batches * BATCH],
+                                 qv[half * BATCH: n_batches * BATCH])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = read_launches()
+    timed = (n_batches - half) * BATCH
+    if not torch.equal(table, stream_table):
+        raise AssertionError("the sharded one-pass table differs from phase 5's")
+    if int(hits) != main["hits"] or int(served) != timed:
+        raise AssertionError(f"sharded hits {int(hits)} (served {int(served)}) != phase 5's "
+                             f"{main['hits']} over the timed half")
+    if launches["msl_onepass"] != n_batches:
+        raise AssertionError(f"{launches['msl_onepass']} msl_onepass launches for "
+                             f"{n_batches} batches")
+    out = {"shards": SHARDS, "batches": n_batches, "timed_queries": timed,
+           "seconds": t2 - t1, "qps": timed / (t2 - t1),
+           "ms_per_batch": 1e3 * (t2 - t1) / (n_batches - half),
+           "warm_seconds": t1 - t0, "hit_ratio": int(hits) / timed,
+           "launches_stream": launches,
+           "launches_per_batch": {k: v / n_batches for k, v in launches.items()}}
+    log(f"D = {SHARDS} shards, cap full, one-pass: {n_batches} batches; table bit-equal "
+        f"to phase 5's, {int(hits)} hits over the timed half as phase 5; "
+        f"{out['qps']:.4g} queries/s, {out['ms_per_batch']:.4f} ms/batch (phase 5 "
+        f"{main['ms_per_batch']:.4f}), launches per batch {out['launches_per_batch']}")
+
+    # the batches after the stream, from phase 5's post-stream table
+    check = [slice(i * BATCH, (i + 1) * BATCH) for i in range(n_batches, n_batches + 4)]
+    local = MultiStepLRUCache(cfg, device=DEVICE)
+    local.load_table(stream_table)
+    want = [local.access(keys[q], vals[q]) for q in check]
+    for engine in ("onepass", "rounds"):
+        run = make_sharded_engine(cfg, mesh, cap="full", engine=engine)
+        t = stream_table.clone()
+        zero_launches()
+        for q, w in zip(check, want):
+            t, hit, val, srv = run(t, qk[q], qv[q])
+            if not (torch.equal(hit, w.hit) and bool(srv.all())
+                    and torch.equal(val[hit], w.value[w.hit])):
+                raise AssertionError(f"sharded {engine} results differ from the local cache")
+        out[f"launches_{engine}_check"] = read_launches()
+        if not torch.equal(t, local.table):
+            raise AssertionError(f"sharded {engine} table differs from the local cache")
+    if out["launches_rounds_check"]["msl_access"] == 0:
+        raise AssertionError("the sharded rounds engine did not launch msl_access")
+    log(f"one-pass and rounds sharded engines == local cache on {len(check)} batches "
+        f"after the stream (results, table); launches {out['launches_onepass_check']} / "
+        f"{out['launches_rounds_check']}")
+
+    # bounded caps on the first batch: shed rows as if absent
+    q0 = slice(0, BATCH)
+    full = MultiStepLRUCache(cfg, device=DEVICE).access(keys[q0], vals[q0])
+    for cap in (2.0, 1.0):
+        bounded = make_sharded_engine(cfg, mesh, cap=cap, engine="onepass")
+        t, hit, val, srv = bounded(shard_table(init_table(cfg, DEVICE), mesh), qk[q0], qv[q0])
+        cold = MultiStepLRUCache(cfg, device=DEVICE)
+        w = cold.access(keys[q0][srv], vals[q0][srv])
+        if not (torch.equal(hit[srv], w.hit) and torch.equal(val[srv][w.hit], w.value[w.hit])
+                and torch.equal(t, cold.table) and not bool(hit[~srv].any())):
+            raise AssertionError(f"cap {cap}: admitted rows differ from the local cache fed them")
+        same = int(((hit == full.hit) & srv).sum())
+        out[f"cap{cap:g}"] = {"shed_rate": 1.0 - float(srv.float().mean()),
+                              "admitted": int(srv.sum()), "admitted_equal_full_cap": same}
+        log(f"cap {cap}, first batch: shed rate {out[f'cap{cap:g}']['shed_rate']:.4f}; the "
+            f"{int(srv.sum())} admitted rows == the local cache fed only them (results, "
+            f"table); {same} of them hit as under cap full (a row whose earlier same-key "
+            f"row shed misses instead)")
+        del t, cold
+
+    # D = 7: a padded table
+    mesh7 = make_cache_mesh(7, device=DEVICE)
+    q7 = slice(n_batches * BATCH, n_batches * BATCH + 7 * (BATCH // 7))
+    local7 = MultiStepLRUCache(cfg, device=DEVICE)
+    local7.load_table(stream_table)
+    w7 = local7.access(keys[q7], vals[q7])
+    t7 = shard_table(stream_table, mesh7)
+    t7, hit, val, _ = make_sharded_engine(cfg, mesh7, cap="full", engine="onepass")(
+        t7, qk[q7], qv[q7])
+    if not (torch.equal(hit, w7.hit) and torch.equal(t7[: cfg.num_sets], local7.table)
+            and bool((t7[cfg.num_sets:, :, 0] == EMPTY_KEY).all())):
+        raise AssertionError("D = 7 differs from the local cache")
+    out["d7"] = {"rows": int(t7.shape[0]), "padded_sets": int(t7.shape[0]) - cfg.num_sets}
+    log(f"D = 7: {t7.shape[0]} table rows ({out['d7']['padded_sets']} EMPTY padded sets); "
+        f"one batch of {q7.stop - q7.start} == the local cache")
+    del t7, local7, local
+
+    out["ab"] = host_pace_ab(torch, cfg, mesh, stream_table, keys, vals, half)
+    log(f"like for like over {8 * 32} batches in alternating blocks: local cache "
+        f"{out['ab']['local_ms_per_batch']:.4f} ms per batch, sharded "
+        f"{out['ab']['sharded_ms_per_batch']:.4f}")
+    out["device"] = sharded_step_profile(torch, cfg, mesh, table, qk, qv, half)
+    log(f"device per sharded batch: busy {out['device']['busy_ms_per_batch']:.4f} ms in "
+        f"{out['device']['kernels_per_batch']:.1f} kernels, idle share "
+        f"{out['device']['idle_share']:.3f} of {out['device']['wall_ms_per_batch_profiled']:.4f} "
+        f"ms (phase 5: {main['device']['kernels_per_batch']:.1f} kernels, idle "
+        f"{main['device']['idle_share']:.3f})")
+    return out
+
+
+def timed_backend(backend, ms):
+    """Record the host ms of every ``access`` of ``backend`` (placement,
+    packing, the engine call and its result fetch) and of its placement
+    alone into ``ms`` ("access", "placement")."""
+    for name, key in (("access", "access"), ("_place_split", "placement"),
+                      ("_place_whole", "placement")):
+        inner = getattr(backend, name)
+
+        def wrapped(*a, _inner=inner, _key=key, **k):
+            t = time.perf_counter()
+            try:
+                return _inner(*a, **k)
+            finally:
+                ms[_key].append(1e3 * (time.perf_counter() - t))
+
+        setattr(backend, name, wrapped)
+
+
+def serve_with_faults(torch, eng, reqs, plan):
+    """``run_until_done(fault_plan=plan)`` step by step: the wall time and,
+    for each step that admitted nothing (a pure-decode tick or a megastep
+    window), its seconds and the ticks it covered."""
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_ticks = []
+    while eng.queue or eng.retry_queue or eng.active or eng._pending_inserts:
+        cap = None
+        if plan is not None:
+            for ev in plan.pop_due(eng.ticks):
+                eng.apply_fault(ev)
+            nxt = plan.next_tick()
+            if nxt is not None:
+                cap = nxt - eng.ticks
+        queued, retried, ticks = len(eng.queue), len(eng.retry_queue), eng.ticks
+        t = time.perf_counter()
+        eng.step(window_cap=cap)
+        if len(eng.queue) == queued and len(eng.retry_queue) == retried == 0:
+            decode_ticks.append((time.perf_counter() - t, eng.ticks - ticks))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, decode_ticks
+
+
+def sharded_serve(torch, args, reqs, plan=None, buckets=()):
+    """One serve of ``reqs`` through ``serve.build(args)`` (the weights made
+    from ``--seed`` anew), launches counted from zero just before it to just
+    after (a megastep engine's window ``buckets`` captured first, as in
+    phase 11).  Returns the engine and the serve's numbers (the
+    shed/split/throttle stats among them; megastep: the windows a fault's
+    tick capped below what ``_plan_window`` plans without the cap)."""
+    from repro_torch.launch import serve
+
+    eng = serve.build(args)
+    plans = []
+    if eng.decode_mode == "megastep":
+        for steps in buckets:
+            eng.capture_window(steps)
+        plan_window = eng._plan_window
+
+        def recording(cap=None):
+            k = plan_window(cap)
+            plans.append((k, plan_window(None)))
+            return k
+
+        eng._plan_window = recording
+    captured = set(eng.window_graphs)
+    ms = {"access": [], "placement": []}
+    timed_backend(eng.prefix_cache.cache, ms)
+    zero_launches()
+    wall, decode_ticks = serve_with_faults(torch, eng, fresh(reqs), plan)
+    launches = read_launches()
+    st, pc = eng.stats(), eng.prefix_cache.stats()
+    pool = eng.pool
+    dec_s = sum(s for s, _ in decode_ticks)
+    dec_ticks = sum(k for _, k in decode_ticks)
+    out = {"ticks": st["ticks"], "wall_s": wall, "finished": len(eng.finished),
+           "fault_log": [list(x) for x in eng.fault_log], "launches": launches,
+           "fault_capped_windows": sum(k < free for k, free in plans),
+           "ms_per_decode_tick": 1e3 * dec_s / max(1, dec_ticks),
+           "decode_only_ticks": dec_ticks,
+           "cache_calls": len(ms["access"]),
+           "prefix_cache_calls": pc["device_calls"],
+           "host_ms_per_cache_call": sum(ms["access"]) / max(1, len(ms["access"])),
+           "placement_ms_per_cache_call": sum(ms["placement"]) / max(1, len(ms["access"])),
+           "leaked_pages": pool.n_pages - pool.free_pages - int(pool.refcount.sum()),
+           "reserved_pages": len(pool._reserved), "pending_inserts": len(eng._pending_inserts),
+           "prefill_computed": sum(r.prefill_computed for r in eng.finished),
+           "prefill_skipped": sum(r.prefill_skipped for r in eng.finished),
+           "stats": {k: st[k] for k in ("decode_launches", "host_syncs", "fallbacks",
+                                         "fallback_rate", "partial_served", "partial_sheds",
+                                         "split_chains", "slab_occupancy_peak",
+                                         "throttled_admissions", "megastep_windows")},
+           "prefix_cache": {k: pc[k] for k in ("hits", "misses", "shed", "retried",
+                                                "fallbacks", "device_calls")},
+           "backend": {"ndev": eng.prefix_cache.cache.ndev,
+                       "sheds": eng.prefix_cache.cache.sheds,
+                       "shed_groups": eng.prefix_cache.cache.shed_groups,
+                       "degraded_sheds": eng.prefix_cache.cache.degraded_sheds,
+                       "fault_sheds": eng.prefix_cache.cache.fault_sheds}}
+    if out["finished"] != len(reqs) or any(len(r.out_tokens) != r.max_new_tokens
+                                           for r in eng.finished):
+        raise AssertionError("a request was dropped or cut short")
+    if out["leaked_pages"] or out["reserved_pages"] or out["pending_inserts"]:
+        raise AssertionError(f"the pool did not balance: {out}")
+    # one engine call per client access: the prefix cache's calls and a
+    # reshard's drain and re-insert sweeps
+    if not 0 < launches["msl_onepass"] == out["cache_calls"]:
+        raise AssertionError(f"{launches['msl_onepass']} msl_onepass launches for "
+                             f"{out['cache_calls']} client engine calls")
+    # a window graph captured at its first use, mid-serve, runs one eager
+    # warm-up of the window first: those launches are on the path too
+    out["warmup_paged_attn"] = sum(w.launches["paged_attn"] for k, w in
+                                   eng.window_graphs.items() if k not in captured)
+    check_launches(eng, launches["paged_attn"] - out["warmup_paged_attn"], st,
+                   "sharded serve")
+    return eng, out
+
+
+def run_sharded_serving(torch, phase8, buckets):
+    """Phase 21: phi3-mini-3.8b at full width and depth, paged, behind a
+    ``ShardedCacheClient`` of ``SHARDS`` logical shards, through
+    ``serve.build`` with ``--sharded`` (every serve builds its engine anew,
+    the weights from the seed): at cap full in-flight and megastep (phase
+    8's tokens, ticks and prefill split, or a near-tie split; the megastep
+    serve with phase 11's window ``buckets`` captured first), then the
+    bounded, split-placed, throttled serve under a seeded fault plan, twice
+    in-flight (the same faults, counters and tokens both times) and once
+    megastep (the in-flight serve's ticks, faults and counters, with at
+    least one window capped at a fault's tick): every request completes, no
+    page leaks, and the tokens equal phase 8's or split at a near-tie."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    torch.cuda.reset_peak_memory_stats()
+    want = {rid: toks for rid, toks, _, _ in phase8["served"]}
+    args = serve_args("--kv-mode", "paged")
+    reqs = serve.make_requests(get_config(args.arch, smoke=args.smoke), args)
+    out = {}
+    for name, extra in (("full_inflight", ()), ("full_megastep", ("--decode-mode", "megastep"))):
+        args = serve_args("--kv-mode", "paged", "--sharded", str(SHARDS), *extra)
+        eng, rec = sharded_serve(torch, args, reqs, buckets=buckets)
+        got = served(eng, reqs)
+        rec["equal_phase8"] = got == phase8["served"] and rec["ticks"] == phase8["ticks"]
+        if not rec["equal_phase8"]:
+            if rec["ticks"] != phase8["ticks"] or [(a, c, d) for a, _, c, d in got] != \
+                    [(a, c, d) for a, _, c, d in phase8["served"]]:
+                raise AssertionError(f"{name}: ticks, finish order or prefill split differ "
+                                     "from phase 8's")
+            rec["near_ties"] = near_ties(torch, eng, reqs, {r: t for r, t, _, _ in got}, want)
+        log(f"{name}: {rec['ticks']} ticks, tokens {'equal' if rec['equal_phase8'] else 'near-tie'} "
+            f"phase 8's, {rec['ms_per_decode_tick']:.3f} ms per decode tick, "
+            f"{rec['host_ms_per_cache_call']:.3f} host ms per cache call over "
+            f"{rec['cache_calls']} calls; launches {rec['launches']}")
+        out[name] = rec
+        del eng
+        release(torch)
+
+    runs = []
+    for i, mode in enumerate(("inflight", "inflight", "megastep")):
+        bargs = serve_args("--kv-mode", "paged", *BOUNDED, "--decode-mode", mode)
+        eng, rec = sharded_serve(torch, bargs, reqs, serve.fault_plan(bargs), buckets)
+        got = {rid: toks for rid, toks, _, _ in served(eng, reqs)}
+        rec["tokens"] = got
+        rec["near_ties"] = near_ties(torch, eng, reqs, got, want)
+        runs.append(rec)
+        log(f"bounded run {i + 1} ({mode}): {rec['ticks']} ticks, faults {rec['fault_log']}, "
+            f"{rec['stats']}, prefix cache {rec['prefix_cache']}, backend "
+            f"{rec['backend']}; {len(reqs) - len(rec['near_ties'])} of {len(reqs)} streams "
+            f"equal phase 8's, the rest near-ties; {rec['fault_capped_windows']} windows "
+            f"capped at a fault's tick; {rec['ms_per_decode_tick']:.3f} ms per decode tick, "
+            f"{rec['host_ms_per_cache_call']:.3f} host ms per cache call "
+            f"({rec['placement_ms_per_cache_call']:.3f} of it placement); launches "
+            f"{rec['launches']}")
+        del eng
+        release(torch)
+    keys = ("ticks", "fault_log", "stats", "prefix_cache", "backend", "tokens",
+            "prefill_computed", "prefill_skipped", "launches")
+    if any(runs[0][k] != runs[1][k] for k in keys):
+        raise AssertionError("the bounded serve did not repeat: " + ", ".join(
+            k for k in keys if runs[0][k] != runs[1][k]))
+    if len(runs[0]["fault_log"]) != 3 or runs[0]["prefix_cache"]["shed"] == 0:
+        raise AssertionError("the fault plan or the sheds did not happen")
+    # megastep decodes the same ticks in fewer launches: every count but
+    # the decode launches, host syncs and windows equals in-flight's
+    decode_keys = ("decode_launches", "host_syncs", "megastep_windows")
+    mega, inflight = runs[2], runs[0]
+    same = ["ticks", "fault_log", "prefix_cache", "backend", "prefill_computed",
+            "prefill_skipped"]
+    if any(mega[k] != inflight[k] for k in same) or any(
+            mega["stats"][k] != inflight["stats"][k] for k in mega["stats"]
+            if k not in decode_keys):
+        raise AssertionError("the bounded megastep serve differs from in-flight's: " + ", ".join(
+            k for k in same if mega[k] != inflight[k]))
+    if not mega["stats"]["megastep_windows"] or not mega["fault_capped_windows"]:
+        raise AssertionError("no megastep window ran, or none was capped at a fault's tick")
+    for r in runs:
+        del r["tokens"]
+    out["bounded"] = runs[0]
+    out["bounded_repeat_wall_s"] = runs[1]["wall_s"]
+    out["bounded_megastep"] = mega
+    out["args"] = list(BOUNDED)
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"bounded serve repeated exactly (faults, counters, tokens), megastep as in-flight; "
+        f"peak device memory {out['peak_memory_gb']:.2f} GB")
+    return out
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1996,7 +2423,7 @@ def main() -> int:
         torch, cfg, keys, vals)
 
     phase("5. main path")
-    summary = run_main_path(torch, cfg, keys, vals)
+    summary, stream_table = run_main_path(torch, cfg, keys, vals)
     log(f"hit ratio {summary['hit_ratio']:.4f}, occupancy {summary['occupancy']:.4f}, "
         f"evictions {summary['evictions']}, {summary['qps']:.4g} queries/s, "
         f"{summary['ms_per_batch']:.4f} ms/batch, max chain per batch mean "
@@ -2006,7 +2433,10 @@ def main() -> int:
     phase("6. msl_cache kernels")
     records = kernel_records(torch, cfg, keys, vals, onepass_inputs,
                              access_inputs, errs, summary)
-    del keys, vals, onepass_inputs, access_inputs
+    # phase 20 reads the stream and its table again: they wait on the host,
+    # so no phase in between counts them in its device memory
+    host_stream = [x.cpu() for x in (keys, vals, stream_table)]
+    del keys, vals, stream_table, onepass_inputs, access_inputs
 
     phase("7. paged_attn kernel == plain")
     errs["paged_attn"] = check_paged_kernel(torch)
@@ -2033,6 +2463,7 @@ def main() -> int:
     phase("12. split admission and round-robin decode at full width, paged")
     serving["split_roundrobin"] = run_split_roundrobin(torch, eng, reqs, serving)
     buckets = sorted({w["steps"] for w in serving["megastep"]["windows"]})
+    phase8 = {"served": served(eng, reqs), "ticks": serving["ticks"]}
     del eng, reqs, snapshot
     release(torch)
 
@@ -2080,6 +2511,25 @@ def main() -> int:
     release(torch)
     # the paged kernel's record at every other path's shapes
     records[2]["shapes"] = shapes
+
+    phase(f"20. the sharded cache: {SHARDS} logical shards on the card at the main "
+          "path's size")
+    keys, vals, stream_table = (x.to(DEVICE) for x in host_stream)
+    del host_stream
+    summary["sharded"] = run_sharded_cache(torch, cfg, keys, vals, stream_table, summary)
+    records[0]["launches_sharded_path"] = summary["sharded"]["launches_rounds_check"][
+        "msl_access"]
+    records[1]["launches_sharded_path"] = summary["sharded"]["launches_stream"]["msl_onepass"]
+    del keys, vals, stream_table
+    release(torch)
+
+    phase(f"21. phi3-mini-3.8b at full width behind {SHARDS} shards: sheds, retries, "
+          "split placement, throttling, faults")
+    serving["sharded"] = run_sharded_serving(torch, phase8, buckets)
+    bounded = serving["sharded"]["bounded"]["launches"]
+    records[1]["launches_sharded_serving_path"] = bounded["msl_onepass"]
+    records[2]["launches_sharded_serving_path"] = bounded["paged_attn"]
+    release(torch)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

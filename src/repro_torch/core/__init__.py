@@ -7,7 +7,9 @@ Public API:
                          package and the JAX package (as numpy int32)
     params_from_numpy  — carry the JAX package's model parameters (as
                          numpy arrays) into this package's model
-    row/engine functions — see multistep.py and engine.py
+    row/engine functions — see multistep.py and engine.py; the set-sharded
+                         engine and ``ShardedCacheClient`` are in
+                         ``repro_torch.core.sharded``
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Serving entry point: ``python -m repro_torch.launch.serve [--no-smoke] [--kv-mode paged] [--decode-mode megastep]``.
+"""Serving entry point: ``python -m repro_torch.launch.serve [--no-smoke] [--kv-mode paged] [--decode-mode megastep] [--sharded D]``.
 
 Port of ``repro.launch.serve``.  Brings up the continuous-batching engine
 with the multi-step-LRU prefix cache and runs the launcher's synthetic
@@ -27,8 +27,16 @@ widths and depth (the JAX launcher's ``--smoke`` cannot be turned off).
 through the kernels' plain versions.  Weights are random, from a seeded
 ``torch.Generator`` on the device.  ``--decode-mode`` picks in-flight,
 round-robin or megastep decode (on a CUDA device a megastep window is one
-replay of a captured CUDA graph per pow2 bucket of ``--max-window``).  The
-sharded backend, fault plans and throttling are not ported yet.
+replay of a captured CUDA graph per pow2 bucket of ``--max-window``).
+
+``--sharded D`` backs the prefix cache with a ``ShardedCacheClient`` over D
+logical shards on the engine's device (``launch/mesh.py``; the JAX launcher
+runs D devices of a mesh), ``MSLRUConfig(num_sets=256, m=2, p=4,
+value_planes=1)`` as there.  ``--cap`` bounds its per-peer buffers (0:
+``"full"``), ``--placement`` picks its chain placement, and
+``--throttle-threshold`` turns on the engine's owner-aware admission
+throttling.  ``--chaos-seed`` serves under ``FaultPlan.seeded(seed,
+ticks=--requests, ndev=D, n_events=--chaos-events)`` (``fault_plan(args)``).
 """
 
 from __future__ import annotations
@@ -40,8 +48,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, list_archs
-from repro_torch.core import resolve_device
+from repro_torch.core import MSLRUConfig, resolve_device
+from repro_torch.core.sharded import ShardedCacheClient
 from repro_torch.data.ycsb import zipfian
+from repro_torch.launch.elastic import FaultPlan
+from repro_torch.launch.mesh import make_cache_mesh
 from repro_torch.models.model import make_model
 from repro_torch.serving.engine import Request, ServeEngine
 from repro_torch.serving.kv_cache import PagedKVPool
@@ -80,6 +91,27 @@ def parser() -> argparse.ArgumentParser:
                          "slot's private KV (the oracle); paged: decode "
                          "walks a per-slot block table over the shared pool "
                          "(on a CUDA device, the paged-attention kernel)")
+    ap.add_argument("--sharded", type=int, default=0, metavar="D",
+                    help="back the prefix cache with a ShardedCacheClient over "
+                         "D logical shards on the device")
+    ap.add_argument("--cap", type=float, default=0.0,
+                    help="per-peer cap multiplier for --sharded (0 = 'full', "
+                         "no shedding)")
+    ap.add_argument("--placement", choices=["load", "roundrobin", "split"],
+                    default=None,
+                    help="sharded chain placement (default: split under a "
+                         "bounded --cap, load otherwise); split packs chunk "
+                         "fragments across slabs and sheds only the "
+                         "un-placeable suffix")
+    ap.add_argument("--throttle-threshold", type=float, default=0.0,
+                    help="owner-aware admission throttling: defer new "
+                         "admissions whose home shards report pressure >= "
+                         "this level (0 = off; needs --sharded)")
+    ap.add_argument("--chaos-seed", type=int, default=-1,
+                    help="serve under a seeded FaultPlan (needs --sharded); "
+                         "faults apply at tick boundaries")
+    ap.add_argument("--chaos-events", type=int, default=3,
+                    help="events in the seeded FaultPlan")
     return ap
 
 
@@ -88,19 +120,58 @@ def build(args) -> ServeEngine:
     if args.kv_mode == "paged" and args.no_prefix_cache:
         raise ValueError("--kv-mode paged requires the prefix cache (the pool "
                          "is the resident prefix store)")
+    if args.throttle_threshold > 0 and not args.sharded:
+        raise ValueError("--throttle-threshold needs --sharded (pressure comes "
+                         "from the sharded backend's load mirror)")
+    if args.chaos_seed >= 0 and not args.sharded:
+        raise ValueError("--chaos-seed needs --sharded (the faults' targets)")
+    fault_plan(args)    # refuses a plan the mesh cannot apply
     device = resolve_device(args.device)
-    cfg = get_config(args.arch, smoke=args.smoke)
-    model = make_model(cfg)
+    model = make_model(get_config(args.arch, smoke=args.smoke))
     params = model.init(torch.Generator(device=device).manual_seed(args.seed))
+    cfg = model.cfg
     pool = pc = None
     if not args.no_prefix_cache:
         pool = PagedKVPool(cfg, n_pages=256, page_tokens=args.chunk_tokens,
                            device=device)
+        backend = None
+        if args.sharded:
+            backend = ShardedCacheClient(
+                MSLRUConfig(num_sets=256, m=2, p=4, value_planes=1),
+                make_cache_mesh(args.sharded, device=device),
+                cap=args.cap if args.cap > 0 else "full", placement=args.placement)
         pc = PrefixCache(num_sets=256, m=2, p=4, chunk_tokens=args.chunk_tokens,
-                         device=device)
+                         device=device, backend=backend)
     return ServeEngine(model, params, slots=4, max_len=256, prefix_cache=pc,
                        pool=pool, decode_mode=args.decode_mode, kv_mode=args.kv_mode,
-                       max_window=args.max_window)
+                       max_window=args.max_window,
+                       throttle_threshold=(args.throttle_threshold
+                                           if args.throttle_threshold > 0 else None))
+
+
+def fault_plan(args) -> FaultPlan | None:
+    """The seeded fault plan ``--chaos-seed`` asks for (None without one).
+
+    ``FaultPlan.seeded`` (as the JAX package's) may degrade a shard that an
+    earlier resize removed, or the last healthy shard of a smaller mesh;
+    such a plan is refused here, before the serve, rather than failing
+    mid-serve at its degrade."""
+    if args.chaos_seed < 0:
+        return None
+    plan = FaultPlan.seeded(args.chaos_seed, ticks=args.requests, ndev=args.sharded,
+                            n_events=args.chaos_events)
+    ndev, degraded = args.sharded, set()
+    for ev in plan.events:
+        if ev.kind == "resize":
+            ndev, degraded = ev.arg, set()
+        elif ev.kind == "degrade":
+            degraded.add(ev.arg)
+            if ev.arg >= ndev or len(degraded) >= ndev:
+                raise ValueError(
+                    f"--chaos-seed {args.chaos_seed}: the plan degrades shard {ev.arg} "
+                    f"at tick {ev.tick} on a mesh of {ndev} shards with "
+                    f"{sorted(degraded - {ev.arg})} already degraded; pick another seed")
+    return plan
 
 
 def make_requests(cfg, args) -> list[Request]:
@@ -129,13 +200,18 @@ def make_requests(cfg, args) -> list[Request]:
 def main(argv=None):
     args = parser().parse_args(argv)
     eng = build(args)
+    plan = fault_plan(args)
+    if plan is not None:
+        print(f"[serve] fault plan: {plan.events}")
     t0 = time.time()
     for req in make_requests(eng.cfg, args):
         eng.submit(req)
-    ticks = eng.run_until_done()
+    ticks = eng.run_until_done(fault_plan=plan)
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
     dt = time.time() - t0
+    if plan is not None:
+        print(f"[serve] faults applied: {eng.fault_log}, fallbacks={eng.fallbacks}")
 
     skipped = sum(r.prefill_skipped for r in eng.finished)
     computed = sum(r.prefill_computed for r in eng.finished)
@@ -157,6 +233,13 @@ def main(argv=None):
     print(f"[serve] kv: mode={st['kv_mode']} gather_calls={st['gather_calls']} "
           f"resident_kv_peak={st['resident_kv_tokens_peak']} tok "
           f"({st['resident_kv_bytes_peak'] / 2**20:.1f} MiB)")
+    if args.sharded:
+        print(f"[serve] sharded: D={args.sharded} placement="
+              f"{eng.prefix_cache.cache.placement} split_chains={st['split_chains']} "
+              f"partial_sheds={st['partial_sheds']} partial_served={st['partial_served']} "
+              f"slab_occupancy_peak={st['slab_occupancy_peak']:.2f} "
+              f"throttled={st['throttled_admissions']} "
+              f"fallback_rate={st['fallback_rate']:.3f}")
     if eng.prefix_cache is not None:
         print(f"[serve] prefix cache: {eng.prefix_cache.stats()}")
 

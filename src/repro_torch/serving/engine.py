@@ -98,11 +98,30 @@ Differences from the JAX package, none visible in tokens or counters:
     the engine takes the capture's launches back and adds them on every
     replay.  If capture or replay fails the engine raises; CPU tensors run
     the same loop eagerly (the tests).
-  * Only what the local prefix-cache backend reaches is ported.  A shed or
-    partially placed chain, which only a bounded or sharded backend
-    produces, raises ``NotImplementedError`` (so do the retry queue, plain
-    fallback and pending tail inserts that follow from it).  Throttling,
-    fault plans and resharding are not ported yet.
+
+Sheds, retries and faults (a capacity-bounded ``ShardedCacheClient``
+backend), the JAX package's protocol line for line:
+
+  * A shed chain releases its slot and its staged pages and moves to
+    ``retry_queue``, which the next tick admits ahead of the queue; after
+    ``max_shed_retries`` sheds a request falls back to plain prefill
+    (``fallbacks``), so every request completes.  A shed owner of a chunk a
+    served borrower inserted hands the page to that borrower, which writes
+    it.  Split admission has no retry: there a shed probe is a forced miss
+    and a shed insert returns its page.
+  * A split-placing backend sheds only a chunk suffix: the request is
+    served this tick, its tail pages commit and are written, and their
+    inserts re-run in one ``insert_chains`` call at the next tick boundary
+    (``_flush_pending_inserts``).
+  * ``throttle_threshold`` defers new admissions whose home shards report
+    pressure at or above it (``ShardedCacheClient.chain_pressure``), at
+    most ``max_throttle_ticks`` times each; retries and fallbacks are never
+    throttled, and an all-hot queue admits its front request.
+  * ``mark_degraded``, ``reshard`` and ``apply_fault`` change the backend
+    between ticks; orphaned pages go back to the pool under its
+    deferred-free contract (a pinned page frees when its last reader
+    unpins).  ``run_until_done(fault_plan=)`` applies a ``FaultPlan`` at
+    tick boundaries and caps each megastep window at the next fault tick.
 
 Stats glossary: ``decode_launches`` counts decode launches (1 per tick, 2
 on a tick whose borrower wave owes a token, 1 per megastep window),
@@ -113,7 +132,11 @@ one per decode tick or window, one per prefill batch), ``gather_calls`` the
 prefix copies admission made (0 in paged mode by contract),
 ``resident_kv_tokens_peak`` the per-tick high-water of KV tokens the active
 set holds resident, and ``pool_exhausted`` the chunks that ended a tick
-unfunded.
+unfunded.  ``fallbacks``/``fallback_rate`` count requests that exhausted
+their shed retries, ``throttled_admissions`` the queue entries throttling
+skipped, and ``split_chains``, ``partial_sheds``, ``slab_occupancy_peak``
+and ``partial_served`` mirror a sharded backend's and the prefix cache's
+split-placement counters (0 without one).
 """
 
 from __future__ import annotations
@@ -147,12 +170,16 @@ class Request:
     pinned_pages: list = dataclasses.field(default_factory=list)
     prefill_skipped: int = 0
     prefill_computed: int = 0
+    shed_count: int = 0          # times a bounded backend shed this chain
+    force_plain: bool = False    # bypass the prefix cache (shed fallback)
     submit_tick: int = -1        # engine tick the request was queued
-    admit_tick: int = -1         # tick it was served
+    admit_tick: int = -1         # tick it was served (after its sheds)
+    throttle_ticks: int = 0      # admission scans that skipped it (throttling)
+    chain_hashes: list | None = None  # chunk-chain hashes, kept for throttle scans
 
     @property
     def service_ticks(self) -> int:
-        """Admit latency in ticks (queue wait)."""
+        """Admit latency in ticks (queue wait and shed retries)."""
         if self.admit_tick < 0 or self.submit_tick < 0:
             return 0
         return self.admit_tick - self.submit_tick
@@ -396,7 +423,9 @@ class ServeEngine:
                  admit_batching: bool = True, admit_mode: str | None = None,
                  overlap_decode: bool = True, decode_mode: str = "inflight",
                  kv_mode: str = "contiguous", max_window: int = 16,
-                 tail_tokens: int | None = None):
+                 tail_tokens: int | None = None, max_shed_retries: int = 3,
+                 throttle_threshold: float | None = None,
+                 max_throttle_ticks: int = 8):
         if decode_mode not in ("inflight", "roundrobin", "megastep"):
             raise ValueError(f"unknown decode_mode {decode_mode!r}")
         if kv_mode not in ("contiguous", "paged"):
@@ -438,7 +467,18 @@ class ServeEngine:
         self.active: dict[int, Request] = {}
         self._free_slots = list(range(slots))
         self.queue: list[Request] = []
+        self.retry_queue: list[Request] = []   # shed chains, admitted first
         self.finished: list[Request] = []
+        self.max_shed_retries = max_shed_retries
+        # owner-aware admission throttling (None: off)
+        self.throttle_threshold = throttle_threshold
+        self.max_throttle_ticks = max_throttle_ticks
+        self.throttled_admissions = 0
+        # tail-chunk inserts a split-placing backend shed, re-run at the next
+        # tick boundary in one batched call
+        self._pending_inserts: list[dict] = []
+        self.fallbacks = 0           # requests that exhausted shed retries
+        self.fault_log: list[tuple[int, str]] = []  # (tick, event) applied
         self.admit_batching = admit_batching
         self.admit_mode = admit_mode
         self.overlap_decode = overlap_decode
@@ -562,7 +602,8 @@ class ServeEngine:
         near-full pool may defer a page's reuse to the next tick."""
         cfg = self.cfg
         ct = self.prefix_cache.chunk_tokens if self.use_prefix else 0
-        pref = [r for r in reqs if self.use_prefix and len(r.prompt) >= ct]
+        pref = [r for r in reqs if self.use_prefix and len(r.prompt) >= ct
+                and not r.force_plain]
         pref_ids = {id(r) for r in pref}
         plain = [r for r in reqs if id(r) not in pref_ids]
 
@@ -665,18 +706,27 @@ class ServeEngine:
           * insert absorbed, stored
             value == our page          -> ``commit`` (the table holds OUR
             page, so it must live and we write its content)
+          * owner chain SHED           -> promote the first served borrower
+            whose insert carried the page (commit; the borrower writes the
+            content), else ``abort``
+          * past a split placement's
+            served boundary            -> ``commit`` + write; the insert
+            re-runs at the next tick boundary (unless a served borrower's
+            insert landed it: then that borrower is promoted)
         Evicted pages release before the reconciliation, so the pressure
         retry can re-fund unfunded inserts from this tick's own evictions
         (one extra ACCESS call, only when it fires).
         """
         ct = self.prefix_cache.chunk_tokens if self.use_prefix else 0
-        pref = [r for r in reqs if self.use_prefix and len(r.prompt) >= ct]
+        pref = [r for r in reqs if self.use_prefix and len(r.prompt) >= ct
+                and not r.force_plain]
         pref_ids = {id(r) for r in pref}
         plain = [r for r in reqs if id(r) not in pref_ids]
 
         chains = [chunk_chain_hashes(r.prompt, ct) for r in pref]
         # --- stage pages: intra-tick dedupe + reserve --------------------
         owner: dict[int, tuple[int, int, bool]] = {}  # hash -> (c, page, ok)
+        borrowers: dict[int, list[tuple[int, int]]] = {}  # hash -> [(c, t)]
         staged: list[list[int]] = []
         own: list[list[bool]] = []
         for c, chain in enumerate(chains):
@@ -687,6 +737,7 @@ class ServeEngine:
                     _, pg, funded = owner[h]
                     if not funded:
                         break              # keep the funded run a prefix
+                    borrowers.setdefault(h, []).append((c, len(vals)))
                     vals.append(pg)
                     owns.append(False)     # borrowed: the owner's page
                 else:
@@ -703,26 +754,63 @@ class ServeEngine:
         evicted_set: set[int] = set()
         results = []
         if pref:
-            results, evicted = self.prefix_cache.serve_chains(chains, staged)
-            for r, chain in zip(results, chains):
-                if r.shed or r.served_len < len(chain):
-                    raise NotImplementedError(
-                        "a shed or partially placed chain: only a bounded or "
-                        "sharded backend sheds, and none is ported yet")
+            results, evicted = self.prefix_cache.serve_chains(
+                chains, staged, retries=[r.shed_count > 0 for r in pref])
             evicted_set = set(evicted)
             for pg in evicted:
                 self.pool.release(pg)
 
+        def promote(c, t, pg, resident_abort):
+            """Hand owner page ``pg`` of chunk ``chains[c][t]`` to the first
+            served borrower whose insert executed; returns whether one
+            took it.  A borrower whose insert found the chunk resident
+            under another page ends the search (``resident_abort``: the
+            page aborts back)."""
+            for c2, t2 in borrowers.get(chains[c][t], []):
+                r2 = results[c2]
+                if r2.shed or t2 >= len(r2.puts) or r2.puts[t2] is None:
+                    continue               # borrower row did not insert
+                absorbed2, stored2 = r2.puts[t2]
+                if absorbed2 and stored2 != pg:
+                    if resident_abort:
+                        self.pool.abort(pg)
+                        return True
+                    return False
+                self.pool.commit(pg)
+                if pg not in evicted_set:
+                    to_write[c2].append((t2, pg))
+                    published[chains[c][t]] = (c2, pg)
+                return True
+            return False
+
         # --- reconcile reservations --------------------------------------
         published: dict[int, tuple[int, int]] = {}   # hash -> (owner c, page)
         to_write: list[list[tuple[int, int]]] = [[] for _ in pref]
+        pend_tail: dict[int, list[tuple[int, int, int]]] = {}  # c -> (t, h, pg)
         for c, chain in enumerate(chains):
             r = results[c]
             for t, (pg, is_own) in enumerate(zip(staged[c], own[c])):
                 if not is_own:
                     continue               # the owner reconciles this page
+                if r.shed:
+                    # the owner never reached the device, but a served
+                    # borrower's CHAIN_PUT may have inserted our page id
+                    if not promote(c, t, pg, resident_abort=False):
+                        self.pool.abort(pg)
+                    continue
                 if t < r.hitlen:
                     self.pool.abort(pg)    # chunk was already cached
+                    continue
+                if r.puts[t] is None:
+                    # split placement shed the chunk suffix: the owner is
+                    # served (its prefill computes the chunk) but the insert
+                    # never reached the table; keep the page, write it, and
+                    # re-run the insert next tick
+                    if not promote(c, t, pg, resident_abort=True):
+                        self.pool.commit(pg)
+                        to_write[c].append((t, pg))
+                        published[chain[t]] = (c, pg)
+                        pend_tail.setdefault(c, []).append((t, chain[t], pg))
                     continue
                 absorbed, stored = r.puts[t]
                 if absorbed and stored != pg:
@@ -737,10 +825,36 @@ class ServeEngine:
                     to_write[c].append((t, pg))
                     published[chain[t]] = (c, pg)
 
+        # --- partial tails: one pending insert per contiguous depth run ---
+        for c, rows in pend_tail.items():
+            runs: list[list[tuple[int, int, int]]] = []
+            for t, h, pg in rows:
+                if not runs or t != runs[-1][-1][0] + 1:
+                    runs.append([])
+                runs[-1].append((t, h, pg))
+            for run in runs:
+                self._pending_inserts.append({
+                    "hashes": [x[1] for x in run], "pages": [x[2] for x in run],
+                    "depth": run[0][0], "chain_len": len(chains[c])})
+
+        # --- shed chains: release the slot, retry next tick ---------------
+        for c, req in enumerate(pref):
+            if results[c].shed:
+                req.shed_count += 1
+                self._free_slots.append(req.slot)
+                req.slot = -1
+                self.retry_queue.append(req)
+
         # --- pressure retry: fund leftover inserts from recycled pages ----
         retry: list[tuple[int, int, list[int], list[int]]] = []
         for c, chain in enumerate(chains):
-            start = max(results[c].hitlen, len(staged[c]))
+            r = results[c]
+            if r.shed or r.served_len < len(chain):
+                # a partially placed chain's tail belongs to the pending
+                # insert flush: re-inserting it now would land chunks out of
+                # prefix order on the saturated slab
+                continue
+            start = max(r.hitlen, len(staged[c]))
             sub_h: list[int] = []
             sub_p: list[int] = []
             for t in range(start, len(chain)):
@@ -779,6 +893,8 @@ class ServeEngine:
         jobs = []
         for c, (req, chain) in enumerate(zip(pref, chains)):
             r = results[c]
+            if r.shed:
+                continue
             pages = list(r.pages)
             deps: set[int] = set()
             if r.hitlen * ct >= len(req.prompt):
@@ -958,16 +1074,29 @@ class ServeEngine:
 
         Admission goes through one fused call (``admit_mode="fused"``) or
         the split path; ``admit_batching=False`` admits one request at a
-        time through the split path.  Decode: in-flight (every active slot
-        emits at its own ``cur_len``) or round-robin (only the slots at the
-        batch-minimum length emit).  With ``overlap_decode`` (default) the
+        time through the split path.  Shed requests re-admit from
+        ``retry_queue`` ahead of the queue; one shed ``max_shed_retries``
+        times falls back to plain prefill.  Pending tail inserts of last
+        tick's partial placements run first.  Decode: in-flight (every
+        active slot emits at its own ``cur_len``) or round-robin (only the
+        slots at the batch-minimum length emit).  With ``overlap_decode`` (default) the
         decode launch is issued between the wave-0 and borrower prefill
         launches; borrower slots admitted by those later waves owe this
         tick's token and get one follow-up launch (the only case a tick
         costs 2 launches)."""
+        self._flush_pending_inserts()
         admits = []
-        while self._free_slots and self.queue:
-            req = self.queue.pop(0)
+        while self._free_slots and (self.retry_queue or self.queue):
+            req = (self.retry_queue.pop(0) if self.retry_queue
+                   else self._pop_admission())
+            if req.shed_count >= self.max_shed_retries and not req.force_plain:
+                # guaranteed progress: plain (cache-less) prefill, counted;
+                # the request keeps its submit tick, so its service ticks
+                # span every shed
+                req.force_plain = True
+                self.fallbacks += 1
+                if self.prefix_cache is not None:
+                    self.prefix_cache.note_fallback()
             req.slot = self._free_slots.pop()
             admits.append(req)
         pending: list = []
@@ -985,7 +1114,8 @@ class ServeEngine:
                 th()
             self.ticks += 1
             return
-        if self.decode_mode == "megastep" and not admits and not pending:
+        if (self.decode_mode == "megastep" and not admits and not pending
+                and not self._pending_inserts):
             # pure-decode tick: nothing host-visible can happen for K
             # ticks, so the whole window runs as one device program
             self._megastep(self._plan_window(window_cap))
@@ -1034,7 +1164,7 @@ class ServeEngine:
                         or self.cur_len[r.slot] >= self.max_len - 1):
                     done.append(r.rid)
         self.decode_tokens += int(accept.sum())
-        if not admits and not self.queue:
+        if not admits and not self.queue and not self.retry_queue:
             # drain-phase economics (nothing waiting)
             self.drain_launch_rows += len(self.active)
             self.drain_decode_tokens += int(accept.sum())
@@ -1052,6 +1182,53 @@ class ServeEngine:
             self._sample_resident(slot_tok + len(pinned) * self.pool.page_tokens)
         self._retire([self.active[rid] for rid in done])
         self.ticks += 1
+
+    def _flush_pending_inserts(self):
+        """Re-run the tail-chunk inserts a split-placing backend shed last
+        tick, in ONE batched ``insert_chains`` call.  The pages are already
+        committed and written; an insert that is absorbed, evicts a victim
+        or sheds again returns pages to recycle, so the pool's ``free +
+        refcount == n_pages`` holds on every outcome."""
+        if not self._pending_inserts:
+            return
+        pend, self._pending_inserts = self._pending_inserts, []
+        recycled = self.prefix_cache.insert_chains(
+            [p["hashes"] for p in pend], [p["pages"] for p in pend],
+            depths=[p["depth"] for p in pend],
+            chain_lens=[p["chain_len"] for p in pend])
+        for pg in recycled:
+            self.pool.release(pg)
+
+    def _pop_admission(self) -> Request:
+        """Pop the next new request.  With throttling on, scan past requests
+        whose home shards are saturated (the backend's ``chain_pressure`` at
+        or above ``throttle_threshold``) to the first the backend can serve
+        now.  Plain-prefill requests (fallbacks, prompts shorter than a
+        chunk) and requests skipped ``max_throttle_ticks`` times are taken
+        as they come; when every queued request is hot the front one admits
+        anyway (a hot admit beats an idle slot)."""
+        thr = self.throttle_threshold
+        press = getattr(getattr(self.prefix_cache, "cache", None), "chain_pressure", None)
+        if thr is None or press is None or not self.use_prefix:
+            return self.queue.pop(0)
+        ct = self.prefix_cache.chunk_tokens
+        pick = None
+        for i, r in enumerate(self.queue):
+            if (r.force_plain or len(r.prompt) < ct
+                    or r.throttle_ticks >= self.max_throttle_ticks):
+                pick = i
+                break
+            if r.chain_hashes is None:
+                r.chain_hashes = chunk_chain_hashes(r.prompt, ct)
+            if press(r.chain_hashes) < thr:
+                pick = i
+                break
+        if pick is None:
+            pick = 0                       # all hot: admit the front anyway
+        for r in self.queue[:pick]:
+            r.throttle_ticks += 1
+        self.throttled_admissions += pick
+        return self.queue.pop(pick)
 
     def _sample_resident(self, resident: int):
         self.resident_kv_tokens_peak = max(self.resident_kv_tokens_peak, resident)
@@ -1080,7 +1257,7 @@ class ServeEngine:
         """Largest provably event-free decode horizon: no admission into a
         freed slot can fall strictly inside the window."""
         rems = [self._rem_budget(r) for r in self.active.values()]
-        if self.queue:
+        if self.queue or self.retry_queue:
             # a retirement frees a slot the queue claims NEXT tick; with
             # EOS enabled any tick could retire, else the first possible
             # retirement is exactly min(rem) ticks out
@@ -1192,7 +1369,7 @@ class ServeEngine:
         tick each token would have been emitted on, as K in-flight ticks
         place them."""
         rows = list(self.active.values())
-        drain = not self.queue
+        drain = not self.queue and not self.retry_queue
         steps = _pow2(k)
         start_cur = self.cur_len.copy()
         out = self._run_window(steps, self._window_inputs(k))
@@ -1234,17 +1411,67 @@ class ServeEngine:
         self.ticks += ticks_used
         self._window_ticks_sum += ticks_used
 
-    def run_until_done(self, max_ticks: int = 10000) -> int:
-        """Drive ticks until every queued/active request retires; returns
-        the tick count (a megastep window of K counts K ticks)."""
+    # -- elasticity / fault tolerance ---------------------------------------
+    def _release_orphans(self, orphans, event: str) -> int:
+        for pg in orphans:
+            self.pool.release(pg)      # a pinned page frees at its last unpin
+        self.fault_log.append((self.ticks, event))
+        return len(orphans)
+
+    def mark_degraded(self, shard: int) -> int:
+        """Treat a backend shard as lost (``ShardedCacheClient.mark_degraded``):
+        its pages no table entry maps any more go back to the pool.  Chains
+        homed there miss, shed and re-prefill through the shed/retry and
+        plain-fallback path.  Returns the orphan count."""
+        return self._release_orphans(self.prefix_cache.mark_degraded(shard),
+                                     f"degrade:{shard}")
+
+    def reshard(self, new_ndev: int) -> int:
+        """Live D -> D' reshard at a tick boundary: the backend drains and
+        rebuilds on the new mesh (``ShardedCacheClient.reshard``); queue,
+        retry queue and active slots carry across untouched.  Unreachable
+        entries' pages go back to the pool.  Returns the orphan count."""
+        return self._release_orphans(self.prefix_cache.reshard(new_ndev),
+                                     f"resize:{new_ndev}")
+
+    def apply_fault(self, ev) -> None:
+        """Apply one ``launch.elastic.FaultEvent``: "degrade"/"lose" a
+        shard, "resize" the mesh, or inject transient "route_fail" sheds."""
+        if ev.kind in ("degrade", "lose"):
+            self.mark_degraded(ev.arg)
+        elif ev.kind == "resize":
+            self.reshard(ev.arg)
+        elif ev.kind == "route_fail":
+            self.prefix_cache.cache.inject_route_failures(calls=ev.arg, frac=ev.frac,
+                                                          seed=ev.seed)
+            self.fault_log.append((self.ticks, f"route_fail:{ev.arg}"))
+        else:
+            raise ValueError(f"unknown fault kind: {ev.kind!r}")
+
+    def run_until_done(self, max_ticks: int = 10000, fault_plan=None) -> int:
+        """Drive ticks until every queued, retried and active request retires
+        and no tail insert is pending; returns the tick count (a megastep
+        window of K counts K ticks).  ``fault_plan`` (``launch.elastic.FaultPlan``)
+        applies its events at their tick boundaries, before the tick's
+        admissions; its next due tick caps the megastep window, so no
+        window straddles a fault."""
         start = self.ticks
-        while (self.queue or self.active) and self.ticks - start < max_ticks:
-            self.step()
+        while ((self.queue or self.retry_queue or self.active or self._pending_inserts)
+               and self.ticks - start < max_ticks):
+            cap = None
+            if fault_plan is not None:
+                for ev in fault_plan.pop_due(self.ticks):
+                    self.apply_fault(ev)
+                nxt = fault_plan.next_tick()
+                if nxt is not None:
+                    cap = nxt - self.ticks
+            self.step(window_cap=cap)
         return self.ticks - start
 
     def stats(self) -> dict:
         """Serve-side counters: launch economics and admit latency."""
         p50, p99 = service_tick_percentiles(self._service_ticks)
+        backend = getattr(self.prefix_cache, "cache", None)
         return {
             "ticks": self.ticks,
             "decode_launches": self.decode_launches,
@@ -1267,6 +1494,15 @@ class ServeEngine:
                 self.drain_launch_rows / self.drain_decode_tokens
                 if self.drain_decode_tokens else 0.0),
             "requests_serviced": len(self._service_ticks),
+            "fallbacks": self.fallbacks,
+            "fallback_rate": (self.fallbacks / len(self._service_ticks)
+                              if self._service_ticks else 0.0),
+            "throttled_admissions": self.throttled_admissions,
+            # a sharded backend's split-placement counters (0 without one)
+            "split_chains": getattr(backend, "split_chains", 0),
+            "partial_sheds": getattr(backend, "partial_sheds", 0),
+            "slab_occupancy_peak": getattr(backend, "slab_occupancy_peak", 0.0),
+            "partial_served": getattr(self.prefix_cache, "partial_served", 0),
             "service_ticks_p50": p50,
             "service_ticks_p99": p99,
             "kv_mode": self.kv_mode,

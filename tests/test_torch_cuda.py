@@ -487,3 +487,87 @@ def test_megastep_serving_on_the_card(cuda):
     inflight = (st_m["decode_launches"] - d0) - (st_m["megastep_windows"] - w0)
     assert (paged_attn.LAUNCHES["paged_attn"] - before - warmups
             == eng_m.cfg.n_layers * (inflight + st_m["megastep_steps"]))
+
+
+def _sharded_run(device, ndev, engine, cap, batches):
+    """The sharded engine over ``batches`` on ``device``: per batch (hit,
+    value, served, evicted) and the final table, as numpy."""
+    from repro_torch.core.sharded import make_sharded_engine, shard_table
+    from repro_torch.launch.mesh import make_cache_mesh
+
+    cfg = MSLRUConfig(num_sets=64, m=2, p=4, value_planes=1)
+    mesh = make_cache_mesh(ndev, device=device)
+    run = make_sharded_engine(cfg, mesh, cap=cap, engine=engine)
+    t = shard_table(init_table(cfg, device), mesh)
+    outs = []
+    for keys, vals, ops, cids, order in batches:
+        args = [torch.from_numpy(x).to(device) if x is not None else None
+                for x in (keys, vals, ops, cids, order)]
+        out = run(t, *args[:4], order=args[4])
+        t = out[0]
+        outs.append([x.cpu().numpy() for x in out[1:]])
+    return outs, t.cpu().numpy()
+
+
+@pytest.mark.parametrize("engine", ["onepass", "rounds"])
+@pytest.mark.parametrize("ndev,cap", [(2, "full"), (7, "full"), (8, "full"), (8, 2.0)])
+def test_sharded_engine_on_the_card(cuda, engine, ndev, cap):
+    """The sharded engine's logical shards on the card (each update through
+    its kernel) against the same engine on
+    the CPU (held against the JAX package by test_torch_sharded.py):
+    mixed-opcode batches, and chain batches with an ``order`` plane;
+    results, served masks and tables bit-equal."""
+    from torch_sharded_cases import chain_batch, engine_batches
+
+    q = 16 * ndev
+    batches = [(k, v, o, None, None) for k, v, o in engine_batches(ndev, 3, q, True)]
+    # a chain per 16-row slab (GET island, PUT island, LOOKUP padding on key
+    # 0), slab-local chain id 0, the slabs ranked in reverse by ``order``
+    rng = np.random.default_rng(ndev)
+    slabs = []
+    for d in range(ndev):
+        chain = [int(h) | 1 for h in rng.integers(1, 2**30, 3)]
+        k, v, o, c = chain_batch([chain], [[100 + 3 * d + i for i in range(3)]])
+        n = 16 - len(k)
+        slabs.append((np.concatenate([k, np.zeros(n, np.int32)]),
+                      np.concatenate([v[:, 0], np.zeros(n, np.int32)]),
+                      np.concatenate([o, np.full(n, 3, np.int32)]),
+                      np.concatenate([c, np.zeros(n, np.int32)])))
+    keys, vals, ops, cids = (np.concatenate(x) for x in zip(*slabs))
+    order = (np.arange(q) % 16 + (ndev - 1 - np.arange(q) // 16) * 16).astype(np.int32)
+    batches += [(keys[:, None], vals[:, None], ops, cids, order)] * 2
+    got, got_t = _sharded_run("cuda", ndev, engine, cap, batches)
+    want, want_t = _sharded_run("cpu", ndev, engine, cap, batches)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert np.array_equal(a, b)
+    assert np.array_equal(got_t, want_t)
+
+
+def test_sharded_serving_on_the_card(cuda):
+    """``serve.build`` with ``--sharded 8 --cap 2 --placement split
+    --throttle-threshold 0.75 --chaos-seed 5`` at smoke size on the card:
+    every request served in full, and the ticks, fault log, counters and
+    prefill split of the same serve on the CPU (the schedule does not
+    depend on the tokens); the pool ends balanced."""
+    from repro_torch.launch import serve
+
+    flags = ["--kv-mode", "paged", "--sharded", "8", "--cap", "2", "--placement", "split",
+             "--throttle-threshold", "0.75", "--chaos-seed", "5"]
+    runs = []
+    for device in ("cuda", "cpu"):
+        args = serve.parser().parse_args(flags + ["--device", device])
+        eng = serve.build(args)
+        for r in serve.make_requests(eng.cfg, args):
+            eng.submit(r)
+        eng.run_until_done(fault_plan=serve.fault_plan(args))
+        st = eng.stats()
+        pool = eng.pool
+        assert pool.free_pages + int(pool.refcount.sum()) == pool.n_pages
+        assert all(len(r.out_tokens) == args.max_new for r in eng.finished)
+        runs.append((eng.ticks, eng.fault_log,
+                     [(r.rid, r.prefill_skipped) for r in eng.finished],
+                     {k: st[k] for k in ("fallbacks", "partial_served", "split_chains",
+                                          "throttled_admissions", "partial_sheds")},
+                     eng.prefix_cache.stats()["shed"]))
+    assert runs[0] == runs[1]

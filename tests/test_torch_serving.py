@@ -319,8 +319,10 @@ def test_paged_engine_bit_identical_to_contiguous(models):
 
 
 def test_engine_rejects_what_is_not_ported(models):
-    """What the JAX engine rejects, the port rejects; a shed chain, which
-    only the not yet ported bounded or sharded backends produce, raises."""
+    """What the JAX engine rejects, the port rejects.  A shed chain, which a
+    bounded or sharded backend produces, no longer raises: as in the JAX
+    engine it frees its slot and staged pages and waits in the retry
+    queue."""
     _, (cfg, model, params) = models
     with pytest.raises(ValueError, match="decode_mode"):
         ServeEngine(model, params, decode_mode="speculative")
@@ -328,12 +330,13 @@ def test_engine_rejects_what_is_not_ported(models):
         ServeEngine(model, params, admit_mode="eager")
     pool = PagedKVPool(cfg, n_pages=8, page_tokens=16, device="cpu")
     pc = PrefixCache(num_sets=8, chunk_tokens=16, device="cpu")
-    pc.serve_chains = lambda chains, staged: (
+    pc.serve_chains = lambda chains, staged, retries=None: (
         [ChainServe([], 0, [], len(c), shed=True) for c in chains], [])
     eng = ServeEngine(model, params, slots=1, max_len=64, prefix_cache=pc, pool=pool)
     eng.submit(Request(rid=0, prompt=np.ones(20, np.int32), max_new_tokens=2))
-    with pytest.raises(NotImplementedError, match="shed"):
-        eng.step()
+    eng.step()
+    assert [r.rid for r in eng.retry_queue] == [0] and not eng.active
+    assert eng._free_slots == [0] and pool.free_pages == 8
     with pytest.raises(ValueError, match="needs a prefix cache"):
         ServeEngine(model, params, kv_mode="paged")
     eng = ServeEngine(model, params, slots=1, max_len=32)
