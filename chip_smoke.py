@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the multi-step LRU cache, of its sharded
-form, and of its prefix-cached serving path (every architecture of the JAX
+form, of its prefix-cached serving path (every architecture of the JAX
 package: the attention decoders, the MoE decoders, the hymba hybrid, xLSTM
-and the Whisper encoder-decoder) on one NVIDIA GPU.
+and the Whisper encoder-decoder) and of its trainer on one NVIDIA GPU.
 
 Run from the root of a checkout, with one card visible:
 
@@ -143,12 +143,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    counters with at least one window capped at a fault's tick, and the
    tokens equal phase 8's or split at a near-tie; the shed, split, throttle and
    fallback stats, ms per decode tick, host ms per cache call and peak
-   memory, ``msl_onepass`` and ``paged_attn`` launches on the path.
+   memory, ``msl_onepass`` and ``paged_attn`` launches on the path;
+22. training, every family's smoke config through
+   ``repro_torch.launch.train.build`` (128 x 4): one step on the card
+   against the same step on the machine's CPU from the card's initial
+   parameters (loss and metrics within LOSS_RTOL, the gradient norm within
+   NORM_RTOL, each leaf of m = 0.1 x the clipped gradient within GRAD_ULPS
+   bf16 ulps of its largest magnitude; an MoE router takes the CPU's
+   expert choices on the card, and every choice it would make otherwise
+   must be a near-tie under ROUTER_TIE); the CPU step's AdamW update again
+   on the card from the gradients, state and parameters it took (the
+   card's norm of them within NORM_SUM_RTOL of the CPU's; given the CPU's
+   norm, master, m and v within ADAMW_ULPS f32 ulps, the new parameters
+   equal); then, without experts, 2 microbatches against 1 on the card,
+   within the step's bounds;
+23. phi3-mini-3.8b at full width: (a) 2 of its 32 layers (0.42 B
+   parameters), 1 x 256, one step and its AdamW update on the card against
+   the CPU as in 22;
+   (b) all 32 layers, ``remat="full"``, 1024 x 2, one microbatch,
+   FULL_STEPS steps with finite losses: ms per step, tokens/s, the step's
+   FLOPs (``train_flops``) over the bf16 peak, peak device memory against
+   the training state; one more step under the profiler (busy share, GEMM
+   ms, kernels) and AdamW alone;
+24. ``examples/train_smoke.py``'s run on the card (``build_train_smoke``:
+   300 steps, 2 microbatches, checkpoints every 100 steps in a temporary
+   directory): the loss falls by more than 0.3; a fresh trainer restored
+   from step 200 replays steps 201-300 with the same losses, bit for bit.
+   Phases 22-24 launch none of the three kernels (counted from 0 before 22).
 
 Then the JSON lines: the main path (phase 20 under ``sharded``), the
-serving path (phases 8, 9, 11-19, 21 under ``sharded``) and every kernel's
-record (the paged kernel's with ``shapes``: its record
-at phases 13-16's shapes).
+serving path (phases 8, 9, 11-19, 21 under ``sharded``), training (phases
+22-24) and every kernel's record (the paged kernel's with ``shapes``: its
+record at phases 13-16's shapes).
 
 The msl_cache comparisons are bit-exact (all state is int32).  The last
 line is ``{"ok": true, "device": {...}}``.
@@ -158,6 +184,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -1498,23 +1525,33 @@ def run_megastep(torch, eng, reqs, serving):
 ROUTER_TIE = 2 ** -7
 
 
+def router_gap(probs, top_k):
+    """Each token's gap between its k-th and (k+1)-th router probability."""
+    top = probs.topk(top_k + 1, dim=-1).values
+    return top[..., top_k - 1] - top[..., top_k]
+
+
 @contextlib.contextmanager
-def router_margins():
-    """Log, per call of the MoE router (``models.moe.route``), the smallest
-    gap between a token's k-th and (k+1)-th probabilities."""
+def routing(torch, impose=None):
+    """Log every MoE router call's probabilities and choices (on the
+    host); with ``impose`` (another run's log), the router takes that run's
+    choices, call by call, and the log keeps its own."""
     from repro_torch.models import moe
 
-    route, margins = moe.route, []
+    route, log_ = moe.route, []
 
     def logged(params, x, top_k):
-        out = route(params, x, top_k)
-        top = out[1].topk(top_k + 1, dim=-1).values
-        margins.append(float((top[..., top_k - 1] - top[..., top_k]).min()))
-        return out
+        logits, probs, gv, gi = route(params, x, top_k)
+        log_.append((probs.detach().float().cpu(), gi.cpu()))
+        if impose is not None:
+            gi = impose[len(log_) - 1][1].to(gi.device)
+            gv = probs.gather(-1, gi)
+            gv = gv / torch.clamp(gv.sum(-1, keepdim=True), min=1e-9)
+        return logits, probs, gv, gi
 
     moe.route = logged
     try:
-        yield margins
+        yield log_
     finally:
         moe.route = route
 
@@ -1534,9 +1571,10 @@ def near_ties(torch, eng, reqs, got, want):
         if a == b:
             continue
         j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-        with router_margins() as margins:
+        with routing(torch) as routes:
             lg = teacher_forced_logits(torch, eng, r.prompt, a, paged=eng.paged,
                                        frames=r.frames)[j]
+        margins = [float(router_gap(p, eng.cfg.moe_top_k).min()) for p, _ in routes]
         gap = float((lg[a[j]] - lg[b[j]]).abs())
         tol = float(LOGIT_ULPS * 2.0 ** (torch.floor(torch.log2(lg.abs().max())) - 7))
         # the prefill's router calls, then one per layer per decode step
@@ -2380,6 +2418,376 @@ def run_sharded_serving(torch, phase8, buckets):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Training (phases 22-24): the port's trainer on the card
+# ---------------------------------------------------------------------------
+
+# card against the machine's CPU (the port's plain path), one step from the
+# same parameters and batch: the CPU tests' bounds against the JAX package
+LOSS_RTOL = 2 ** -12        # the loss and its metrics, relative
+NORM_RTOL = 2 ** -8         # the global gradient norm, relative
+GRAD_ULPS = 16              # m = 0.1 x the clipped gradient: bf16 ulps of a leaf's max
+# AdamW on the card against the CPU's, on the CPU step's own gradients and
+# state: the card's f32 sums of squares in another order than the CPU's
+NORM_SUM_RTOL = 2 ** -16
+ADAMW_ULPS = 1              # master, m and v, given the same norm (both sqrt IEEE)
+BF16_PEAK = 989e12          # H100 SXM dense bf16 FLOP/s at 700 W
+PHI3 = "phi3-mini-3.8b"
+FULL_STEPS = 6              # phase 23(b): steps at full width and depth
+SMOKE_STEPS = 300           # phase 24: the train_smoke example's run
+SMOKE_RESUME = 200          # ... resumed from this step's checkpoint
+
+
+def train_args(*extra):
+    """The training launcher's arguments on the card (a later ``--device``
+    wins)."""
+    from repro_torch.launch import train
+
+    return train.parser().parse_args(["--device", DEVICE, *extra])
+
+
+def twin(torch, src, args, cfg=None):
+    """A trainer built from ``args`` (another device, or microbatches) with
+    ``src``'s parameters and a fresh optimizer state."""
+    from repro_torch.launch import train
+    from repro_torch.train.optimizer import adamw_init
+
+    tr, _ = train.build(args, cfg)
+    tr.init_state(resume=False)
+    with torch.no_grad():
+        for p, q in zip(src.params.parameters(), tr.params.parameters()):
+            q.copy_(p.to(q.device))
+    tr.opt_state = adamw_init(tr.params)
+    return tr
+
+
+def step_once(torch, tr, data):
+    """One step of ``tr`` on ``data.batch(0)``: (metrics as floats, the
+    first moment m by parameter name, wall ms)."""
+    batch = {k: torch.from_numpy(v).to(tr.device) for k, v in data.batch(0).items()}
+    t = time.perf_counter()
+    tr.params, tr.opt_state, metrics = tr.bundle.fn(tr.params, tr.opt_state, batch)
+    out = {k: float(v) for k, v in metrics.items()}       # waits for the step
+    return out, tr.opt_state.m, (time.perf_counter() - t) * 1e3
+
+
+@contextlib.contextmanager
+def recorded_update(torch):
+    """Records what the next ``adamw_update`` call takes (gradients, state,
+    parameters, copied to the host before it writes them) and what it gives
+    (the new state, parameters and norm), into the dict it yields."""
+    from repro_torch.train import optimizer as opt_mod
+
+    update, rec = opt_mod.adamw_update, {}
+
+    def host(tree):
+        return {n: x.detach().to("cpu", copy=True) for n, x in opt_mod.leaves(tree).items()}
+
+    def recording(grads, opt, params, **kw):
+        rec.update(grads=host(grads), params=host(params), kw=kw,
+                   state=opt._replace(step=opt.step.cpu(), master=host(opt.master),
+                                      m=host(opt.m), v=host(opt.v)))
+        out = update(grads, opt, params, **kw)
+        rec.update(new_params=host(out[0]), new_state=out[1], norm=out[2]["grad_norm"])
+        return out
+
+    opt_mod.adamw_update = recording
+    try:
+        yield rec
+    finally:
+        opt_mod.adamw_update = update
+
+
+def _f32_ulps(torch, a, b):
+    """The largest distance in f32 ulps between two f32 tensors (their bits
+    as ordered integers, so that -0 and +0 are one value)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def card_update(torch, rec, what):
+    """The CPU step's AdamW update again on the card, from the gradients,
+    state and parameters it took, moved there.  The card's global norm of
+    those gradients is within NORM_SUM_RTOL of the CPU's; given the CPU's
+    norm, the card's master, m and v are within ADAMW_ULPS f32 ulps of the
+    CPU's and its new parameters equal them.  Returns the gaps."""
+    from repro_torch.train import optimizer as opt_mod
+
+    def card(tree):
+        return {n: x.to(DEVICE) for n, x in tree.items()}
+
+    grads, st = card(rec["grads"]), rec["state"]
+    cpu_norm = float(rec["norm"])
+    norm_rel = abs(float(opt_mod.global_norm(grads)) / cpu_norm - 1)
+    if norm_rel > NORM_SUM_RTOL:
+        raise AssertionError(f"{what}: the card's gradient norm is {norm_rel:.2e} from the CPU's")
+    state = st._replace(step=st.step.to(DEVICE), master=card(st.master), m=card(st.m),
+                        v=card(st.v))
+    params = card(rec["params"])
+    global_norm = opt_mod.global_norm
+    opt_mod.global_norm = lambda tree: torch.tensor(cpu_norm, dtype=torch.float32,
+                                                    device=DEVICE)
+    try:
+        _, state, _ = opt_mod.adamw_update(grads, state, params, **rec["kw"])
+    finally:
+        opt_mod.global_norm = global_norm
+    want = rec["new_state"]
+    worst = {f: max(_f32_ulps(torch, getattr(want, f)[n], getattr(state, f)[n].cpu())
+                    for n in grads) for f in ("master", "m", "v")}
+    if max(worst.values()) > ADAMW_ULPS or int(state.step) != int(want.step):
+        raise AssertionError(f"{what}: AdamW on the card {worst} f32 ulps from the CPU's")
+    for n, p in params.items():
+        if not torch.equal(p.cpu(), rec["new_params"][n]):
+            raise AssertionError(f"{what}: parameter {n} after AdamW differs from the CPU's")
+    return {"adamw_norm_rel": norm_rel, "adamw_ulps": worst}
+
+
+def compare_steps(torch, want, got, what):
+    """Raises unless ``got``'s step (metrics, m) is ``want``'s within the
+    bounds above; returns the gaps."""
+    (wm, wmom, _), (gm, gmom, _) = want, got
+    gaps = {"loss_rel": abs(gm["loss"] / wm["loss"] - 1),
+            "grad_norm_rel": abs(gm["grad_norm"] / wm["grad_norm"] - 1)}
+    for k in ("loss", "ce_loss", "lb_loss", "z_loss", "drop_frac"):
+        if abs(gm[k] - wm[k]) > LOSS_RTOL * abs(wm[k]):
+            raise AssertionError(f"{what}: {k} {gm[k]} against {wm[k]}")
+    if gaps["grad_norm_rel"] > NORM_RTOL or not all(map(math.isfinite, gm.values())):
+        raise AssertionError(f"{what}: grad_norm {gm['grad_norm']} against {wm['grad_norm']}")
+    worst, worst_name = 0.0, None
+    for name, w in wmom.items():
+        w, g = w.float().cpu(), gmom[name].float().cpu()
+        big = float(w.abs().max())
+        gap = float((w - g).abs().max()) / 2.0 ** (math.floor(math.log2(big)) - 7) if big else 0.0
+        if gap > worst:
+            worst, worst_name = gap, name
+    if worst > GRAD_ULPS:
+        raise AssertionError(f"{what}: gradient leaf {worst_name} {worst:.2f} bf16 ulps apart")
+    gaps.update(grad_ulps=worst, grad_ulps_leaf=worst_name)
+    return gaps
+
+
+def routing_flips(torch, want, got, top_k):
+    """Tokens whose expert choices differ between two routing logs, and the
+    largest gap of ``want``'s router between its k-th and (k+1)-th
+    probabilities at those tokens; raises unless each is under ROUTER_TIE."""
+    flips, widest = 0, 0.0
+    for (probs, wi), (_, gi) in zip(want, got):
+        diff = (wi.sort(-1).values != gi.sort(-1).values).any(-1)
+        if diff.any():
+            widest = max(widest, float(router_gap(probs[diff], top_k).max()))
+            flips += int(diff.sum())
+    if widest >= ROUTER_TIE:
+        raise AssertionError(f"an expert choice flips at a router gap of {widest}")
+    return {"routing_flips": flips, "widest_flip_gap": widest}
+
+
+def run_family_training(torch, arch):
+    """Phase 22, one family: its smoke config through the training
+    launcher's path (``train.build``, 128 x 4) on the card, one step against
+    the same step on the CPU from the card's initial parameters (an MoE
+    router takes the CPU's expert choices on the card, each flip a near-tie);
+    then, without experts, 2 microbatches against 1 on the card."""
+    from repro_torch.launch import train
+
+    card, data = train.build(train_args("--arch", arch, "--smoke", "--steps", "1"))
+    card.init_state(resume=False)
+    cpu = twin(torch, card, train_args("--arch", arch, "--smoke", "--device", "cpu"))
+    moe = card.model.cfg.ffn == "moe"
+    mb2 = None if moe else twin(torch, card, train_args("--arch", arch, "--smoke",
+                                                       "--microbatches", "2"))
+    with routing(torch) as cpu_routes, recorded_update(torch) as rec:
+        want = step_once(torch, cpu, data)
+    with routing(torch, impose=cpu_routes if moe else None) as card_routes:
+        got = step_once(torch, card, data)
+    out = {"loss_cpu": want[0]["loss"], "loss_card": got[0]["loss"],
+           "card_step_ms": got[2], **compare_steps(torch, want, got, f"{arch} card vs CPU"),
+           **card_update(torch, rec, f"{arch} AdamW")}
+    if moe:
+        out.update(routing_flips(torch, cpu_routes, card_routes, card.model.cfg.moe_top_k))
+    else:
+        gaps = compare_steps(torch, got, step_once(torch, mb2, data), f"{arch} 2 microbatches")
+        out["microbatches_2_vs_1"] = gaps
+    log(f"{card.model.cfg.name}: loss {out['loss_card']:.6f} on the card, "
+        f"{out['loss_cpu']:.6f} on the CPU (gap {out['loss_rel']:.2e}), grad norm gap "
+        f"{out['grad_norm_rel']:.2e}, widest gradient gap {out['grad_ulps']:.2f} bf16 ulps "
+        f"({out['grad_ulps_leaf']}); AdamW on the card from the CPU step's gradients: norm "
+        f"gap {out['adamw_norm_rel']:.2e}, f32 ulps {out['adamw_ulps']}, parameters equal"
+        + (f"; {out['routing_flips']} routing flips, widest at a router gap of "
+           f"{out['widest_flip_gap']:.5f}" if moe else
+           f"; 2 microbatches vs 1: loss gap {out['microbatches_2_vs_1']['loss_rel']:.2e}, "
+           f"widest gradient gap {out['microbatches_2_vs_1']['grad_ulps']:.2f} ulps"))
+    return out
+
+
+def train_flops(cfg, b, s, remat):
+    """FLOPs of one training step as the port computes it: 6 N per token
+    for N the parameters that multiply (every block's projections and the
+    logits' matrix; the embedding lookup and the norms do none), plus the
+    chunked attention's full masked S x S scores and values (4 B S^2 H Dh
+    per layer forward), run forward once, again in backward (each query
+    chunk is recomputed) and twice in its backward; ``remat="full"`` runs
+    every layer's forward once more (2 N_blocks per token and the attention
+    forward); the loss recomputes each chunk's logits (2 V D per token)."""
+    d, h, dh, kvh, f = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.n_kv_heads, cfg.d_ff
+    n_blocks = cfg.n_layers * (2 * d * h * dh + 2 * d * kvh * dh + 3 * d * f)
+    n_logits = cfg.vocab_size * d
+    tokens = b * s
+    attn = 4 * b * s * s * h * dh * cfg.n_layers
+    flops = {"6N": 6 * (n_blocks + n_logits) * tokens,
+             "attention": 4 * attn,
+             "loss_recompute": 2 * n_logits * tokens,
+             "remat": (2 * n_blocks * tokens + attn) if remat == "full" else 0}
+    flops["total"] = sum(flops.values())
+    return flops
+
+
+def run_phi3_training(torch):
+    """Phase 23: phi3-mini-3.8b at full width.  (a) Depth cut to 2 layers,
+    B = 1, S = 256: one step on the card against the same step on the CPU.
+    (b) Full depth, ``remat="full"``, 1024 x 2, one microbatch:
+    FULL_STEPS steps with finite losses; ms per step, tokens/s, peak memory
+    against the training state, share of the bf16 peak; one more step under
+    the profiler (busy share, GEMM share) and AdamW alone (CUDA events)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.train import optimizer as opt_mod
+
+    full = get_config(PHI3)
+    out = {}
+    cut = dataclasses.replace(full, n_layers=2)
+    args = train_args("--arch", PHI3, "--seq-len", "256", "--global-batch", "1",
+                      "--steps", "1")
+    card, data = train.build(args, cut)
+    card.init_state(resume=False)
+    cpu = twin(torch, card, train_args("--arch", PHI3, "--seq-len", "256",
+                                       "--global-batch", "1", "--device", "cpu"), cut)
+    with recorded_update(torch) as rec:
+        want = step_once(torch, cpu, data)
+    got = step_once(torch, card, data)
+    out["depth_2"] = {"params": cut.param_count(), "loss_cpu": want[0]["loss"],
+                      "loss_card": got[0]["loss"], "cpu_step_ms": want[2],
+                      "card_step_ms": got[2],
+                      **compare_steps(torch, want, got, "phi3-mini-3.8b, 2 layers"),
+                      **card_update(torch, rec, "phi3-mini-3.8b, 2 layers, AdamW")}
+    del rec
+    r = out["depth_2"]
+    log(f"phi3-mini-3.8b at 2 layers ({r['params']:,} parameters), 1 x 256: loss "
+        f"{r['loss_card']:.6f} on the card, {r['loss_cpu']:.6f} on the CPU (gap "
+        f"{r['loss_rel']:.2e}), grad norm gap {r['grad_norm_rel']:.2e}, widest gradient "
+        f"gap {r['grad_ulps']:.2f} bf16 ulps ({r['grad_ulps_leaf']}); step {r['cpu_step_ms']:.0f} "
+        f"ms on the CPU, {r['card_step_ms']:.1f} ms on the card (first step); AdamW on the "
+        f"card from the CPU step's gradients: norm gap {r['adamw_norm_rel']:.2e}, f32 ulps "
+        f"{r['adamw_ulps']}, parameters equal")
+    del card, cpu, data, want, got
+    release(torch)
+
+    cfg = dataclasses.replace(full, remat="full")
+    b, s = 2, 1024
+    args = train_args("--arch", PHI3, "--seq-len", str(s), "--global-batch", str(b),
+                      "--microbatches", "1", "--steps", str(FULL_STEPS))
+    tr, data = train.build(args, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    tr.init_state(resume=False)
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    hist = tr.run(data, FULL_STEPS, log_every=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in hist]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"phi3-mini-3.8b at full width: losses {losses}")
+    step_ms = sorted(h["sec_per_step"] * 1e3 for h in hist[1:])
+    ms = step_ms[len(step_ms) // 2]
+    flops = train_flops(cfg, b, s, cfg.remat)
+    n = cfg.param_count()
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tr.run(data, 1, log_every=1)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    kernels = cuda_kernels(torch, prof)
+    busy = sum(v[0] for v in kernels.values()) / 1e3
+    gemm = sum(v[0] for name, v in kernels.items()
+               if any(w in name.lower() for w in ("gemm", "cutlass", "xmma", "nvjet"))) / 1e3
+    grads = {name: torch.zeros_like(p) for name, p in tr.params.named_parameters()}
+    lr_fn = opt_mod.cosine_schedule(3e-4, 100, FULL_STEPS)
+    adamw_ms = time_ms(torch, lambda: opt_mod.adamw_update(grads, tr.opt_state, tr.params,
+                                                           lr_fn=lr_fn), 3)
+    out["full"] = {
+        "params": n, "layers": cfg.n_layers, "remat": cfg.remat, "batch": b, "seq_len": s,
+        "losses": losses, "ms_per_step": ms, "ms_per_step_all": step_ms,
+        "tokens_per_s": b * s / (ms / 1e3),
+        "state_gb_after_init": state_gb, "state_gb_model": n * (2 + 4 + 4 + 4 + 2) / 1e9,
+        "peak_memory_gb": peak_gb, "flops": flops,
+        "bf16_peak_share": flops["total"] / (ms / 1e3) / BF16_PEAK,
+        "profiled_step_ms": wall, "device_busy_ms": busy, "busy_share": busy / wall,
+        "gemm_ms": gemm, "kernels_per_step": sum(v[1] for v in kernels.values()),
+        "adamw_ms": adamw_ms}
+    r = out["full"]
+    log(f"phi3-mini-3.8b at full width and depth ({n:,} parameters, remat full), "
+        f"{b} x {s}, {FULL_STEPS} steps: losses {[round(x, 4) for x in losses]}; "
+        f"{ms:.1f} ms per step (median of steps 2-{FULL_STEPS}), {r['tokens_per_s']:.0f} "
+        f"tokens/s; {flops['total'] / 1e12:.1f} TFLOP per step "
+        f"({flops['6N'] / 1e12:.1f} 6N, {flops['attention'] / 1e12:.1f} attention, "
+        f"{flops['remat'] / 1e12:.1f} remat, {flops['loss_recompute'] / 1e12:.2f} loss "
+        f"recompute): {r['bf16_peak_share']:.3f} of the bf16 peak; device memory "
+        f"{state_gb:.1f} GB after init, peak {peak_gb:.1f} GB against the "
+        f"{r['state_gb_model']:.1f} GB training state; a profiled step {wall:.1f} ms, "
+        f"device busy {busy:.1f} ms ({r['busy_share']:.3f}), GEMMs {gemm:.1f} ms, "
+        f"{r['kernels_per_step']} kernels; AdamW alone {adamw_ms:.1f} ms")
+    del tr, data, grads, prof
+    release(torch)
+    return out
+
+
+def run_train_smoke(torch):
+    """Phase 24: the train_smoke example's run on the card (its config, 128 x
+    8, lr 3e-3, warm-up 20, 2 microbatches, SMOKE_STEPS steps, checkpoints
+    every 100 steps in a temporary directory): the loss drops by more than
+    0.3 from the first logged step to the last; a fresh trainer restored
+    from step SMOKE_RESUME replays the rest with the first run's losses bit
+    for bit."""
+    import tempfile
+
+    from repro_torch.launch import train
+    from repro_torch.train import checkpoint as ckpt
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tr, data = train.build_train_smoke(SMOKE_STEPS, ckpt_dir=tmp, device=DEVICE)
+        tr.init_state(resume=False)
+        t = time.perf_counter()
+        hist = tr.run(data, SMOKE_STEPS, log_every=20)
+        wall = time.perf_counter() - t
+        replay, data = train.build_train_smoke(SMOKE_STEPS, device=DEVICE)
+        replay.init_state(resume=False)
+        _, replay.step = ckpt.restore(tmp, {"params": replay.params, "opt": replay.opt_state},
+                                      step=SMOKE_RESUME)
+        again = replay.run(data, SMOKE_STEPS - SMOKE_RESUME, log_every=20)
+    first, last = hist[0]["loss"], hist[-1]["loss"]
+    if not last < first - 0.3:
+        raise AssertionError(f"train_smoke: loss {first} -> {last}, no clear learning")
+    want = [(h["step"], h["loss"]) for h in hist if h["step"] > SMOKE_RESUME]
+    got = [(h["step"], h["loss"]) for h in again]
+    if got != want:
+        raise AssertionError(f"train_smoke: the replay from step {SMOKE_RESUME} gave {got}, "
+                             f"the first run {want}")
+    out = {"params": tr.model.cfg.param_count(), "steps": SMOKE_STEPS,
+           "loss_first": first, "loss_last": last, "wall_s": wall,
+           "ms_per_step": wall / SMOKE_STEPS * 1e3, "replayed_steps": [s for s, _ in got],
+           "replay_bit_equal": True}
+    log(f"train_smoke ({out['params']:,} parameters): loss {first:.4f} -> {last:.4f} in "
+        f"{SMOKE_STEPS} steps ({out['ms_per_step']:.1f} ms per step with the logging and "
+        f"3 checkpoints); the replay from step {SMOKE_RESUME} gives the losses at steps "
+        f"{out['replayed_steps']} bit for bit")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2388,6 +2796,7 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     try:
+        from repro_torch.configs import list_archs
         from repro_torch.core import MSLRUConfig
         from repro_torch.data.ycsb import zipfian_tensor
     except ImportError as e:
@@ -2531,10 +2940,33 @@ def main() -> int:
     records[2]["launches_sharded_serving_path"] = bounded["paged_attn"]
     release(torch)
 
+    # the training path launches none of the three kernels: counted from 0
+    # here to the end of phase 24
+    zero_launches()
+    phase("22. every family's smoke config trains on the card: one step against the CPU")
+    training = {"families": {}}
+    for arch in list_archs():
+        training["families"][arch] = run_family_training(torch, arch)
+        release(torch)
+
+    phase("23. phi3-mini-3.8b training at full width: 2 layers against the CPU, then "
+          "full depth")
+    training[PHI3] = run_phi3_training(torch)
+
+    phase("24. the train_smoke example's run on the card: learning, checkpoint, replay")
+    training["train_smoke"] = run_train_smoke(torch)
+    release(torch)
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the training phases launched kernels: {launches}")
+    for r in records:
+        r["launches_training_path"] = launches[r["name"]]
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"main_path": summary, "card": smi}))
     print(json.dumps({"serving": serving, "card": smi}))
+    print(json.dumps({"training": training, "card": smi}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

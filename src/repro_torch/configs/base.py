@@ -1,6 +1,8 @@
-"""ArchConfig dataclass and the registry of the architectures the port runs.
+"""ArchConfig dataclass, the shape registry, and the registry of the
+architectures the port runs.
 
-A copy of ``repro.configs.base`` (``ArchConfig``, ``get_config``): the
+A copy of ``repro.configs.base`` (``ArchConfig``, ``ShapeSpec``, ``SHAPES``,
+``get_config``): the
 port keeps its own so that it imports nothing of the JAX package.  Each
 ported architecture ships as ``configs/<id>.py`` defining ``CONFIG`` (the
 published dims) and ``SMOKE`` (a reduced same-family config for CPU
@@ -11,11 +13,27 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import NamedTuple
 
 # The JAX package's architectures, in the order the port took them up.
 _ARCH_IDS = ["phi3-mini-3.8b", "gemma3-1b", "starcoder2-7b", "command-r-35b",
              "qwen2-vl-72b", "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b",
              "xlstm-1.3b", "whisper-medium"]
+
+
+class ShapeSpec(NamedTuple):
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,20 +1,129 @@
-"""Elastic serving: the cache remesh plan and deterministic fault plans.
+"""Fault tolerance and elasticity at the launcher level.
 
-Port of the serving half of ``repro.launch.elastic`` (numpy only, copied so
-that the port imports nothing of the JAX package): ``plan_cache_remesh``,
-``FaultEvent`` and ``FaultPlan``.  ``ServeEngine.run_until_done(fault_plan=)``
-applies a plan's events at tick boundaries.  The training-side heartbeat,
-watchdog, straggler tracker and ``plan_remesh`` come with the training
-slice.
+Port of ``repro.launch.elastic`` (host code, copied so that the port
+imports nothing of the JAX package).  Training: ``Heartbeater`` (each host
+touches a heartbeat file per step), ``Watchdog`` (which hosts are alive),
+``StragglerTracker`` (hosts persistently slower than the median) and
+``plan_remesh`` (the largest (data, model) grid for the surviving devices).
+Serving: ``plan_cache_remesh``, ``FaultEvent`` and ``FaultPlan``;
+``ServeEngine.run_until_done(fault_plan=)`` applies a plan's events at tick
+boundaries.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import time
+from pathlib import Path
 
 import numpy as np
 
-__all__ = ["plan_cache_remesh", "FaultEvent", "FaultPlan"]
+__all__ = ["Heartbeater", "Watchdog", "StragglerTracker", "plan_remesh",
+           "plan_cache_remesh", "FaultEvent", "FaultPlan"]
+
+
+class Heartbeater:
+    def __init__(self, dir_: str | Path, host_id: int):
+        self.path = Path(dir_) / f"host_{host_id}.hb"
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+
+    def beat(self, step: int):
+        tmp = self.path.with_suffix(".tmp")
+        tmp.write_text(json.dumps({"step": step, "t": time.time()}))
+        os.replace(tmp, self.path)
+
+
+class Watchdog:
+    """Coordinator-side: which hosts are alive; who to evict."""
+
+    def __init__(self, dir_: str | Path, n_hosts: int, dead_after: float = 120.0):
+        self.dir = Path(dir_)
+        self.n_hosts = n_hosts
+        self.dead_after = dead_after
+
+    def alive(self) -> list[int]:
+        now = time.time()
+        out = []
+        for h in range(self.n_hosts):
+            p = self.dir / f"host_{h}.hb"
+            if p.exists():
+                # a corrupt / partially-written / wrong-shape heartbeat is
+                # indistinguishable from a crashed writer: treat the host
+                # as dead, never raise out of the watchdog loop
+                try:
+                    rec = json.loads(p.read_text())
+                    if now - float(rec["t"]) <= self.dead_after:
+                        out.append(h)
+                except (json.JSONDecodeError, KeyError, TypeError,
+                        ValueError, OSError):
+                    pass
+        return out
+
+    def dead(self) -> list[int]:
+        """Complement of ``alive()`` over the configured host count."""
+        live = set(self.alive())
+        return [h for h in range(self.n_hosts) if h not in live]
+
+
+class StragglerTracker:
+    """Rolling per-host step times; flags persistent stragglers."""
+
+    def __init__(self, n_hosts: int, straggler_factor: float = 1.5,
+                 patience: int = 5, window: int = 50):
+        self.times = [[] for _ in range(n_hosts)]
+        self.factor = straggler_factor
+        self.patience = patience
+        self.window = window
+        self.strikes = np.zeros(n_hosts, np.int32)
+
+    def record(self, host: int, seconds: float):
+        t = self.times[host]
+        t.append(seconds)
+        if len(t) > self.window:
+            t.pop(0)
+
+    def check(self) -> list[int]:
+        last = [t[-1] for t in self.times if t]
+        if not last:
+            return []            # nothing recorded yet: nobody to flag
+        med = float(np.median(last))
+        flagged = []
+        for h, t in enumerate(self.times):
+            # med == 0 (zero-duration steps: mocked clocks, sub-resolution
+            # timers) would make any positive time a "straggler" — treat a
+            # degenerate median as healthy instead of flagging the fleet
+            if t and med > 0.0 and t[-1] > self.factor * med:
+                self.strikes[h] += 1
+            else:
+                self.strikes[h] = 0
+            if self.strikes[h] >= self.patience:
+                flagged.append(h)
+        return flagged
+
+
+def plan_remesh(n_devices: int, model_parallel: int,
+                global_batch: int) -> dict:
+    """Largest (data, model) grid for the surviving device count.
+
+    Keeps the TP degree fixed (memory constraint), shrinks data parallelism
+    to the largest divisor that fits, and returns the gradient-accumulation
+    factor that preserves the global batch.
+    """
+    assert n_devices >= model_parallel, "cannot keep TP degree"
+    data = n_devices // model_parallel
+    # largest power-of-two data degree that divides the global batch
+    while data > 1 and (global_batch % data != 0):
+        data -= 1
+    used = data * model_parallel
+    micro_scale = max(1, (global_batch // data) // max(1, global_batch // (n_devices // model_parallel or 1)))
+    return {
+        "mesh_shape": (data, model_parallel),
+        "devices_used": used,
+        "devices_idle": n_devices - used,
+        "grad_accum_scale": micro_scale,
+    }
 
 
 def plan_cache_remesh(n_devices: int, num_sets: int,

@@ -1,11 +1,14 @@
-"""GQA attention: chunked softmax for prefill, KV-cache decode, paged decode.
+"""GQA attention: chunked softmax for training and prefill, KV-cache decode,
+paged decode.
 
-Port of ``repro.models.attention``, forward only.  Prefill attention is
+Port of ``repro.models.attention``.  Training and prefill attention is
 plain PyTorch over query chunks, as the JAX package computes it outside any
-Pallas kernel (no SDPA).  Decode over a contiguous cache (``attn_decode``)
-and the gather rendering of paged decode share one set of score/mask/
-softmax lines (``kernels.paged_attn.dense_decode_attention``), so the two
-are bit-identical on the same bits.  ``paged_attn_decode`` runs the paged
+Pallas kernel (no SDPA); when it records a graph, each chunk's scores are
+recomputed in backward, as the JAX scan's ``jax.checkpoint(body)`` does.
+Decode over a contiguous cache (``attn_decode``) and the gather rendering
+of paged decode share one set of score/mask/softmax lines
+(``kernels.paged_attn.dense_decode_attention``), so the two are
+bit-identical on the same bits.  ``paged_attn_decode`` runs the paged
 kernel for CUDA tensors and its plain version for CPU tensors: the device
 of the tensors chooses.
 
@@ -22,8 +25,8 @@ import torch
 from repro_torch.kernels.paged_attn import (NEG_INF, dense_decode_attention,
                                             paged_attn_decode_call, q_scale,
                                             window_value)
-from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init, rmsnorm,
-                                       rmsnorm_init)
+from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
+                                       recompute_in_backward, rmsnorm, rmsnorm_init)
 
 # ---------------------------------------------------------------------------
 # params
@@ -80,7 +83,7 @@ def _attend(qj, k, v, mask, softcap):
 
 
 # ---------------------------------------------------------------------------
-# chunked causal attention (prefill)
+# chunked causal attention (training and prefill)
 # ---------------------------------------------------------------------------
 
 def chunked_attention(q, k, v, *, causal: bool = True, window=None,
@@ -104,7 +107,7 @@ def chunked_attention(q, k, v, *, causal: bool = True, window=None,
             mask &= q_pos[:, None] >= k_pos[None, :]
         if w > 0:
             mask &= q_pos[:, None] - k_pos[None, :] < w
-        outs.append(_attend(qj, k, v, mask[None, None], softcap))
+        outs.append(recompute_in_backward(_attend, qj, k, v, mask[None, None], softcap))
     return torch.cat(outs, dim=2).transpose(1, 2).to(q.dtype)   # (B, Sq, H, Dh)
 
 
@@ -127,14 +130,14 @@ def masked_batch_attention(q, k, v, *, q_pos, k_pos, k_valid, window=None,
         mask = k_valid[:, None, :] & (qp[:, :, None] >= k_pos[:, None, :])
         if w > 0:
             mask &= qp[:, :, None] - k_pos[:, None, :] < w
-        outs.append(_attend(qj, k, v, mask[:, None], softcap))
+        outs.append(recompute_in_backward(_attend, qj, k, v, mask[:, None], softcap))
     return torch.cat(outs, dim=2).transpose(1, 2).to(q.dtype)   # (B, Sq, H, Dh)
 
 
 def attn_apply(params, x, positions, *, n_heads, n_kv_heads, d_head,
                rope_kind="rope", theta=1e4, causal=True, window=None,
                softcap=0.0, chunk=512):
-    """Full attention sublayer for prefill. Returns (out, (k, v))."""
+    """Full attention sublayer for training and prefill. Returns (out, (k, v))."""
     q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, d_head,
                            positions, rope_kind, theta)
     ctx = chunked_attention(q, k, v, causal=causal, window=window,

@@ -1,9 +1,12 @@
-"""Public Model API: init / prefill / init_cache / decode_step per architecture.
+"""Public Model API: init / loss / prefill / init_cache / decode_step per
+architecture.
 
-Port of ``repro.models.model``, forward only.  ``make_model(cfg)`` returns a
-Model of functions with the JAX package's signatures:
+Port of ``repro.models.model``.  ``make_model(cfg)`` returns a Model of
+functions with the JAX package's signatures:
 
     init(gen)                          -> params (a ParamTree on gen.device)
+    loss(params, batch)                -> (total, metrics)
+    forward(params, batch)             -> (final-normed h (B, S, D), MoE aux sums)
     prefill(params, batch)             -> (last_logits, cache)
     init_cache(batch, max_len, device) -> zeroed cache
     decode_step(params, tokens, cache, cur_len) -> (logits, cache)
@@ -21,32 +24,48 @@ and ``params["enc_norm"]``.  The JAX layer ``scan`` is a Python loop.
 
 Every family of the JAX package is ported: the attention decoder (every
 FFN, MoE too), the hymba hybrid, xLSTM and the Whisper encoder-decoder.
-Decode writes the new token's KV into the cache in place and returns a cache
-whose ``"k"``/``"v"`` are those same tensors.  Recurrent state comes back
-as new tensors, so that a caller keeps or drops each row's advance (the
-serving engine's freeze): hymba's Mamba state (``cache["mamba"]``, ``{"h",
-"conv"}`` per layer) and xLSTM's whole cache (``cache["mlstm"]`` leaves
-``(n_groups, g-1, B, ...)``, ``cache["slstm"]`` leaves ``(n_groups, B,
-D)``, the JAX layout; xLSTM decode is position-free and ignores
-``cur_len``).  Whisper's cache adds the cross-attention KV ``xk``/``xv``
-``(L, B, enc_len, KVH, Dh)``, written by ``prefill`` and only read by
-decode; its decoder positions are sinusoids of ``cur_len`` computed on the
-device.  Hymba prepends its meta tokens in ``prefill``, so its KV holds
-``meta_tokens`` positions before the prompt, and ``decode_step`` adds them
-to ``cur_len``.  Training (``loss``) is not ported yet.
+
+Training: ``loss`` is the JAX ``loss``: the forward (batch ``{"tokens",
+"labels"}``, Whisper's ``"frames"`` too, M-RoPE's ``"positions"``
+(B, 3, S) when given), the chunked cross-entropy, and the MoE aux losses
+summed over layers, averaged, and added as ``ce + 0.01 lb + 0.001 z``
+(``_moe_metrics``); metrics ``{"lb_loss", "z_loss", "drop_frac",
+"ce_loss"}`` for every family.  Autograd takes the backward; the
+parameters must require grad (``ParamTree`` freezes them by default, so
+that serving records no graph).  ``cfg.remat`` checkpoints each layer (an
+xLSTM group, a Whisper decoder block) as ``_maybe_remat`` does: ``"none"``,
+``"full"`` (everything recomputed in backward) or ``"dots"`` (the (d_in,
+d_out) matmul outputs saved, the rest recomputed).
+
+Serving: decode writes the new token's KV into the cache in place and
+returns a cache whose ``"k"``/``"v"`` are those same tensors.  Recurrent
+state comes back as new tensors, so that a caller keeps or drops each
+row's advance (the serving engine's freeze): hymba's Mamba state
+(``cache["mamba"]``, ``{"h", "conv"}`` per layer) and xLSTM's whole cache
+(``cache["mlstm"]`` leaves ``(n_groups, g-1, B, ...)``, ``cache["slstm"]``
+leaves ``(n_groups, B, D)``, the JAX layout; xLSTM decode is position-free
+and ignores ``cur_len``).  Whisper's cache adds the cross-attention KV
+``xk``/``xv`` ``(L, B, enc_len, KVH, Dh)``, written by ``prefill`` and only
+read by decode; its decoder positions are sinusoids of ``cur_len`` computed
+on the device.  Hymba prepends its meta tokens in ``prefill`` (and in
+training), so its KV holds ``meta_tokens`` positions before the prompt, and
+``decode_step`` adds them to ``cur_len``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import rope_positions
-from repro_torch.models.layers import COMPUTE_DTYPE, _normal, embed_init, embed_tokens
+from repro_torch.models.layers import (COMPUTE_DTYPE, _normal, chunked_softmax_xent,
+                                       embed_init, embed_tokens)
 
 
 class Model(NamedTuple):
@@ -56,12 +75,16 @@ class Model(NamedTuple):
     init_cache: Callable
     decode_step: Callable
     encode: Callable | None = None     # the encoder-decoder's encoder
+    loss: Callable | None = None
+    forward: Callable | None = None
 
 
 class ParamTree(nn.Module):
     """Nested parameters read as ``p["attn"]["wq"]``, like the JAX package's
     dict pytrees.  Dicts become sub-trees, lists ``nn.ModuleList``s, tensors
-    frozen ``nn.Parameter``s (the port has no training yet)."""
+    ``nn.Parameter``s, frozen: serving records no autograd graph (and
+    captures CUDA graphs of plain kernels).  A trainer makes them trainable
+    with ``requires_grad_(True)``."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -139,6 +162,64 @@ def _final(cfg: ArchConfig, params, h):
     return tfm._norm(cfg, params["head"]["out_norm"], h)
 
 
+def _aux0(device) -> dict:
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"lb_loss": z, "z_loss": z, "drop_frac": z}
+
+
+def _moe_metrics(cfg: ArchConfig, aux: dict, loss):
+    """The aux sums averaged over ``n_layers``; total = ce + 0.01 lb +
+    0.001 z."""
+    m = {k: v / cfg.n_layers for k, v in aux.items()}
+    total = loss + 0.01 * m["lb_loss"] + 0.001 * m["z_loss"]
+    m["ce_loss"] = loss
+    return total, m
+
+
+def _make_loss(cfg: ArchConfig, forward):
+    def loss(params, batch):
+        """(total, metrics) of a batch (``_moe_metrics``)."""
+        h, aux = forward(params, batch)
+        ce = chunked_softmax_xent(_logits_fn(cfg, params), h, batch["labels"],
+                                  cfg.loss_chunk)
+        return _moe_metrics(cfg, aux, ce)
+    return loss
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat="dots"``: keep the outputs
+    of plain matmuls (``x @ W``: ``aten.mm``), recompute everything else;
+    batched matmuls (attention scores, expert FFNs) are recomputed, as JAX's
+    ``dots_with_no_batch_dims_saveable`` does."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(cfg: ArchConfig, body):
+    """``body`` with its activations checkpointed per ``cfg.remat`` when
+    grad is on (each call recomputed in backward); without grad, ``body``."""
+    if cfg.remat == "none":
+        return body
+    if cfg.remat == "full":
+        kw = {}
+    elif cfg.remat == "dots":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        kw = {"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                              _save_dots)}
+    else:
+        raise ValueError(f"{cfg.name}: remat={cfg.remat!r}; expected none, dots or full")
+
+    def wrapped(*args):
+        if torch.is_grad_enabled():
+            return checkpoint(body, *args, use_reentrant=False, **kw)
+        return body(*args)
+    return wrapped
+
+
 # ---------------------------------------------------------------------------
 # decoder-only stacks (attention blocks and hymba blocks)
 # ---------------------------------------------------------------------------
@@ -157,10 +238,9 @@ def _make_decoder(cfg: ArchConfig) -> Model:
             params["meta"] = (_normal(gen, (meta, cfg.d_model)) * 0.02).to(COMPUTE_DTYPE)
         return ParamTree(params)
 
-    def prefill(params, batch):
-        """Returns (last-position logits (B, V) f32, cache at cur_len = S;
-        hymba's KV holds the meta tokens' positions before the prompt, and
-        its cache the Mamba state after the sequence)."""
+    def embed_input(params, batch):
+        """(h (B, meta + S, D), positions): hymba's meta tokens first; M-RoPE's
+        (B, 3, S) streams from the batch when it has them."""
         tokens = batch["tokens"]
         b, s = tokens.shape
         h = _embed(cfg, params, tokens)
@@ -168,9 +248,33 @@ def _make_decoder(cfg: ArchConfig) -> Model:
             h = torch.cat([params["meta"][None].expand(b, meta, cfg.d_model), h], dim=1)
             s += meta
         positions = batch.get("positions") if cfg.rope_kind == "mrope" else None
-        if positions is None:            # M-RoPE's (B, 3, S) streams may be given
+        if positions is None:
             positions = rope_positions(torch.arange(s, device=h.device).expand(b, s),
                                        cfg.rope_kind)
+        return h, positions
+
+    def block(p_l, h, aux, positions, w_l, t_l):
+        if is_hymba:
+            return tfm.hymba_block_apply(cfg, p_l, h, positions, w_l, t_l)[0], aux
+        aux = dict(aux)
+        return tfm.attn_block_apply(cfg, p_l, h, positions, w_l, t_l, aux)[0], aux
+
+    body = _maybe_remat(cfg, block)
+
+    def forward(params, batch):
+        """The training forward: (the final-normed h (B, S, D) of the
+        tokens, meta positions dropped; the MoE aux sums over layers)."""
+        h, positions = embed_input(params, batch)
+        aux = _aux0(h.device)
+        for p_l, w_l, t_l in zip(params["blocks"], windows, thetas):
+            h, aux = body(p_l, h, aux, positions, w_l, t_l)
+        return _final(cfg, params, h[:, meta:]), aux
+
+    def prefill(params, batch):
+        """Returns (last-position logits (B, V) f32, cache at cur_len = S;
+        hymba's KV holds the meta tokens' positions before the prompt, and
+        its cache the Mamba state after the sequence)."""
+        h, positions = embed_input(params, batch)
         ks, vs, ms = [], [], []
         for p_l, w_l, t_l in zip(params["blocks"], windows, thetas):
             if is_hymba:
@@ -223,7 +327,8 @@ def _make_decoder(cfg: ArchConfig) -> Model:
                      "mamba": {"h": torch.stack(hs), "conv": torch.stack(convs)}}
         return _logits_fn(cfg, params)(h[:, -1]), cache
 
-    return Model(cfg, init, prefill, init_cache, decode_step)
+    return Model(cfg, init, prefill, init_cache, decode_step,
+                 loss=_make_loss(cfg, forward), forward=forward)
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +364,15 @@ def _make_xlstm(cfg: ArchConfig) -> Model:
             states.append(st)
         return _logits_fn(cfg, params)(_final(cfg, params, h)[:, -1]), cache_of(states)
 
+    body = _maybe_remat(cfg, lambda p_g, h: tfm.xlstm_group_apply(cfg, p_g, h)[0])
+
+    def forward(params, batch):
+        """The training forward: (the final-normed h, zero aux sums)."""
+        h = _embed(cfg, params, batch["tokens"])
+        for p_g in params["blocks"]:
+            h = body(p_g, h)
+        return _final(cfg, params, h), _aux0(h.device)
+
     def prefill(params, batch):
         """Returns (last-position logits, the recurrent state after the
         prompt as the cache)."""
@@ -288,7 +402,8 @@ def _make_xlstm(cfg: ArchConfig) -> Model:
 
         return run(params, _embed(cfg, params, tokens), step)
 
-    return Model(cfg, init, prefill, init_cache, decode_step)
+    return Model(cfg, init, prefill, init_cache, decode_step,
+                 loss=_make_loss(cfg, forward), forward=forward)
 
 
 # ---------------------------------------------------------------------------
@@ -313,6 +428,23 @@ def _make_encdec(cfg: ArchConfig) -> Model:
         for p_l in params["enc"]:
             h = tfm.enc_block_apply(cfg, p_l, h, None)
         return tfm._norm(cfg, params["enc_norm"], h)
+
+    def dec_block(p_l, h, enc_h):
+        ek, ev = tfm.cross_kv(cfg, p_l["cross_attn"], enc_h)
+        return tfm.dec_block_apply(cfg, p_l, h, None, ek, ev)[0]
+
+    body = _maybe_remat(cfg, dec_block)
+
+    def forward(params, batch):
+        """The training forward: (the decoder's final-normed h, zero aux
+        sums).  The encoder runs without remat, as in JAX."""
+        enc_h = encode(params, batch["frames"])
+        tokens = batch["tokens"]
+        h = _embed(cfg, params, tokens) + tfm.sinusoid_positions(tokens.shape[1], d,
+                                                                 device=tokens.device)
+        for p_l in params["dec"]:
+            h = body(p_l, h, enc_h)
+        return _final(cfg, params, h), _aux0(h.device)
 
     def prefill(params, batch):
         """batch {"tokens" (B, S), "frames" (B, enc_len, D)}.  Returns
@@ -350,7 +482,8 @@ def _make_encdec(cfg: ArchConfig) -> Model:
         h = _final(cfg, params, h)
         return _logits_fn(cfg, params)(h[:, -1]), cache
 
-    return Model(cfg, init, prefill, init_cache, decode_step, encode)
+    return Model(cfg, init, prefill, init_cache, decode_step, encode,
+                 loss=_make_loss(cfg, forward), forward=forward)
 
 
 def _sinusoid_at(pos, d: int, device="cpu") -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Mixture-of-Experts FFN: top-k routing with capacity-factor dispatch.
 
-Port of ``repro.models.moe``, forward only, with the JAX package's
+Port of ``repro.models.moe`` with the JAX package's
 semantics to the letter:
 
   * routing in f32: ``x.float() @ router``, softmax, top-k, the k gates

@@ -1,8 +1,9 @@
 """Recurrent sequence mixers: Mamba (hymba) and xLSTM's mLSTM and sLSTM.
 
-Port of ``repro.models.ssm``, forward only: for each mixer a prefill form
-over the whole sequence that can return the state after it, and a
-one-token decode form with carried state.  Every state is position-free:
+Port of ``repro.models.ssm``: for each mixer a training and prefill form
+over the whole sequence that can return the state after it (autograd takes
+its backward), and a one-token decode form with carried state.  Every
+state is position-free:
 
   * Mamba ``{"h": (B, D, N) f32, "conv": (B, K-1, D) bf16}``;
   * mLSTM ``{"c": (B, H, Dh, Dh), "n": (B, H, Dh), "m": (B, H)}`` f32 and
@@ -110,7 +111,8 @@ def _out(params, y: torch.Tensor, xi: torch.Tensor, z: torch.Tensor) -> torch.Te
 
 def mamba_apply(params, x: torch.Tensor, *, d_state: int, chunk: int = 256,
                 return_state: bool = False):
-    """Prefill.  x (B, S, Dm) -> (B, S, Dm) [, the decode state after x]."""
+    """Training and prefill.  x (B, S, Dm) -> (B, S, Dm) [, the decode
+    state after x]."""
     b, s, _ = x.shape
     xz = x @ params["w_in"]
     d_inner = xz.shape[-1] // 2
@@ -242,7 +244,8 @@ def _mlstm_out(params, h: torch.Tensor, xc: torch.Tensor, z: torch.Tensor):
 
 def mlstm_apply(params, x: torch.Tensor, *, n_heads: int, chunk: int = 256,
                 return_state: bool = False):
-    """Prefill.  x (B, S, Dm) -> (B, S, Dm) [, the decode state after x]."""
+    """Training and prefill.  x (B, S, Dm) -> (B, S, Dm) [, the decode
+    state after x]."""
     b, s, _ = x.shape
     xz = x @ params["w_up"]
     d_inner = xz.shape[-1] // 2

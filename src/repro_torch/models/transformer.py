@@ -1,8 +1,8 @@
-"""Blocks of every family: the attention block (prefill, contiguous decode,
-paged decode), the hymba hybrid block, the xLSTM group, and Whisper's
-encoder and decoder blocks.
+"""Blocks of every family: the attention block (training and prefill,
+contiguous decode, paged decode), the hymba hybrid block, the xLSTM group,
+and Whisper's encoder and decoder blocks.
 
-Port of ``repro.models.transformer``, forward only.  A block's parameters
+Port of ``repro.models.transformer``.  A block's parameters
 keep the JAX package's names and layout (``ln1``, ``attn``, ``mlp``,
 ``ln2``; hymba adds ``mamba``, ``fuse_a`` and ``fuse_m``; an xLSTM group is
 ``{"mlstm": [g-1 blocks of "ln", "cell"], "slstm": {"ln", "cell", "ln_ffn",
@@ -11,8 +11,11 @@ keep the JAX package's names and layout (``ln1``, ``attn``, ``mlp``,
 in ``model.py`` (and over an xLSTM group's mLSTM blocks here); window and
 theta are per-layer Python numbers.  Norms are RMSNorm or LayerNorm
 (``cfg.norm``).  The FFN is SwiGLU, GeLU or MoE; as in the JAX package,
-prefill runs the MoE with capacity dispatch (``_ffn_apply``) and decode
-computes every expert (``_ffn_decode``).
+training and prefill run the MoE with capacity dispatch (``_ffn_apply``,
+which adds its aux losses into the caller's running sums in training) and
+decode computes every expert (``_ffn_decode``).  The ``*_apply`` functions
+are the training forward too: autograd takes their backward, and the model
+drops the KV and state they return.
 """
 
 from __future__ import annotations
@@ -56,13 +59,17 @@ def attn_block_init(gen: torch.Generator, cfg) -> dict:
     return p
 
 
-def _ffn_apply(cfg, p, x):
-    """The block's FFN in prefill: MoE with capacity dispatch (its aux
-    losses wait for training)."""
+def _ffn_apply(cfg, p, x, aux=None):
+    """The block's FFN in training and prefill: MoE with capacity dispatch,
+    its aux losses (``lb_loss``, ``z_loss``, ``drop_frac``) added into
+    ``aux``, the caller's running sums over layers, when one is given."""
     if cfg.ffn == "moe":
-        return moe_mod.moe_apply(p["mlp"], x, n_experts=cfg.n_experts,
+        y, a = moe_mod.moe_apply(p["mlp"], x, n_experts=cfg.n_experts,
                                  top_k=cfg.moe_top_k,
-                                 capacity_factor=cfg.capacity_factor)[0]
+                                 capacity_factor=cfg.capacity_factor)
+        if aux is not None:
+            aux.update({k: aux[k] + a[k] for k in aux})
+        return y
     return _ffn_decode(cfg, p, x)
 
 
@@ -79,7 +86,7 @@ def _ffn_decode(cfg, p, x):
 
 
 def _residual(cfg, p, h, x, a_out, ffn=_ffn_apply):
-    """h + attention out (+ ``ffn``: ``_ffn_apply`` in prefill,
+    """h + attention out (+ ``ffn``: ``_ffn_apply`` in training and prefill,
     ``_ffn_decode`` in decode), sequential or parallel block."""
     if cfg.parallel_block:
         return h + a_out + ffn(cfg, p, x)
@@ -89,14 +96,16 @@ def _residual(cfg, p, h, x, a_out, ffn=_ffn_apply):
     return h
 
 
-def attn_block_apply(cfg, p, h, positions, window, theta):
-    """Prefill.  Returns (h, (k, v))."""
+def attn_block_apply(cfg, p, h, positions, window, theta, aux=None):
+    """Training and prefill.  Returns (h, (k, v)); an MoE FFN adds its aux
+    losses into ``aux`` when one is given (``_ffn_apply``)."""
     x = _norm(cfg, p["ln1"], h)
     a_out, kv = attn.attn_apply(
         p["attn"], x, positions, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         d_head=cfg.head_dim, rope_kind=cfg.rope_kind, theta=theta,
         window=window, softcap=cfg.softcap, chunk=cfg.attn_chunk)
-    return _residual(cfg, p, h, x, a_out), kv
+    return _residual(cfg, p, h, x, a_out,
+                     lambda cfg, p, x: _ffn_apply(cfg, p, x, aux)), kv
 
 
 def attn_block_decode(cfg, p, h, cache_k, cache_v, cur_len, window, theta):
@@ -150,7 +159,8 @@ def _hymba_mix(cfg, p, h, a_out, m_out):
 
 
 def hymba_block_apply(cfg, p, h, positions, window, theta):
-    """Prefill.  Returns (h, (k, v), the Mamba state after the sequence)."""
+    """Training and prefill.  Returns (h, (k, v), the Mamba state after
+    the sequence)."""
     x = _norm(cfg, p["ln1"], h)
     a_out, kv = attn.attn_apply(
         p["attn"], x, positions, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -198,7 +208,7 @@ def _slstm_block(cfg, sl, h, state=None):
 
 
 def xlstm_group_apply(cfg, p, h):
-    """Prefill.  Returns (h, the group's state after the sequence:
+    """Training and prefill.  Returns (h, the group's state after the sequence:
     ``{"mlstm": [each block's {"c", "n", "m", "conv"}], "slstm": {"c", "n",
     "h", "m"}}``)."""
     mst = []
@@ -286,7 +296,7 @@ def _dec_tail(cfg, p, h, enc_k, enc_v):
 
 
 def dec_block_apply(cfg, p, h, positions, enc_k, enc_v):
-    """Prefill.  Returns (h, the self-attention's (k, v))."""
+    """Training and prefill.  Returns (h, the self-attention's (k, v))."""
     a, kv = attn.attn_apply(p["self_attn"], _norm(cfg, p["ln1"], h), positions,
                             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                             d_head=cfg.head_dim, rope_kind="none", causal=True,

@@ -44,12 +44,15 @@ def test_importing_the_port_loads_no_jax():
 
 def test_every_port_module_is_checked():
     """The rule covers every module of the port, the MoE and Mamba modules,
-    the configs of the MoE, hymba, xLSTM and Whisper families, and the
-    sharded cache, its mesh and the elastic plans among them."""
+    the configs of the MoE, hymba, xLSTM and Whisper families, the sharded
+    cache, its mesh and the elastic plans, and the training path (step,
+    launcher, optimizer, trainer, checkpoints, synthetic data) among them."""
     checked = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES
                if p.is_relative_to(ROOT / "src" / "repro_torch")}
     assert {"models/moe.py", "models/ssm.py", "models/transformer.py",
             "configs/olmoe_1b_7b.py", "configs/phi3_5_moe_42b_a6_6b.py",
             "configs/hymba_1_5b.py", "configs/xlstm_1_3b.py",
             "configs/whisper_medium.py", "serving/engine.py", "core/sharded.py",
-            "launch/mesh.py", "launch/elastic.py"} <= checked
+            "launch/mesh.py", "launch/elastic.py", "launch/steps.py", "launch/train.py",
+            "train/optimizer.py", "train/trainer.py", "train/checkpoint.py",
+            "data/synthetic.py"} <= checked
