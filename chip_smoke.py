@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port of the multi-step LRU cache, of its sharded
 form, of its prefix-cached serving path (every architecture of the JAX
 package: the attention decoders, the MoE decoders, the hymba hybrid, xLSTM
-and the Whisper encoder-decoder) and of its trainer on one NVIDIA GPU.
+and the Whisper encoder-decoder), of its trainer, of its Python oracle and
+of its step bundles and dry run on one NVIDIA GPU.
 
 Run from the root of a checkout, with one card visible:
 
@@ -169,12 +170,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    300 steps, 2 microbatches, checkpoints every 100 steps in a temporary
    directory): the loss falls by more than 0.3; a fresh trainer restored
    from step 200 replays steps 201-300 with the same losses, bit for bit.
-   Phases 22-24 launch none of the three kernels (counted from 0 before 22).
+   Phases 22-24 launch none of the three kernels (counted from 0 before 22);
+25. the port's Python oracle (``core/policies.py`` ``MultiStepLRUOracle``)
+   against ``MultiStepLRUCache`` on the card through both engines, so both
+   msl kernels: five geometries (m, p) = (1, 4), (2, 4), (4, 4), (8, 4) and
+   (2, 8) with 2^10-2^12 sets, 2 value planes, key planes 1 and 2, a cost
+   plane or none, multistep and set_lru; ORACLE_BATCHES batches of 8192
+   mixed rows (``tests/torch_oracle_cases.py``: ACCESS, GET, DELETE,
+   LOOKUP, prefix-cache chains, costs): every row's hit, pos, value and
+   eviction and, after each batch, the table's keys bit-equal;
+26. the paper's figures at their scale (1M keys, 2M queries, Zipf 0.99,
+   the figure scripts' seeds and capacities) through the one-pass kernel
+   in batches of 8192: fig07's hit ratios (three distributions, four
+   capacities, in-vector, multistep, cost-aware, set-LRU; the Mattson exact
+   LRU, GCLOCK and ARC for zipfian), fig11's M sweep, fig12's hits per
+   vector, fig13's P = 8, fig15's warm-up from a garbage table, fig08's
+   shape (longest chain per batch, the Python baselines' µs per query on
+   300k queries); the whole 2M-query hit and pos stream of fig07 zipfian at
+   65536, m = 2, equal to the oracle's; claims c1-c6 of
+   ``tests/test_paper_claims.py`` with its margins (c1-c3 at 65536, c4 on
+   fig11, c5 on fig12 zipfian M = 4, c6 on fig15 over the first C6_WINDOW
+   queries);
+27. phi3-mini-3.8b at full width: ``launch/steps.py`` ``bundle_for``'s
+   prefill step and serve step (logits and greedy) on ``decode_specs``'s
+   shapes made real at 4 x 4096, bit-equal to ``model.prefill`` and
+   ``model.decode_step`` + argmax over 8 steps; then ``launch/dryrun.py``
+   on the host over phi3-mini's four cells and phase 23(b)'s cut train cell
+   (counted FLOPs against ``train_flops``, terms and memory beside phase
+   23(b)'s measured step and peak).
 
 Then the JSON lines: the main path (phase 20 under ``sharded``), the
 serving path (phases 8, 9, 11-19, 21 under ``sharded``), training (phases
-22-24) and every kernel's record (the paged kernel's with ``shapes``: its
-record at phases 13-16's shapes).
+22-24), the oracle, the figures and the dry run (phases 25-27) and every
+kernel's record (the paged kernel's with ``shapes``: its record at phases
+13-16's shapes).
 
 The msl_cache comparisons are bit-exact (all state is int32).  The last
 line is ``{"ok": true, "device": {...}}``.
@@ -194,7 +223,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
+# the H100 SXM's dense bf16 peak and HBM3 rate (NVIDIA's data sheet)
+from repro_torch.roofline.analysis import BF16_PEAK, HBM_BW  # noqa: E402
+
 # No int32 entry in the published tables: Hopper issues 64 int32
 # operations per clock per SM; 132 SMs at 1.98 GHz.
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
@@ -791,7 +822,7 @@ def access_geometry_record(torch, cfg, access_args):
                              200, "msl_access_kernel")
     nbytes = 4 * BATCH * (2 * cfg32.assoc * c + kp + v + 2 + max(v, 1) + c)
     ops = BATCH * cfg32.assoc * (kp + 1 + 3 * c)
-    out["bound_ms_a32"] = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S)
+    out["bound_ms_a32"] = 1e3 * max(nbytes / HBM_BW, ops / INT32_OPS_PER_S)
     out["shape_a32"] = {"B": BATCH, "A": cfg32.assoc, "C": c}
     return out
 
@@ -826,9 +857,9 @@ def kernel_records(torch, cfg, keys, vals, onepass_inputs, access_inputs, errs,
         "ms": access_ms,
         "call_ms": time_ms(torch, access_call, 200),
         "plain_ms": time_ms(torch, lambda: msl_access_plain(*access_args, cfg=cfg), 5),
-        "bound_ms": 1e3 * max(access_bytes / HBM_BYTES_PER_S,
+        "bound_ms": 1e3 * max(access_bytes / HBM_BW,
                               b * ops_per_row / INT32_OPS_PER_S),
-        "bound_by": ("bytes" if access_bytes / HBM_BYTES_PER_S
+        "bound_by": ("bytes" if access_bytes / HBM_BW
                      >= b * ops_per_row / INT32_OPS_PER_S else "operations"),
         "library_ms": None,
         "shape": {"B": b, "A": a, "C": c},
@@ -859,9 +890,9 @@ def kernel_records(torch, cfg, keys, vals, onepass_inputs, access_inputs, errs,
         "ms": onepass_ms,
         "call_ms": time_ms(torch, onepass_call, 50),
         "plain_ms": time_ms(torch, lambda: chain_resolve_plain(*x.kernel_args(), cfg=cfg), 2),
-        "bound_ms": 1e3 * max(onepass_bytes / HBM_BYTES_PER_S,
+        "bound_ms": 1e3 * max(onepass_bytes / HBM_BW,
                               b * ops_per_row / INT32_OPS_PER_S),
-        "bound_by": ("bytes" if onepass_bytes / HBM_BYTES_PER_S
+        "bound_by": ("bytes" if onepass_bytes / HBM_BW
                      >= b * ops_per_row / INT32_OPS_PER_S else "operations"),
         "library_ms": None,
         "shape": {"B": b, "A": a, "C": c, "chain_heads": heads},
@@ -1291,8 +1322,8 @@ def paged_record(torch, eng, snapshot, serving, err, path="serving path"):
         "call_ms": time_ms(torch, call, 100),
         "plain_ms": time_ms(torch, plain, 20),
         "plain_device_ms": cold_device_ms(torch, plain, 20),
-        "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S),
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+        "bound_ms": 1e3 * max(nbytes / HBM_BW, ops / F32_OPS_PER_S),
+        "bound_by": "bytes" if nbytes / HBM_BW >= ops / F32_OPS_PER_S
                     else "operations",
         "library_ms": cold_device_ms(torch, library, 100),
         "splits": kernel_splits(q, args[1], bt, args[4]),
@@ -1758,13 +1789,13 @@ def moe_ffn_step(torch, eng):
                   - eng.params["head"]["embed"].numel()) * 2
     out = {"device_ms_per_step": ms, "kernels_per_step": sum(v[1] for v in kernels.values())
            / 10, "expert_bytes": expert_bytes,
-           "expert_bound_ms": 1e3 * expert_bytes / HBM_BYTES_PER_S,
+           "expert_bound_ms": 1e3 * expert_bytes / HBM_BW,
            "step_weight_bytes": step_bytes,
-           "step_bound_ms": 1e3 * step_bytes / HBM_BYTES_PER_S}
+           "step_bound_ms": 1e3 * step_bytes / HBM_BW}
     log(f"{cfg.name}: MoE FFN (moe_decode, {cfg.n_layers} layers, B {eng.slots}) "
         f"{ms:.4f} ms of device time per decode step in {out['kernels_per_step']:.0f} "
         f"kernels; its expert-weight read {expert_bytes / 1e9:.2f} GB is "
-        f"{out['expert_bound_ms']:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s (the whole "
+        f"{out['expert_bound_ms']:.3f} ms at {HBM_BW / 1e12:.2f} TB/s (the whole "
         f"step's weight read {step_bytes / 1e9:.2f} GB, {out['step_bound_ms']:.3f} ms)")
     return out
 
@@ -1819,11 +1850,11 @@ def freeze_ms(torch, eng):
     state_bytes = sum(x.numel() * x.element_size() for x in kept_leaves(eng))
     out = {"device_ms_per_step": ms, "kernels_per_step": len(eng._state),
            "state_bytes": state_bytes,
-           "bound_ms": 1e3 * 3 * state_bytes / HBM_BYTES_PER_S}
+           "bound_ms": 1e3 * 3 * state_bytes / HBM_BW}
     log(f"{eng.cfg.name}: the freeze (freeze_rows, {len(eng._state)} leaves, one select "
         f"each, {state_bytes / 1e6:.1f} MB of state at {eng.slots} slots) {ms:.4f} ms "
         f"of device time per decode step (CUDA events); moving 3 x the state is "
-        f"{out['bound_ms']:.4f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+        f"{out['bound_ms']:.4f} ms at {HBM_BW / 1e12:.2f} TB/s")
     return out
 
 
@@ -2431,7 +2462,6 @@ GRAD_ULPS = 16              # m = 0.1 x the clipped gradient: bf16 ulps of a lea
 # state: the card's f32 sums of squares in another order than the CPU's
 NORM_SUM_RTOL = 2 ** -16
 ADAMW_ULPS = 1              # master, m and v, given the same norm (both sqrt IEEE)
-BF16_PEAK = 989e12          # H100 SXM dense bf16 FLOP/s at 700 W
 PHI3 = "phi3-mini-3.8b"
 FULL_STEPS = 6              # phase 23(b): steps at full width and depth
 SMOKE_STEPS = 300           # phase 24: the train_smoke example's run
@@ -2788,6 +2818,489 @@ def run_train_smoke(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The Python oracle and the paper's claims on the card (phases 25-26)
+# ---------------------------------------------------------------------------
+
+# phase 25: (m, p, sets, key planes, cost planes, policy), 2 value planes
+ORACLE_GEOMS = [(1, 4, 2**12, 1, 1, "multistep"),
+                (2, 4, 2**11, 2, 1, "multistep"),
+                (4, 4, 2**10, 1, 0, "set_lru"),
+                (8, 4, 2**10, 2, 1, "multistep"),       # A = 32, the kernels' widest
+                (2, 8, 2**11, 1, 1, "set_lru")]
+ORACLE_BATCHES = 8
+# phase 26: the figures' scale (benchmarks/common.py N_KEYS, N_QUERIES; the
+# figure scripts' seeds and capacities)
+FIG_KEYS = 1_000_000
+FIG_QUERIES = 2_000_000
+FIG07_CAPS = [4096, 16384, 65536, 262144]
+FIG_CAP = 65536                 # figs 11-15's capacity; claims c1-c3 at it too
+FIG15_WINDOWS = [2**i for i in range(12, 21)]
+# c6's early window: tests/test_paper_claims.py's 20000 queries at capacity
+# 4096, scaled to FIG_CAP
+C6_WINDOW = 20_000 * FIG_CAP // 4096
+FIG08_QUERIES = 1_000_000
+FIG08_CAPS = [16384, 262144]
+BASELINE_QUERIES = 300_000      # fig08's Python baselines
+
+
+def oracle_cases():
+    """``tests/torch_oracle_cases.py``: the mixed-op batches and checks the
+    CPU tests hold the plain versions to (numpy and the port only)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_oracle_cases
+
+    return torch_oracle_cases
+
+
+def run_oracle(torch):
+    """Phase 25: ``MultiStepLRUOracle.apply_batch`` against
+    ``MultiStepLRUCache`` on the card, ``engine="onepass"`` and ``"rounds"``
+    (both msl kernels), in each of ``ORACLE_GEOMS``: ORACLE_BATCHES seeded
+    batches of BATCH mixed rows (single ops, prefix-cache chains, costs);
+    per row hit, pos, value and the evicted (key, value, valid) bit-equal,
+    and after each batch the table's keys equal to the oracle's."""
+    import numpy as np
+
+    from repro_torch.core import MSLRUConfig, MultiStepLRUCache
+
+    oc = oracle_cases()
+    out = {"geometries": [], "batch": BATCH, "batches": ORACLE_BATCHES}
+    zero_launches()
+    oracle_s = 0.0
+    for m, p, sets, kp, cp, policy in ORACLE_GEOMS:
+        cfg = MSLRUConfig(num_sets=sets, m=m, p=p, key_planes=kp, value_planes=2,
+                          cost_planes=cp, policy=policy)
+        rng = np.random.default_rng(SEED + 100 * m + p)
+        oracle = oc.oracle_for(cfg)
+        caches = {e: MultiStepLRUCache(cfg, engine=e, device=DEVICE)
+                  for e in ("onepass", "rounds")}
+        rec = {"m": m, "p": p, "sets": sets, "key_planes": kp, "cost_planes": cp,
+               "policy": policy, "hits": 0, "evictions": 0, "chain_rows": 0}
+        for i in range(ORACLE_BATCHES):
+            batch = oc.mixed_batch(rng, cfg, BATCH, 3 * cfg.capacity)
+            t = time.perf_counter()
+            recs = oc.apply_oracle(oracle, cfg, batch)
+            oracle_s += time.perf_counter() - t
+            args = [torch.from_numpy(batch[k]).to(DEVICE)
+                    for k in ("keys", "vals", "ops", "chain_ids")]
+            args.append(torch.from_numpy(batch["costs"]).to(DEVICE) if cp else None)
+            for name, cache in caches.items():
+                res = cache.access(*args)
+                res = type(res)(*(x.cpu().numpy() for x in res))
+                bad = oc.mismatches(cfg, recs, res)
+                if bad:
+                    raise AssertionError(f"{name} engine against the oracle, {cfg}, batch "
+                                         f"{i}: rows {bad}")
+                bad = oc.table_mismatch(cfg, oracle, cache.table.cpu().numpy())
+                if bad:
+                    raise AssertionError(f"{name} engine's table against the oracle, {cfg}, "
+                                         f"batch {i}: slots {bad}")
+            rec["hits"] += sum(r["hit"] for r in recs)
+            rec["evictions"] += sum(r["evicted"] is not None for r in recs)
+            rec["chain_rows"] += int((batch["chain_ids"] > 0).sum())
+        out["geometries"].append(rec)
+        log(f"oracle == msl_onepass == msl_access: m={m} p={p} (A = {m * p}), {sets} sets, "
+            f"key planes {kp}, cost planes {cp}, {policy}: {ORACLE_BATCHES} x {BATCH} rows "
+            f"({rec['chain_rows']} in chains), {rec['hits']} hits, {rec['evictions']} "
+            f"evictions; every row and the table bit-equal")
+        del caches
+    out["launches"] = read_launches()
+    for name in ("msl_onepass", "msl_access"):
+        if not out["launches"][name]:
+            raise AssertionError(f"phase 25 launched no {name}")
+    n = len(ORACLE_GEOMS) * ORACLE_BATCHES * BATCH
+    out["oracle_us_per_row"] = oracle_s / n * 1e6
+    log(f"{n} rows per engine; the oracle {out['oracle_us_per_row']:.2f} µs per row on the "
+        f"host; launches {out['launches']}")
+    return out
+
+
+def fig_cfg(cap, m=2, p=4, policy="multistep", cost=False):
+    """A figure's geometry at item capacity ``cap``: 32-bit keys, no values
+    (benchmarks/common.py ``msl_cfg``)."""
+    from repro_torch.core import MSLRUConfig
+
+    return MSLRUConfig(num_sets=cap // (m * p), m=m, p=p, value_planes=0, policy=policy,
+                       cost_planes=int(cost))
+
+
+def kernel_stream(torch, cfg, trace, costs=None, table=None):
+    """A trace (int32 on the card) through ``MultiStepLRUCache`` (one-pass,
+    the kernel) in BATCH-query batches: hits and pos on the host, ms per
+    batch and queries/s (host clock around the whole stream)."""
+    from repro_torch.core import MultiStepLRUCache
+
+    cache = MultiStepLRUCache(cfg, device=DEVICE)
+    if table is not None:
+        cache.load_table(table)
+    n = trace.numel()
+    hit = torch.empty(n, dtype=torch.bool, device=DEVICE)
+    pos = torch.empty(n, dtype=torch.int32, device=DEVICE)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for s in range(0, n, BATCH):
+        res = cache.access(trace[s:s + BATCH],
+                           costs=None if costs is None else costs[s:s + BATCH])
+        hit[s:s + BATCH] = res.hit
+        pos[s:s + BATCH] = res.pos
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return {"hit": hit.cpu().numpy(), "pos": pos.cpu().numpy(),
+            "ms_per_batch": wall * 1e3 / math.ceil(n / BATCH), "qps": n / wall}
+
+
+def msl_record(r, costs=None):
+    """A stream's hit ratio, ms per batch and queries/s; with ``costs``
+    (per query) the summed cost of the misses."""
+    import numpy as np
+
+    rec = {"hit_ratio": float(r["hit"].mean()), "ms_per_batch": r["ms_per_batch"],
+           "qps": r["qps"]}
+    if costs is not None:
+        rec["miss_cost"] = int(costs[~r["hit"]].astype(np.int64).sum())
+    return rec
+
+
+def python_baseline(name, trace, cap):
+    """``benchmarks/common.py`` ``run_python_algo`` on the port's classes:
+    hit ratio and µs per query on the host (ARC with its t1/t2 hits)."""
+    from repro_torch.core import policies
+
+    algo = {"lru": policies.ExactLRU, "gclock": policies.GClock, "arc": policies.ARC,
+            "fifo": policies.FIFO}[name](cap)
+    hits = t1 = 0
+    t = time.perf_counter()
+    for k in trace:
+        if algo.access(k):
+            hits += 1
+            t1 += name == "arc" and algo.last_hit_list == "t1"
+    dt = time.perf_counter() - t
+    rec = {"hit_ratio": hits / len(trace), "us_per_query": dt / len(trace) * 1e6}
+    if name == "arc":
+        rec.update(t1_hits=t1, t2_hits=hits - t1)
+    return rec
+
+
+def run_paper_claims(torch):
+    """Phase 26: the paper's figures' configurations through the one-pass
+    kernel at the figures' scale (1M keys, 2M queries, Zipf 0.99), the
+    whole 2M-query hit and pos stream of fig07 zipfian at 65536, m = 2
+    against the port's oracle, and claims c1-c6 of
+    tests/test_paper_claims.py with its margins against the port's
+    ``ReuseDistanceLRU`` and ``ARC``."""
+    import numpy as np
+
+    from repro_torch.core import init_table, policies, table_to_numpy
+    from repro_torch.data.ycsb import make_workload, zipfian
+
+    t_phase = time.perf_counter()
+    zero_launches()
+    out = {"keys": FIG_KEYS, "queries": FIG_QUERIES, "alpha": ZIPF_ALPHA, "batch": BATCH,
+           "cuts": ["fig07: the Mattson LRU, GCLOCK and ARC rows for the zipfian trace only",
+                    "fig12: ARC's t1/t2 split not run"]}
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(DEVICE)
+
+    # fig07: hit ratio against capacity, three distributions, seed 7
+    fig07 = {}
+    for dist in ("zipfian", "latest", "scan"):
+        trace = make_workload(dist, FIG_KEYS, FIG_QUERIES, ZIPF_ALPHA, seed=7)
+        kcost = (1 + trace % 8).astype(np.int32)
+        tt, tc = dev(trace), dev(kcost)
+        row = {k: {} for k in ("invector", "multistep", "cost", "set_lru")}
+        for cap in FIG07_CAPS:
+            c = str(cap)
+            row["invector"][c] = msl_record(kernel_stream(torch, fig_cfg(cap, m=1), tt))
+            ms = kernel_stream(torch, fig_cfg(cap), tt)
+            row["multistep"][c] = msl_record(ms, kcost)
+            row["cost"][c] = msl_record(kernel_stream(torch, fig_cfg(cap, cost=True), tt,
+                                                      costs=tc), kcost)
+            row["set_lru"][c] = msl_record(kernel_stream(torch, fig_cfg(cap,
+                                                                        policy="set_lru"), tt))
+            if dist == "zipfian" and cap == FIG_CAP:
+                t = time.perf_counter()
+                oracle = policies.MultiStepLRUOracle(cap // 8, 2, 4)
+                want = [oracle.access(k) for k in trace.tolist()]
+                hit = np.fromiter((w[0] for w in want), bool, len(want))
+                pos = np.fromiter((w[1] for w in want), np.int32, len(want))
+                if not (np.array_equal(hit, ms["hit"]) and np.array_equal(pos, ms["pos"])):
+                    first = int(np.flatnonzero((hit != ms["hit"]) | (pos != ms["pos"]))[0])
+                    raise AssertionError(f"fig07 zipfian {cap}: the kernel's stream differs "
+                                         f"from the oracle's from query {first}")
+                out["oracle_stream"] = {"queries": len(trace), "capacity": cap, "m": 2,
+                                        "equal": True,
+                                        "oracle_us_per_query":
+                                            (time.perf_counter() - t) / len(trace) * 1e6}
+                log(f"fig07 zipfian, capacity {cap}, m = 2: the kernel's {len(trace)} hits "
+                    f"and positions equal the oracle's "
+                    f"({out['oracle_stream']['oracle_us_per_query']:.2f} µs per query)")
+        if dist == "zipfian":
+            t = time.perf_counter()
+            rd = policies.ReuseDistanceLRU(len(trace))
+            rd.feed(trace.tolist())
+            row["lru"] = {str(c): rd.hit_ratio(c) for c in FIG07_CAPS}
+            row["lru"]["us_per_query"] = (time.perf_counter() - t) / len(trace) * 1e6
+            lst = trace.tolist()
+            for name in ("gclock", "arc"):
+                row[name] = {str(c): python_baseline(name, lst, c) for c in FIG07_CAPS}
+        fig07[dist] = row
+        log(f"fig07 {dist}: " + "; ".join(
+            f"{algo} " + " ".join(f"{(v if isinstance(v, float) else v['hit_ratio']):.4f}"
+                                  for k, v in r.items() if k != "us_per_query")
+            for algo, r in row.items()))
+        log(f"  kernel ms per batch (multistep) " + " ".join(
+            f"{r['ms_per_batch']:.3f}" for r in row["multistep"].values())
+            + "; miss cost multistep / cost " + " ".join(
+            f"{row['multistep'][str(c)]['miss_cost']}/{row['cost'][str(c)]['miss_cost']}"
+            for c in FIG07_CAPS))
+    out["fig07"] = fig07
+
+    # fig11: M sweep at 65536, seed 5
+    trace = zipfian(FIG_KEYS, FIG_QUERIES, alpha=ZIPF_ALPHA, seed=5)
+    tt = dev(trace)
+    fig11 = {f"M{m}": msl_record(kernel_stream(torch, fig_cfg(FIG_CAP, m=m), tt))
+             for m in (1, 2, 4, 8)}
+    fig11["arc"] = python_baseline("arc", trace.tolist(), FIG_CAP)
+    out["fig11"] = fig11
+    log("fig11 (65536, zipfian): " + ", ".join(f"{k} {v['hit_ratio']:.4f}"
+                                                for k, v in fig11.items()))
+
+    # fig12: hits by vector, M 2/4/8, seed 9
+    fig12 = {}
+    for dist in ("zipfian", "latest", "scan"):
+        tt = dev(make_workload(dist, FIG_KEYS, FIG_QUERIES, ZIPF_ALPHA, seed=9))
+        fig12[dist] = {}
+        for m in (2, 4, 8):
+            r = kernel_stream(torch, fig_cfg(FIG_CAP, m=m), tt)
+            vec = r["pos"][r["pos"] >= 0] // 4
+            frac = np.bincount(vec, minlength=m) / max(1, len(vec))
+            fig12[dist][f"M{m}"] = dict(msl_record(r), vector_frac=frac.tolist())
+        log(f"fig12 {dist}: " + "; ".join(
+            f"{k} [{' '.join(f'{x:.3f}' for x in v['vector_frac'])}]"
+            for k, v in fig12[dist].items()))
+    out["fig12"] = fig12
+
+    # fig13: P = 8, seed 13
+    tt = dev(zipfian(FIG_KEYS, FIG_QUERIES, alpha=ZIPF_ALPHA, seed=13))
+    out["fig13"] = {f"p{p}_m{m}": msl_record(kernel_stream(torch, fig_cfg(FIG_CAP, m=m, p=p),
+                                                           tt))
+                    for p, m in ((4, 2), (8, 2), (8, 1), (4, 4))}
+    log("fig13 (65536, zipfian): " + ", ".join(f"{k} {v['hit_ratio']:.4f}"
+                                                for k, v in out["fig13"].items()))
+
+    # fig15: warm-up from a garbage-filled table, seed 15
+    tt = dev(zipfian(FIG_KEYS, FIG_QUERIES, alpha=ZIPF_ALPHA, seed=15))
+    garbage = np.random.default_rng(0).integers(2**29, 2**30, (FIG_CAP // 8, 8))
+    fig15, early = {}, {}
+    for name, policy, filled in (("multistep_garbage", "multistep", True),
+                                 ("set_lru_garbage", "set_lru", True),
+                                 ("multistep_empty", "multistep", False)):
+        cfg = fig_cfg(FIG_CAP, policy=policy)
+        table = None
+        if filled:
+            table = table_to_numpy(init_table(cfg, "cpu"))
+            table[:, :, 0] = garbage
+        r = kernel_stream(torch, cfg, tt, table=table)
+        cum = np.cumsum(r["hit"])
+        fig15[name] = {str(w): float(cum[w - 1] / w) for w in FIG15_WINDOWS}
+        early[name] = float(r["hit"][:C6_WINDOW].mean())
+    out["fig15"] = fig15
+    log("fig15 cumulative hit ratio at " + " ".join(map(str, FIG15_WINDOWS)) + ": " + "; ".join(
+        f"{k} " + " ".join(f"{v:.4f}" for v in r.values()) for k, r in fig15.items()))
+
+    # fig08's shape: 1M queries, seed 11, batch's longest chain, baselines
+    trace = zipfian(FIG_KEYS, FIG08_QUERIES, alpha=ZIPF_ALPHA, seed=11)
+    tt = dev(trace)
+    chains = max_chain_per_batch(torch, fig_cfg(FIG08_CAPS[0]),
+                                 tt[:len(trace) // BATCH * BATCH])
+    fig08 = {"max_chain_per_batch": {"mean": float(chains.float().mean()),
+                                     "max": int(chains.max())}}
+    lst = trace[:BASELINE_QUERIES].tolist()
+    for cap in FIG08_CAPS:
+        for m in (1, 2):
+            fig08[f"msl_m{m}_{cap}"] = msl_record(kernel_stream(torch, fig_cfg(cap, m=m), tt))
+        for name in ("lru", "gclock", "arc", "fifo"):
+            fig08[f"{name}_{cap}"] = python_baseline(name, lst, cap)
+    out["fig08"] = fig08
+    log("fig08 (1M queries): " + "; ".join(
+        f"{k} {v['hit_ratio']:.4f} " + (f"{v['ms_per_batch']:.3f} ms/batch {v['qps']:.4g} q/s"
+                                        if "qps" in v else f"{v['us_per_query']:.2f} µs/q")
+        for k, v in fig08.items() if k != "max_chain_per_batch")
+        + f"; longest chain per batch mean {fig08['max_chain_per_batch']['mean']:.1f}, max "
+          f"{fig08['max_chain_per_batch']['max']}")
+
+    # the claims, with tests/test_paper_claims.py's margins
+    z, c = fig07["zipfian"], str(FIG_CAP)
+    m1, m2 = z["invector"][c]["hit_ratio"], z["multistep"][c]["hit_ratio"]
+    sl, lru = z["set_lru"][c]["hit_ratio"], z["lru"][c]
+    f11 = {k: v["hit_ratio"] for k, v in fig11.items()}
+    vec = fig12["zipfian"]["M4"]["vector_frac"]
+    claims = {
+        "c1_multistep_beats_exact_lru": m2 > lru,
+        "c2_multistep_beats_invector": m2 > m1,
+        "c3_invector_below_set_lru_below_lru": m1 <= sl + 0.002 and sl <= lru + 0.002,
+        "c4_rises_with_m_toward_arc": (f11["M1"] < f11["M2"] <= f11["M4"] + 5e-3
+                                       and f11["M8"] >= f11["M4"] - 0.01
+                                       and max(f11["M4"], f11["M8"]) >= 0.85 * f11["arc"]),
+        "c5_vector0_dominates": vec[0] == max(vec),
+        "c6_warmup_penalty": (early["multistep_garbage"]
+                              <= early["set_lru_garbage"] + 0.005),
+    }
+    out["claims"] = claims
+    out["claims_inputs"] = {"m1": m1, "m2": m2, "set_lru": sl, "lru": lru, "fig11": f11,
+                            "fig12_zipfian_M4": vec, "c6_window": C6_WINDOW,
+                            "c6_early": early}
+    log(f"claims at the figures' scale: {claims}; m1 {m1:.4f} set_lru {sl:.4f} lru "
+        f"{lru:.4f} m2 {m2:.4f}; first {C6_WINDOW} queries from garbage: multistep "
+        f"{early['multistep_garbage']:.4f}, set_lru {early['set_lru_garbage']:.4f}")
+    failed = [k for k, ok in claims.items() if not ok]
+    if failed:
+        raise AssertionError(f"paper claims that do not hold at the figures' scale: {failed}")
+    out["launches"] = read_launches()
+    if not out["launches"]["msl_onepass"]:
+        raise AssertionError("phase 26 launched no msl_onepass")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 26: {out['seconds']:.1f} s, launches {out['launches']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Step bundles, specs and the dry run (phase 27)
+# ---------------------------------------------------------------------------
+
+BUNDLE_BATCH = 4            # decode_32k's 128 x 32768 KV is about 1.6 TB:
+BUNDLE_SEQ = 4096           # cut to 4 x 4096 (6.4 GB of KV)
+BUNDLE_PROMPT = 1024
+BUNDLE_STEPS = 8
+DRYRUN_TRAIN_CUT = (2, 1024)        # phase 23(b)'s batch and sequence
+# Counted FLOPs of the cut train cell against ``train_flops``: non-reentrant
+# checkpointing stops each recompute at the last tensor backward needs, so
+# no layer recomputes its w_down product (2 d f per token) and no attention
+# chunk its p.V product (2 S H Dh per query), which ``train_flops`` counts.
+DRYRUN_FLOPS_RTOL = 1e-3    # counted against train_flops less those two
+DRYRUN_FLOPS_GAP = 0.06     # counted against train_flops itself
+
+
+def run_step_bundles(torch):
+    """Phase 27(a): phi3-mini-3.8b at full width on the card, random seeded
+    weights: ``bundle_for``'s prefill step and its serve step (logits, and
+    greedy) over ``decode_specs``'s shapes made real at BUNDLE_BATCH x
+    BUNDLE_SEQ; the prompt's cache written into the decode cache, then
+    BUNDLE_STEPS decode steps, each against ``model.decode_step`` (plus
+    argmax) on a copy of the cache: logits and tokens bit-equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs import specs
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import bundle_for
+    from repro_torch.models.model import make_model
+
+    cfg = get_config(PHI3)
+    model = make_model(cfg)
+    b, s, n = BUNDLE_BATCH, BUNDLE_SEQ, BUNDLE_PROMPT
+    pb = bundle_for(cfg, ShapeSpec("prefill_cut", n, b, "prefill"))
+    sb = bundle_for(cfg, ShapeSpec("decode_cut", s, b, "decode"))
+    gb = bundle_for(cfg, ShapeSpec("decode_cut", s, b, "decode"), greedy=True)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(SEED))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    batch = {k: torch.randint(0, cfg.vocab_size, v.shape, generator=gen, device=DEVICE,
+                              dtype=v.dtype) for k, v in pb.abstract_args[1].items()}
+    with torch.no_grad():
+        logits, pcache = pb.fn(params, batch)
+        want, _ = model.prefill(params, batch)
+        if not torch.equal(logits, want):
+            raise AssertionError("prefill bundle: logits differ from model.prefill")
+        _, cache_spec, len_spec = sb.abstract_args[1:]
+        cache = model.init_cache(b, s, device=DEVICE)
+        for name, spec in cache_spec.items():
+            if (cache[name].shape, cache[name].dtype) != (spec.shape, spec.dtype):
+                raise AssertionError(f"decode_specs {name}: {spec.shape} {spec.dtype}, the "
+                                     f"cache {cache[name].shape} {cache[name].dtype}")
+            cache[name][:, :, :n] = pcache[name]
+        del pcache
+        twin = {k: v.clone() for k, v in cache.items()}
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        streams = []
+        for i in range(BUNDLE_STEPS):
+            cur = torch.tensor(n + i, dtype=len_spec.dtype, device=DEVICE)
+            got_logits, _ = sb.fn(params, tok, cache, cur)
+            got_tok, _ = gb.fn(params, tok, twin, cur)   # writes the same KV again
+            want_logits, _ = model.decode_step(params, tok, twin, cur)
+            if not torch.equal(got_logits, want_logits):
+                raise AssertionError(f"serve bundle, step {i}: logits differ from decode_step")
+            want_tok = torch.argmax(want_logits, -1).to(torch.int32)
+            if not torch.equal(got_tok, want_tok):
+                raise AssertionError(f"greedy serve bundle, step {i}: tokens differ")
+            streams.append(got_tok.cpu().tolist())
+            tok = got_tok[:, None]
+        if not all(torch.equal(cache[k], twin[k]) for k in cache):
+            raise AssertionError("the serve bundle's cache differs from decode_step's")
+    out = {"arch": PHI3, "batch": b, "max_len": s, "prompt": n, "steps": BUNDLE_STEPS,
+           "cut": f"decode_32k's 128 x 32768 to {b} x {s}", "tokens": streams,
+           "equal": True}
+    log(f"phi3-mini-3.8b bundles at full width, {b} x {s} (prompt {n}): prefill logits and "
+        f"{BUNDLE_STEPS} serve steps' logits and greedy tokens equal model.prefill and "
+        f"model.decode_step + argmax bit for bit; the cache shapes equal decode_specs'")
+    del params, cache, twin
+    release(torch)
+    return out
+
+
+def run_dryrun(torch, phase23):
+    """Phase 27(b): the dry run of phi3-mini-3.8b's four cells on the meta
+    device (``launch/dryrun.py`` ``run_cell``; long_500k skipped: no long
+    context), then phase 23(b)'s cut train cell (1024 x 2, remat full, one
+    microbatch): its counted FLOPs against ``train_flops`` (DRYRUN_FLOPS_RTOL
+    once the recomputes that checkpointing stops early are taken off, and
+    DRYRUN_FLOPS_GAP against the whole), its terms beside phase 23(b)'s
+    measured step, its memory beside the measured peak."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    out = {"cells": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for shape in SHAPES:
+            rec = dryrun.run_cell(PHI3, shape, Path(tmp))
+            out["cells"][shape] = rec
+            log(f"dry run {rec['cell']}: " + ("skipped" if rec["skipped"] else
+                                              f"{dryrun.summary(rec)} ({rec['trace_s']:.1f} s)"))
+    cfg = get_config(PHI3)
+    b, s = DRYRUN_TRAIN_CUT
+    rec = dryrun.analyze_cell(cfg, ShapeSpec("train_cut", s, b, "train"), microbatches=1)
+    flops = train_flops(dataclasses.replace(cfg, remat="full"), b, s, "full")
+    d, f, h, dh, layers = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.head_dim, cfg.n_layers
+    early_stop = 2 * d * f * b * s * layers + 2 * b * s * s * h * dh * layers
+    counted = rec["per_device"]["flops"]
+    gap = counted / flops["total"] - 1
+    rel = abs(counted - (flops["total"] - early_stop)) / counted
+    full = phase23["full"]
+    rec.update({"train_flops": flops["total"], "early_stop_flops": early_stop,
+                "gap_to_train_flops": gap, "rel_to_train_flops_less_early_stop": rel,
+                "measured_ms_per_step": full["ms_per_step"],
+                "measured_peak_memory_gb": full["peak_memory_gb"],
+                "bound_share_of_measured": max(rec["terms_seconds"].values()) * 1e3
+                / full["ms_per_step"]})
+    out["train_cut"] = rec
+    log(f"dry run, phi3-mini-3.8b train {b} x {s}, remat full, 1 microbatch: "
+        f"{dryrun.summary(rec)}; {counted / 1e12:.3f} TFLOP counted against train_flops' "
+        f"{flops['total'] / 1e12:.3f} ({gap:+.4f}; {early_stop / 1e12:.3f} TFLOP of recompute "
+        f"that checkpointing stops early, less which they differ by {rel:.2e}); the bound "
+        f"{max(rec['terms_seconds'].values()) * 1e3:.1f} ms against phase 23(b)'s measured "
+        f"{full['ms_per_step']:.1f} ms per step; memory "
+        f"{rec['memory']['total_bytes'] / 1e9:.1f} GB counted, {full['peak_memory_gb']:.1f} "
+        f"GB measured peak")
+    if rel > DRYRUN_FLOPS_RTOL or abs(gap) > DRYRUN_FLOPS_GAP:
+        raise AssertionError(f"dry run FLOPs {counted:.6g} against train_flops "
+                             f"{flops['total']:.6g}: gap {gap:+.4f}, {rel:.2e} off once "
+                             f"the early-stopped recompute is taken off")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2962,11 +3475,27 @@ def main() -> int:
     for r in records:
         r["launches_training_path"] = launches[r["name"]]
 
+    phase("25. the Python oracle against both msl kernels on the card")
+    claims = {"oracle": run_oracle(torch)}
+    records[0]["launches_oracle_path"] = claims["oracle"]["launches"]["msl_access"]
+    records[1]["launches_oracle_path"] = claims["oracle"]["launches"]["msl_onepass"]
+    release(torch)
+
+    phase("26. the paper's claims at the figures' scale through the one-pass kernel")
+    claims["figures"] = run_paper_claims(torch)
+    records[1]["launches_figures_path"] = claims["figures"]["launches"]["msl_onepass"]
+    release(torch)
+
+    phase("27. step bundles, input specs and the dry run: phi3-mini-3.8b")
+    claims["bundles"] = run_step_bundles(torch)
+    claims["dryrun"] = run_dryrun(torch, training[PHI3])
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"main_path": summary, "card": smi}))
     print(json.dumps({"serving": serving, "card": smi}))
     print(json.dumps({"training": training, "card": smi}))
+    print(json.dumps({"oracle_claims_steps": claims, "card": smi}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -145,6 +145,50 @@ class ArchConfig:
             per += 4 * d * d + 6 * d + 3 * d * n + 2 * d
         return emb + self.n_layers * per + norm + self.meta_tokens * d
 
+    def analytic_param_count(self) -> int:
+        """The JAX package's analytic count (``repro.configs.base``
+        ``param_count``), the N of the 6·N·D convention that
+        ``roofline.analysis.model_flops_for`` and
+        ``launch.steps.default_microbatches`` read: embedding and blocks,
+        no norms, the Mamba branch approximated, the sLSTM MLP at the
+        unrounded 4/3 width.  ``param_count`` is what the port builds."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        dh, h, kvh = self.head_dim, self.n_heads, self.n_kv_heads
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.mixer == "xlstm":
+            di = int(d * self.mlstm_proj_factor)
+            per_m = d * 2 * di + 3 * di * di + di * 2 * self.n_heads + di * d + 4 * di
+            per_s = d * 4 * d + self.n_heads * (d // self.n_heads) * 4 * (d // self.n_heads) \
+                + 2 * d * int(d * 4 / 3)
+            g = self.scan_group
+            n_s = self.n_layers // g
+            return emb + (self.n_layers - n_s) * per_m + n_s * per_s
+        att = d * (h * dh) * 2 + d * (kvh * dh) * 2
+        if self.ffn == "swiglu":
+            ffn = 3 * d * f
+        elif self.ffn == "gelu":
+            ffn = 2 * d * f
+        elif self.ffn == "moe":
+            ffn = self.n_experts * 3 * d * f + d * self.n_experts
+        else:
+            ffn = 0
+        per = att + ffn
+        if self.mixer == "hymba":
+            per += 2 * d * 2 * d + d * 2 * self.ssm_state + d * d + 4 * d  # mamba branch
+        total = emb + self.n_layers * per
+        if self.enc_dec:
+            total += self.n_enc_layers * (att + 2 * d * f) + self.n_layers * att  # cross attn
+        return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k of n_experts), on the
+        analytic count, as in the JAX package."""
+        if self.ffn != "moe":
+            return self.analytic_param_count()
+        d, f = self.d_model, self.d_ff
+        dense = self.analytic_param_count() - self.n_layers * self.n_experts * 3 * d * f
+        return dense + self.n_layers * self.moe_top_k * 3 * d * f
+
 
 def xlstm_ffn_dim(cfg: ArchConfig) -> int:
     """The sLSTM block's post-MLP width (pf = 4/3), rounded up to a multiple

@@ -1,16 +1,28 @@
-"""The training step: loss -> gradients -> AdamW, on one device.
+"""Train, prefill and serve step builders, on one device.
 
-Port of ``repro.launch.steps.build_train_step`` without a mesh (the port
-runs one device; ``sharding.py`` and the prefill/serve step bundles are not
-ported).  The step takes and returns ``(params, opt_state, metrics)`` like
+Port of ``repro.launch.steps`` without a mesh (the port runs one device;
+``sharding.py`` is not ported):
+
+  build_train_step   — loss -> gradients -> AdamW, params updated in place
+  build_prefill_step — forward + KV/state cache materialization
+  build_serve_step   — one decode token against the cache (greedy: argmax)
+
+Each returns a ``StepBundle``: the step function and its abstract inputs,
+meta-device tensors of the cell's shapes (``configs.specs``), which the dry
+run traces the step against, as the JAX bundle's ``abstract_args`` are
+lowered.  ``bundle_for`` dispatches on the shape's kind.
+
+The training step takes and returns ``(params, opt_state, metrics)`` like
 the JAX one; here ``params`` and the optimizer state are updated in place.
-
 Gradient accumulation over ``microbatches`` A takes JAX's rows: the batch
 is reshaped to (B/A, A, ...) and microbatch i is minor index i, rows
 ``i::A``.  Each microbatch's gradients are added in f32, divided by A, into
 one f32 tree (as large as the master weights); loss and metrics are
 averaged the same way.  With A = 1 the parameters' own (bf16) ``.grad``
 feed the update, as JAX's grads do.
+
+The serve step is ``model.decode_step`` (plus an argmax when greedy) over a
+contiguous cache, as JAX's is: it reaches no paged-attention kernel.
 """
 
 from __future__ import annotations
@@ -19,15 +31,17 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch.configs.base import ShapeSpec
-from repro_torch.models.model import Model
+from repro_torch.configs import specs as spec_mod
+from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.models.model import Model, make_model
 from repro_torch.train import optimizer as opt_mod
 
 METRIC_KEYS = ("lb_loss", "z_loss", "drop_frac", "ce_loss")
 
 
 class StepBundle(NamedTuple):
-    fn: Callable          # fn(params, opt_state, batch) -> (params, opt_state, metrics)
+    fn: Callable          # the step
+    abstract_args: tuple  # meta tensors of its inputs: fn(*abstract_args) traces it
 
 
 def build_train_step(model: Model, shape: ShapeSpec, *, lr: float = 3e-4,
@@ -71,4 +85,48 @@ def build_train_step(model: Model, shape: ShapeSpec, *, lr: float = 3e-4,
         metrics = {k: v.detach() for k, v in metrics.items()}
         return params, opt_state, dict(metrics, loss=loss.detach(), **stats)
 
-    return StepBundle(train_step)
+    params = spec_mod.abstract_params(model)
+    abstract = (params, opt_mod.adamw_init(params),
+                spec_mod.train_batch_specs(model.cfg, shape))
+    return StepBundle(train_step, abstract)
+
+
+def build_prefill_step(model: Model, shape: ShapeSpec) -> StepBundle:
+    """``model.prefill``: (params, batch) -> (last logits, cache)."""
+    return StepBundle(model.prefill, (spec_mod.abstract_params(model),
+                                      spec_mod.prefill_batch_specs(model.cfg, shape)))
+
+
+def build_serve_step(model: Model, shape: ShapeSpec, *, greedy: bool = False) -> StepBundle:
+    """One decode step: (params, tokens (B, 1), cache, cur_len) -> (logits
+    (B, V) f32, or with ``greedy`` the argmax tokens (B,) int32; cache)."""
+    def serve_step(params, tokens, cache, cur_len):
+        logits, cache = model.decode_step(params, tokens, cache, cur_len)
+        if greedy:
+            return torch.argmax(logits, -1).to(torch.int32), cache
+        return logits, cache
+
+    return StepBundle(serve_step, (spec_mod.abstract_params(model),
+                                   *spec_mod.decode_specs(model, shape)))
+
+
+def default_microbatches(cfg: ArchConfig) -> int:
+    n = cfg.analytic_param_count()
+    if n > 2e10:
+        return 16
+    if n > 5e9:
+        return 8
+    return 4
+
+
+def bundle_for(arch_cfg: ArchConfig, shape: ShapeSpec, *, microbatches: int | None = None,
+               greedy: bool = False) -> StepBundle:
+    """Dispatch on the shape kind (train/prefill/decode); the batch is the
+    shape's ``global_batch``."""
+    model = make_model(arch_cfg)
+    if shape.kind == "train":
+        mb = microbatches if microbatches is not None else default_microbatches(arch_cfg)
+        return build_train_step(model, shape, microbatches=mb)
+    if shape.kind == "prefill":
+        return build_prefill_step(model, shape)
+    return build_serve_step(model, shape, greedy=greedy)

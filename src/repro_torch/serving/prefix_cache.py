@@ -47,6 +47,7 @@ import torch
 from repro_torch.core import (MSLRUConfig, MultiStepLRUCache, OP_ACCESS,
                               OP_CHAIN_GET, OP_CHAIN_PUT, OP_DELETE, OP_GET,
                               OP_LOOKUP)
+from repro_torch.core.policies import fmix32_py
 
 __all__ = ["PrefixCache", "ChainServe", "chunk_chain_hashes", "fmix32_py",
            "service_tick_percentiles"]
@@ -58,18 +59,6 @@ _MASK32 = 0xFFFFFFFF
 def _host(x) -> np.ndarray:
     """A backend's result field as a numpy array."""
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
-def fmix32_py(x: int) -> int:
-    """MurmurHash3's fmix32 on a Python int (uint32 semantics); a copy of
-    ``repro.core.policies.fmix32_py``."""
-    x &= _MASK32
-    x ^= x >> 16
-    x = (x * 0x85EBCA6B) & _MASK32
-    x ^= x >> 13
-    x = (x * 0xC2B2AE35) & _MASK32
-    x ^= x >> 16
-    return x
 
 
 def service_tick_percentiles(samples) -> tuple[float, float]:

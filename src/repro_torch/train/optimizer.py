@@ -59,8 +59,9 @@ def _cos(x: torch.Tensor) -> torch.Tensor:
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
     """IEEE (correctly rounded) f32 sqrt, as XLA's and CUDA's are.  PyTorch's
     CPU f32 sqrt is an ulp off on about 0.7 % of inputs, so there it goes
-    through f64 (exact after rounding back)."""
-    return torch.sqrt(x) if x.is_cuda else torch.sqrt(x.double()).float()
+    through f64 (exact after rounding back); a CUDA or meta tensor (the dry
+    run's) takes the f32 sqrt."""
+    return torch.sqrt(x) if x.device.type != "cpu" else torch.sqrt(x.double()).float()
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int, min_frac: float = 0.1):

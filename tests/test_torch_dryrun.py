@@ -1,0 +1,174 @@
+"""The port's dry run and roofline (``repro_torch.launch.dryrun``,
+``repro_torch.roofline``) against the JAX package's.
+
+* ``model_flops_for`` equals JAX's for every arch × shape.
+* The FLOPs the port counts while a cell's step runs on meta tensors sit
+  within FLOPS_RTOL of JAX's ``hlo_stats.analyze_hlo`` over the compiled
+  single-device step of the same cell (smoke configs: a dense decoder, an
+  MoE decoder, xLSTM; train cells with ``remat="full"``, as the dry run
+  sets them) and equal ``FlopCounterMode``'s; the counts with the
+  meta-kernel memo equal those without it.
+* The CLI writes a record with every key; ``--multi-pod`` raises;
+  ``reanalyze`` recomputes the terms from a saved record.
+* phi3-mini-3.8b at full width traces its train step (1024 x 2, remat
+  full) on meta without allocating its 61 GB of state, and counts
+  ``chip_smoke.train_flops`` less the recompute that checkpointing stops
+  early.
+"""
+
+import dataclasses
+import json
+import resource
+import sys
+from pathlib import Path
+
+import jax
+import pytest
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro.configs import SHAPES as JAX_SHAPES
+from repro.configs import get_config as jax_get_config
+from repro.configs.base import ShapeSpec as JaxShapeSpec
+from repro.launch.mesh import make_debug_mesh
+from repro.launch.steps import bundle_for as jax_bundle_for
+from repro.roofline.analysis import model_flops_for as jax_model_flops_for
+from repro.roofline.hlo_stats import analyze_hlo
+from repro_torch.configs import SHAPES, get_config, list_archs
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch import dryrun
+from repro_torch.launch.steps import bundle_for
+from repro_torch.roofline import analysis, counts, reanalyze
+
+ROOT = Path(__file__).resolve().parent.parent
+
+# Counted FLOPs against XLA's dots: the port's count is 0.04-0.6 % below
+# (measured, train / prefill / decode: phi3-mini-smoke 0.10 / 0.16 / 0.14 %,
+# olmoe-smoke 0.33 / 0.55 / 0.32 %, xlstm-smoke 0.61 / 0.38 / 0.27 %): XLA's
+# program keeps a few dots PyTorch does not run, such as the MoE router's
+# one-hot dispatch products.  (hymba-smoke's train and prefill cells count
+# 3.4 % below XLA's, its decode 0.2 %; the gap is not located yet.)
+FLOPS_RTOL = 0.01
+CELLS = [("train", 128, 4), ("prefill", 128, 2), ("decode", 128, 2)]
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_model_flops_for_matches_jax(smoke):
+    for arch in list_archs():
+        cfg, jcfg = get_config(arch, smoke), jax_get_config(arch, smoke)
+        for name, sh in SHAPES.items():
+            assert analysis.model_flops_for(cfg, sh) == \
+                jax_model_flops_for(jcfg, JAX_SHAPES[name]), (arch, name)
+
+
+def _port_counts(cfg, shape, microbatches):
+    b = bundle_for(cfg, shape, microbatches=microbatches)
+    train = shape.kind == "train"
+    return counts.count_step(b.fn, b.abstract_args, params=b.abstract_args[0],
+                             opt_state=b.abstract_args[1] if train else None,
+                             microbatches=microbatches or 1)
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "olmoe-1b-7b", "xlstm-1.3b"])
+def test_counted_flops_match_jax_hlo(arch):
+    mesh = make_debug_mesh((1, 1))
+    for kind, s, b in CELLS:
+        remat = "full" if kind == "train" else "none"
+        cfg = dataclasses.replace(get_config(arch, smoke=True), remat=remat)
+        jcfg = dataclasses.replace(jax_get_config(arch, smoke=True), remat=remat)
+        jb = jax_bundle_for(jcfg, mesh, JaxShapeSpec("c", s, b, kind), microbatches=2)
+        with mesh:
+            want = analyze_hlo(jb.fn.lower(*jb.abstract_args).compile().as_text())["flops"]
+        got = _port_counts(cfg, ShapeSpec("c", s, b, kind), 2 if kind == "train" else None)
+        assert got["flops"] == pytest.approx(want, rel=FLOPS_RTOL), (arch, kind)
+        assert got["bytes"] > 0 and got["ops"] > 0
+        rec = analysis.analyze(got, model_flops_total=analysis.model_flops_for(
+            cfg, ShapeSpec("c", s, b, kind)))
+        assert rec["terms_seconds"]["collective"] == 0.0
+        assert rec["dominant"] in ("compute", "memory")
+
+
+@pytest.mark.parametrize("arch,kind", [("xlstm-1.3b", "prefill"), ("hymba-1.5b", "train"),
+                                       ("whisper-medium", "train")])
+def test_counts_equal_flop_counter_and_the_unmemoized_run(arch, kind):
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              remat="full" if kind == "train" else "none")
+    shape = ShapeSpec("c", 64, 2, kind)
+    b = bundle_for(cfg, shape, microbatches=2)
+    with FlopCounterMode(display=False) as fm:
+        b.fn(*b.abstract_args)
+    seen = []
+    for memo in (True, False):
+        b = bundle_for(cfg, shape, microbatches=2)
+        c = counts._Counter(memo=memo)
+        with c:
+            b.fn(*b.abstract_args)
+        seen.append((c.flops, c.bytes, c.ops, c.live.peak))
+    assert seen[0] == seen[1]
+    assert seen[0][0] == fm.get_total_flops()
+
+
+def test_cli_writes_records_and_reanalyze_recomputes(tmp_path, monkeypatch):
+    monkeypatch.setattr(dryrun, "get_config", lambda a: get_config(a, smoke=True))
+    monkeypatch.setattr(dryrun, "SHAPES", {
+        "train_4k": ShapeSpec("train_4k", 64, 8, "train"),
+        "decode_32k": ShapeSpec("decode_32k", 64, 4, "decode"),
+        "long_500k": ShapeSpec("long_500k", 128, 1, "decode")})
+    dryrun.main(["--arch", "gemma3-1b", "--out", str(tmp_path)])
+    dryrun.main(["--arch", "hymba-1.5b", "--shape", "long_500k", "--out", str(tmp_path)])
+    files = sorted(p.name for p in tmp_path.glob("*.json"))
+    assert files == ["gemma3-1b__decode_32k__1dev.json", "gemma3-1b__long_500k__1dev.json",
+                     "gemma3-1b__train_4k__1dev.json", "hymba-1.5b__long_500k__1dev.json"]
+    train = json.loads((tmp_path / files[2]).read_text())
+    keys = {"chips", "per_device", "totals", "terms_seconds", "dominant", "model_flops",
+            "useful_flop_ratio", "roofline_fraction", "memory", "cell", "arch", "shape",
+            "multi_pod", "trace_s", "params", "active_params", "skipped", "microbatches",
+            "remat"}
+    assert keys <= set(train)
+    assert train["remat"] == "full" and train["microbatches"] == 4 and train["chips"] == 1
+    assert {"param_bytes", "optimizer_bytes", "grad_bytes", "saved_activation_bytes",
+            "peak_live_bytes", "total_bytes", "device_bytes", "fits"} <= set(train["memory"])
+    assert json.loads((tmp_path / files[1]).read_text())["skipped"]      # gemma3: no long
+    assert not json.loads((tmp_path / files[3]).read_text())["skipped"]  # hymba: long
+
+    # reanalyze: the terms again from the counts, with no re-trace
+    want = dict(train)
+    train["terms_seconds"] = train["dominant"] = None
+    (tmp_path / files[2]).write_text(json.dumps(train))
+    got = reanalyze.reanalyze_cell(tmp_path / files[2])
+    assert got == want
+    reanalyze.main(["--dir", str(tmp_path)])
+    # a cell with a record is skipped unless --force
+    assert dryrun.run_cell("gemma3-1b", "train_4k", tmp_path) == want
+
+
+def test_multi_pod_raises():
+    with pytest.raises(NotImplementedError):
+        dryrun.main(["--multi-pod"])
+
+
+def test_full_width_train_cell_traces_on_meta_without_allocating():
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    cfg = get_config("phi3-mini-3.8b")
+    b, s = chip_smoke.DRYRUN_TRAIN_CUT
+    rec = dryrun.analyze_cell(cfg, ShapeSpec("cut", s, b, "train"), microbatches=1)
+    grown_gb = (resource.getrusage(resource.RUSAGE_SELF).ru_maxrss - before) * 1024 / 1e9
+    assert grown_gb < 2
+    mem = rec["memory"]
+    # gradients as the parameters (bf16, the norm scales f32); f32 master, m
+    # and v, and the step counter
+    assert mem["grad_bytes"] == mem["param_bytes"]
+    assert mem["optimizer_bytes"] == 12 * cfg.param_count() + 4
+    assert 60e9 < mem["total_bytes"] < 80e9 and mem["fits"]
+    flops = chip_smoke.train_flops(dataclasses.replace(cfg, remat="full"), b, s, "full")
+    early = (2 * cfg.d_model * cfg.d_ff * b * s * cfg.n_layers
+             + 2 * b * s * s * cfg.n_heads * cfg.head_dim * cfg.n_layers)
+    counted = rec["per_device"]["flops"]
+    assert counted == pytest.approx(flops["total"] - early,
+                                    rel=chip_smoke.DRYRUN_FLOPS_RTOL)
+    assert abs(counted / flops["total"] - 1) < chip_smoke.DRYRUN_FLOPS_GAP
+    assert rec["useful_flop_ratio"] == pytest.approx(
+        analysis.model_flops_for(cfg, ShapeSpec("cut", s, b, "train")) / counted)

@@ -45,8 +45,10 @@ def test_importing_the_port_loads_no_jax():
 def test_every_port_module_is_checked():
     """The rule covers every module of the port, the MoE and Mamba modules,
     the configs of the MoE, hymba, xLSTM and Whisper families, the sharded
-    cache, its mesh and the elastic plans, and the training path (step,
-    launcher, optimizer, trainer, checkpoints, synthetic data) among them."""
+    cache, its mesh and the elastic plans, the training path (step,
+    launcher, optimizer, trainer, checkpoints, synthetic data), the Python
+    oracle and baselines, the input specs, the dry run and the roofline
+    among them."""
     checked = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES
                if p.is_relative_to(ROOT / "src" / "repro_torch")}
     assert {"models/moe.py", "models/ssm.py", "models/transformer.py",
@@ -55,4 +57,6 @@ def test_every_port_module_is_checked():
             "configs/whisper_medium.py", "serving/engine.py", "core/sharded.py",
             "launch/mesh.py", "launch/elastic.py", "launch/steps.py", "launch/train.py",
             "train/optimizer.py", "train/trainer.py", "train/checkpoint.py",
-            "data/synthetic.py"} <= checked
+            "data/synthetic.py", "core/policies.py", "configs/specs.py",
+            "launch/dryrun.py", "roofline/__init__.py", "roofline/analysis.py",
+            "roofline/counts.py", "roofline/reanalyze.py"} <= checked
