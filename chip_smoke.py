@@ -3,7 +3,8 @@
 form, of its prefix-cached serving path (every architecture of the JAX
 package: the attention decoders, the MoE decoders, the hymba hybrid, xLSTM
 and the Whisper encoder-decoder), of its trainer, of its Python oracle and
-of its step bundles and dry run on one NVIDIA GPU.
+of its step bundles and dry run, of its route between processes and of its
+gradient compression on one NVIDIA GPU.
 
 Run from the root of a checkout, with one card visible:
 
@@ -197,13 +198,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``model.decode_step`` + argmax over 8 steps; then ``launch/dryrun.py``
    on the host over phi3-mini's four cells and phase 23(b)'s cut train cell
    (counted FLOPs against ``train_flops``, terms and memory beside phase
-   23(b)'s measured step and peak).
+   23(b)'s measured step and peak), and its state per device (parameters,
+   AdamW state, batch, cache) on the production meshes pod1 and pod2;
+28. the sharded cache with one shard per process: ``run_on_ranks`` spawns
+   D = 2, 4 and 8 gloo ranks that share the card (NCCL does not put two
+   ranks on one card, so the route's ``all_to_all`` goes through pinned
+   host buffers), each holding its rows of phase 5's table and its slab of
+   every batch (``ProcessCacheMesh``): at D = 8 the one-pass route over
+   phase 5's whole stream (``ROUTE_D8_BATCHES``), the table gathered to rank
+   0 bit-equal to phase 5's, one ``msl_onepass`` launch per batch on every
+   rank; then the rounds route (``msl_access``) on CHECK_BATCHES batches
+   after it and, from a cold table, a per-peer depth of ROUTE_CAP (sheds)
+   against the one-process engine; at D = 2 and 4 the first
+   ROUTE_SHORT_BATCHES batches against the one-process engine; queries/s
+   per D, host-staging and gloo ms per exchange;
+29. int8 gradient compression: ``quantize_int8``/``dequantize_int8`` on the
+   card bit-equal to the CPU on seeded gradients shaped like phi3-mini's
+   2-layer cut; ``compress_tree`` over 4 gloo ranks on the card, two rounds
+   carrying the residuals, bit-equal to the formula on the CPU (the int32
+   sum of every rank's int8 values times the largest scale; residuals).
+   Any rank's failure fails the run.
 
-Then the JSON lines: the main path (phase 20 under ``sharded``), the
-serving path (phases 8, 9, 11-19, 21 under ``sharded``), training (phases
-22-24), the oracle, the figures and the dry run (phases 25-27) and every
-kernel's record (the paged kernel's with ``shapes``: its record at phases
-13-16's shapes).
+Then the JSON lines: the main path (phase 20 under ``sharded``, 28 under
+``route``), the serving path (phases 8, 9, 11-19, 21 under ``sharded``),
+training (phases 22-24, 29 under ``compression``), the oracle, the figures
+and the dry run (phases 25-27) and every kernel's record (the paged
+kernel's with ``shapes``: its record at phases 13-16's shapes).
 
 The msl_cache comparisons are bit-exact (all state is int32).  The last
 line is ``{"ok": true, "device": {...}}``.
@@ -3262,13 +3282,24 @@ def run_dryrun(torch, phase23):
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import dryrun
 
-    out = {"cells": {}}
+    out = {"cells": {}, "mesh_cells": {}}
     with tempfile.TemporaryDirectory() as tmp:
         for shape in SHAPES:
             rec = dryrun.run_cell(PHI3, shape, Path(tmp))
             out["cells"][shape] = rec
             log(f"dry run {rec['cell']}: " + ("skipped" if rec["skipped"] else
                                               f"{dryrun.summary(rec)} ({rec['trace_s']:.1f} s)"))
+        # the state per device on the production meshes (activations and
+        # collectives are not counted there yet)
+        for mesh in dryrun.MESHES:
+            for shape in SHAPES:
+                rec = dryrun.run_cell(PHI3, shape, Path(tmp), mesh=mesh)
+                out["mesh_cells"][rec["cell"]] = rec
+                log(f"dry run {rec['cell']}: " + ("skipped" if rec["skipped"]
+                                                  else dryrun.summary(rec)))
+                if not rec["skipped"] and (rec["per_device"]["activation_bytes"] is not None
+                                           or rec["per_device"]["state_bytes"] <= 0):
+                    raise AssertionError(f"{rec['cell']}: a mesh record counts state only")
     cfg = get_config(PHI3)
     b, s = DRYRUN_TRAIN_CUT
     rec = dryrun.analyze_cell(cfg, ShapeSpec("train_cut", s, b, "train"), microbatches=1)
@@ -3298,6 +3329,396 @@ def run_dryrun(torch, phase23):
         raise AssertionError(f"dry run FLOPs {counted:.6g} against train_flops "
                              f"{flops['total']:.6g}: gap {gap:+.4f}, {rel:.2e} off once "
                              f"the early-stopped recompute is taken off")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Slice 12: the route between processes (phase 28) and int8 gradient
+# compression (phase 29)
+# ---------------------------------------------------------------------------
+
+ROUTE_SHARDS = (2, 4, 8)
+ROUTE_SHORT_BATCHES = 256   # D = 2 and 4: the first batches of phase 5's stream
+ROUTE_D8_BATCHES = None     # D = 8: None runs phase 5's whole stream
+# D = 8: a per-peer depth of half the expected load (a slab of 8192 / 8
+# queries sends 128 to each owner on average), so rows shed
+ROUTE_CAP = BATCH // 8 // 8 // 2
+ROUTE_CAP_BATCHES = 4
+COMPRESS_RANKS = 4
+COMPRESS_LEAVES = ("attn.wq", "mlp.w_down", "ln1.scale")  # phase 29(b): layer 0's
+COMPRESS_ROUNDS = 2
+
+
+def _npy(workdir, name, x=None):
+    """Write ``x`` (a tensor) as ``workdir/name.npy``, or read it back
+    mapped (read-only) when ``x`` is None."""
+    import numpy as np
+
+    path = Path(workdir) / f"{name}.npy"
+    if x is None:
+        return np.load(path, mmap_mode="r")
+    np.save(path, x.cpu().numpy())
+    return None
+
+
+def _host(torch, a):
+    """A tensor copy of ``a`` (a read-only mapped array)."""
+    import numpy as np
+
+    return torch.from_numpy(np.array(a))
+
+
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def route_sizes() -> dict:
+    """Phase 28's sizes, handed to every rank (a spawned rank imports this
+    script afresh)."""
+    return {"device": DEVICE, "num_sets": MAIN_SETS, "batch": BATCH,
+            "check_batches": CHECK_BATCHES, "cap": ROUTE_CAP,
+            "cap_batches": ROUTE_CAP_BATCHES}
+
+
+def route_rank(workdir, ndev, n_batches, check, run):
+    """One rank of phase 28 (spawned by ``run_on_ranks``, gloo, sharing the
+    card): its shard of the main table, its slab of every batch; ``run``
+    holds the sizes (``route_sizes``).  The one-pass stream runner over
+    ``n_batches`` of phase 5's stream from a cold table (the first half
+    warm, the second timed); its table and the timed half's hits against
+    the parent's one-process results.  With ``check``: the rounds engine on
+    the ``check_batches`` batches after them, and the per-peer depth
+    ``cap`` on the first ``cap_batches`` batches, against the parent's
+    one-process results.  Launches are counted on each path from 0 on this
+    rank."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import MSLRUConfig, init_table
+    from repro_torch.core.sharded import (gather_shards, make_sharded_engine,
+                                          make_sharded_stream_runner, sets_per_shard,
+                                          shard_table)
+    from repro_torch.launch.mesh import ProcessCacheMesh
+
+    device, batch = run["device"], run["batch"]
+    mesh = ProcessCacheMesh(None, device)
+    rank = mesh.rank
+    cfg = MSLRUConfig(num_sets=run["num_sets"], m=2, p=4, key_planes=1, value_planes=2)
+    s_local = sets_per_shard(cfg.num_sets, ndev)
+    rows = slice(rank * s_local, (rank + 1) * s_local)
+    q = batch // ndev
+    keys = _host(torch, _npy(workdir, "keys")).to(device)
+    vals = torch.stack([keys, -keys], dim=1)
+    qk = keys[:, None]
+    want = _npy(workdir, f"want_d{ndev}")
+
+    def mine(name):
+        """This rank's rows of a table the parent wrote."""
+        return _host(torch, _npy(workdir, name)[rows]).to(device)
+
+    stream = make_sharded_stream_runner(cfg, mesh, cap="full", batch=batch, engine="onepass")
+    table = shard_table(init_table(cfg, device), mesh)
+    half = n_batches // 2
+    zero_launches()
+    _sync(torch, device)
+    dist.barrier()
+    t0 = time.perf_counter()
+    table, _, _ = stream(table, qk[: half * batch], vals[: half * batch])
+    _sync(torch, device)
+    t1 = time.perf_counter()
+    stage0, wire0, ex0 = mesh.stage_seconds, mesh.wire_seconds, mesh.exchanges
+    table, hits, served = stream(table, qk[half * batch: n_batches * batch],
+                                 vals[half * batch: n_batches * batch])
+    _sync(torch, device)
+    t2 = time.perf_counter()
+    exchanges = mesh.exchanges - ex0
+    out = {"rank": rank, "batches": n_batches, "warm_seconds": t1 - t0,
+           "seconds": t2 - t1, "launches_stream": read_launches(),
+           "exchanges_timed": exchanges,
+           "stage_ms_per_exchange": 1e3 * (mesh.stage_seconds - stage0) / exchanges,
+           "wire_ms_per_exchange": 1e3 * (mesh.wire_seconds - wire0) / exchanges}
+    if out["launches_stream"]["msl_onepass"] != n_batches:
+        raise AssertionError(f"rank {rank}: {out['launches_stream']['msl_onepass']} "
+                             f"msl_onepass launches for {n_batches} batches")
+    if int(hits) != int(want[0]) or int(served) != (n_batches - half) * batch:
+        raise AssertionError(f"rank {rank}: timed hits {int(hits)} (served {int(served)}), "
+                             f"the one-process engine's {int(want[0])}")
+    if ndev == 8:
+        whole = gather_shards(mesh, table)
+        if rank == 0 and not torch.equal(whole, _host(torch, _npy(workdir, "want_table_d8"))
+                                         .to(device)):
+            raise AssertionError("the routed table gathered to rank 0 differs")
+        del whole
+    elif not torch.equal(table, mine(f"want_table_d{ndev}")):
+        raise AssertionError(f"rank {rank}: its rows differ from the one-process table")
+    if not check:
+        return out
+
+    # the rounds engine on the batches after the stream (the access kernel)
+    rounds = make_sharded_engine(cfg, mesh, cap="full", engine="rounds")
+    w_hit, w_val = _npy(workdir, "check_hit"), _npy(workdir, "check_val")
+    zero_launches()
+    for j in range(run['check_batches']):
+        i = n_batches + j
+        sl = slice(i * batch + rank * q, i * batch + (rank + 1) * q)
+        table, hit, val, srv = rounds(table, qk[sl], vals[sl])
+        mine_q = slice(rank * q, (rank + 1) * q)
+        if not (bool(srv.all()) and torch.equal(hit.cpu(), _host(torch, w_hit[j, mine_q]))
+                and torch.equal(val[hit].cpu(), _host(torch, w_val[j, mine_q])[hit.cpu()])):
+            raise AssertionError(f"rank {rank}: rounds check batch {j} differs")
+    out["launches_rounds_check"] = read_launches()
+    if out["launches_rounds_check"]["msl_access"] == 0:
+        raise AssertionError(f"rank {rank}: the routed rounds engine launched no msl_access")
+    if not torch.equal(table, mine("check_table")):
+        raise AssertionError(f"rank {rank}: rows differ after the rounds check")
+
+    # a per-peer depth below the expected load: sheds
+    bounded = make_sharded_engine(cfg, mesh, cap=run['cap'], engine="onepass")
+    table = shard_table(init_table(cfg, device), mesh)
+    w_srv, w_hit, w_val = (_npy(workdir, f"cap_{n}") for n in ("served", "hit", "val"))
+    shed = 0
+    zero_launches()
+    for i in range(run['cap_batches']):
+        sl = slice(i * batch + rank * q, i * batch + (rank + 1) * q)
+        table, hit, val, srv = bounded(table, qk[sl], vals[sl])
+        mine_q = slice(rank * q, (rank + 1) * q)
+        if not (torch.equal(srv.cpu(), _host(torch, w_srv[i, mine_q]))
+                and torch.equal(hit.cpu(), _host(torch, w_hit[i, mine_q]))
+                and torch.equal(val.cpu(), _host(torch, w_val[i, mine_q]))):
+            raise AssertionError(f"rank {rank}: cap {run['cap']} batch {i} differs")
+        shed += int((~srv).sum())
+    if not torch.equal(table, mine("cap_table")):
+        raise AssertionError(f"rank {rank}: rows differ after the bounded batches")
+    out["cap_shed"] = shed
+    out["launches_cap"] = read_launches()
+    return out
+
+
+def _one_process_stream(torch, cfg, ndev, keys, vals, n_batches):
+    """The one-process engine (``CacheMesh``, no exchange) over the first
+    ``n_batches`` batches from a cold table, in two halves: (table, the
+    second half's hits)."""
+    from repro_torch.core import init_table
+    from repro_torch.core.sharded import make_sharded_stream_runner, shard_table
+    from repro_torch.launch.mesh import make_cache_mesh
+
+    mesh = make_cache_mesh(ndev, device=DEVICE)
+    run = make_sharded_stream_runner(cfg, mesh, cap="full", batch=BATCH, engine="onepass")
+    half = n_batches // 2
+    table, _, _ = run(shard_table(init_table(cfg, DEVICE), mesh), keys[: half * BATCH, None],
+                      vals[: half * BATCH])
+    table, hits, _ = run(table, keys[half * BATCH: n_batches * BATCH, None],
+                         vals[half * BATCH: n_batches * BATCH])
+    return table, int(hits)
+
+
+def run_route(torch, cfg, host_stream, main):
+    """Phase 28: the sharded cache with one shard per process.  D ranks
+    share the card through ``run_on_ranks(..., backend="gloo")``: the route
+    exchanges through host memory, since NCCL does not put two ranks on one
+    card.  The parent writes phase 5's stream and its own one-process
+    results to a temporary directory; every rank checks its part, and any
+    rank's failure fails the phase."""
+    import tempfile
+
+    from repro_torch.core import MultiStepLRUCache, init_table
+    from repro_torch.core.sharded import make_sharded_engine, shard_table
+    from repro_torch.launch.mesh import make_cache_mesh, run_on_ranks
+
+    keys_h, _, table_h = host_stream
+    n_stream = keys_h.numel() // BATCH - CHECK_BATCHES
+    d8 = ROUTE_D8_BATCHES or n_stream
+    out = {"transport": "gloo all_to_all_single through pinned host buffers, D ranks on "
+                        "one card (not NCCL)", "cap": ROUTE_CAP}
+    with tempfile.TemporaryDirectory() as workdir:
+        keys = keys_h.to(DEVICE)
+        vals = torch.stack([keys, -keys], dim=1)
+        _npy(workdir, "keys", keys_h)
+        for ndev in ROUTE_SHARDS:
+            n = d8 if ndev == 8 else ROUTE_SHORT_BATCHES
+            if ndev == 8 and d8 == n_stream:    # phase 5's table and timed hits
+                want_table, hits = table_h.to(DEVICE), main["hits"]
+            else:
+                want_table, hits = _one_process_stream(torch, cfg, ndev, keys, vals, n)
+            _npy(workdir, f"want_table_d{ndev}", want_table)
+            _npy(workdir, f"want_d{ndev}", torch.tensor([hits]))
+            if ndev == 8:
+                local = MultiStepLRUCache(cfg, device=DEVICE)
+                local.load_table(want_table)
+                got = [local.access(keys[i * BATCH:(i + 1) * BATCH], vals[i * BATCH:(i + 1)
+                                                                          * BATCH])
+                       for i in range(n, n + CHECK_BATCHES)]
+                _npy(workdir, "check_hit", torch.stack([r.hit for r in got]))
+                _npy(workdir, "check_val", torch.stack([r.value for r in got]))
+                _npy(workdir, "check_table", local.table)
+                del local, got
+                mesh = make_cache_mesh(8, device=DEVICE)
+                bounded = make_sharded_engine(cfg, mesh, cap=ROUTE_CAP, engine="onepass")
+                t = shard_table(init_table(cfg, DEVICE), mesh)
+                res = []
+                for i in range(ROUTE_CAP_BATCHES):
+                    t, hit, val, srv = bounded(t, keys[i * BATCH:(i + 1) * BATCH, None],
+                                               vals[i * BATCH:(i + 1) * BATCH])
+                    res.append((srv, hit, val))
+                for j, name in enumerate(("served", "hit", "val")):
+                    _npy(workdir, f"cap_{name}", torch.stack([r[j] for r in res]))
+                _npy(workdir, "cap_table", t)
+                out["cap_shed_one_process"] = int(sum(int((~r[0]).sum()) for r in res))
+                del t, res
+            del want_table
+            release(torch)
+            t = time.perf_counter()
+            ranks = run_on_ranks(route_rank, ndev, "gloo", DEVICE,
+                                 args=(workdir, ndev, n, ndev == 8, route_sizes()),
+                                 timeout=900)
+            wall = time.perf_counter() - t
+            timed = (n - n // 2) * BATCH
+            slowest = max(r["seconds"] for r in ranks)
+            rec = {"ranks": ndev, "batches": n, "whole_stream": ndev == 8 and n == n_stream,
+                   "timed_queries": timed, "seconds": slowest, "qps": timed / slowest,
+                   "ms_per_batch": 1e3 * slowest / (n - n // 2), "phase_seconds": wall,
+                   "stage_ms_per_exchange": sum(r["stage_ms_per_exchange"] for r in ranks)
+                   / ndev,
+                   "wire_ms_per_exchange": sum(r["wire_ms_per_exchange"] for r in ranks) / ndev,
+                   "exchanges_per_batch": ranks[0]["exchanges_timed"] / (n - n // 2),
+                   "msl_onepass_per_rank": [r["launches_stream"]["msl_onepass"]
+                                            for r in ranks]}
+            if ndev == 8:
+                rec["msl_access_per_rank"] = [r["launches_rounds_check"]["msl_access"]
+                                              for r in ranks]
+                rec["cap_shed"] = sum(r["cap_shed"] for r in ranks)
+                if rec["cap_shed"] != out["cap_shed_one_process"] or rec["cap_shed"] == 0:
+                    raise AssertionError(f"cap {ROUTE_CAP}: {rec['cap_shed']} rows shed, the "
+                                         f"one-process engine {out['cap_shed_one_process']}")
+            out[f"d{ndev}"] = rec
+            log(f"D = {ndev} ranks on one card (gloo through host memory, not NCCL): "
+                f"{n} batches{' (phase 5 whole stream)' if rec['whole_stream'] else ''}, "
+                f"table and hits == the one-process engine's; {rec['qps']:.4g} queries/s, "
+                f"{rec['ms_per_batch']:.3f} ms per batch (phase 5: {main['qps']:.4g}), "
+                f"{rec['exchanges_per_batch']:.0f} exchanges per batch per rank at "
+                f"{rec['stage_ms_per_exchange']:.4f} ms host staging + "
+                f"{rec['wire_ms_per_exchange']:.4f} ms gloo; msl_onepass launches per rank "
+                f"{rec['msl_onepass_per_rank']} (one per batch); {wall:.1f} s")
+        d = out["d8"]
+        log(f"D = 8: rounds engine on {CHECK_BATCHES} batches after the stream == the local "
+            f"cache (msl_access per rank {d['msl_access_per_rank']}); cap {ROUTE_CAP}: "
+            f"{d['cap_shed']} of {ROUTE_CAP_BATCHES * BATCH} rows shed on "
+            f"{ROUTE_CAP_BATCHES} cold batches, served masks, hits, values and tables == the "
+            f"one-process engine's")
+    return out
+
+
+def compress_card_rank(workdir, rounds, leaves, device):
+    """One rank of phase 29(b): its gradient tree (``g<rank>_<leaf>.npy``)
+    through ``compress_tree`` on the card ``rounds`` times, carrying the
+    residual; each round's reduced tree and the last residuals against the
+    parent's CPU formula, bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.train.compression import compress_tree, zeros_residuals
+
+    rank = dist.get_rank()
+    g = {k: _host(torch, _npy(workdir, f"g{rank}_{k}")).to(device) for k in leaves}
+    res = zeros_residuals(g)
+    ms = []
+    for r in range(rounds):
+        _sync(torch, device)
+        t = time.perf_counter()
+        out, res = compress_tree(g, None, res)
+        _sync(torch, device)
+        ms.append(1e3 * (time.perf_counter() - t))
+        for k in leaves:
+            if not torch.equal(out[k].cpu(), _host(torch, _npy(workdir, f"out{r}_{k}"))):
+                raise AssertionError(f"rank {rank}: round {r} {k} differs from the CPU")
+    for k in leaves:
+        if not torch.equal(res[k].cpu(), _host(torch, _npy(workdir, f"res{rank}_{k}"))):
+            raise AssertionError(f"rank {rank}: residual {k} differs from the CPU")
+    return {"rank": rank, "ms_per_round": ms}
+
+
+def run_compression(torch):
+    """Phase 29.  (a) ``quantize_int8``/``dequantize_int8`` on the card
+    against the CPU, bit for bit, on seeded gradients shaped like every
+    leaf of phi3-mini-3.8b cut to 2 of its 32 layers (phase 23(a)'s cut).
+    (b) ``compress_tree`` over COMPRESS_RANKS gloo ranks on the card,
+    COMPRESS_ROUNDS rounds carrying the residuals, against the formula on
+    the CPU (every rank's int8 values summed as int32 times the largest
+    scale; the residuals), bit for bit; the wire bytes of the int32 sum."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.specs import abstract_params
+    from repro_torch.launch.mesh import run_on_ranks
+    from repro_torch.models.model import make_model
+    from repro_torch.train.compression import _residual, dequantize_int8, quantize_int8
+
+    cut = dataclasses.replace(get_config(PHI3), n_layers=2)
+    leaves = dict(abstract_params(make_model(cut)).named_parameters())
+    gen = torch.Generator().manual_seed(SEED)
+    n = 0
+    t = time.perf_counter()
+    for i, (name, p) in enumerate(leaves.items()):
+        g = torch.randn(p.shape, generator=gen) * 10.0 ** -(i % 4)
+        q, s = quantize_int8(g)
+        qd, sd = quantize_int8(g.to(DEVICE))
+        if not (torch.equal(qd.cpu(), q) and sd.cpu().view(torch.int32) == s.view(torch.int32)
+                and torch.equal(dequantize_int8(qd, sd).cpu(), dequantize_int8(q, s))):
+            raise AssertionError(f"quantize_int8 on the card differs from the CPU: {name}")
+        n += g.numel()
+    del g, q, qd
+    out = {"quantize": {"leaves": len(leaves), "elements": n, "equal": True,
+                        "seconds": time.perf_counter() - t}}
+    log(f"quantize_int8 / dequantize_int8: {len(leaves)} seeded gradient leaves of "
+        f"phi3-mini-3.8b at 2 layers ({n:,} elements) bit-equal on the card and the CPU")
+
+    full = {k: v for k, v in leaves.items() if k.startswith("blocks.0.")}
+    shapes = {k: tuple(full[f"blocks.0.{k}"].shape) for k in COMPRESS_LEAVES}
+    with tempfile.TemporaryDirectory() as workdir:
+        grads = []
+        for r in range(COMPRESS_RANKS):
+            gen = torch.Generator().manual_seed(SEED + 1 + r)
+            grads.append({k: torch.randn(sh, generator=gen) * 1e-2 for k, sh in shapes.items()})
+            for k, g in grads[r].items():
+                _npy(workdir, f"g{r}_{k}", g)
+        res = [{k: torch.zeros(sh) for k, sh in shapes.items()} for _ in range(COMPRESS_RANKS)]
+        for rnd in range(COMPRESS_ROUNDS):
+            for k in shapes:
+                qs = []
+                for r in range(COMPRESS_RANKS):
+                    gc = grads[r][k] + res[r][k]
+                    q, s = quantize_int8(gc)
+                    res[r][k] = _residual(gc, q, s)
+                    qs.append((q, s))
+                total = torch.stack([q.to(torch.int32) for q, _ in qs]).sum(0)
+                smax = torch.stack([s for _, s in qs]).max()
+                _npy(workdir, f"out{rnd}_{k}", total.float() * smax)
+        for r in range(COMPRESS_RANKS):
+            for k in shapes:
+                _npy(workdir, f"res{r}_{k}", res[r][k])
+        del grads, res
+        t = time.perf_counter()
+        ranks = run_on_ranks(compress_card_rank, COMPRESS_RANKS, "gloo", DEVICE,
+                             args=(workdir, COMPRESS_ROUNDS, COMPRESS_LEAVES, DEVICE),
+                             timeout=600)
+        wall = time.perf_counter() - t
+    elements = sum(math.prod(sh) for sh in shapes.values())
+    out["compress_tree"] = {
+        "ranks": COMPRESS_RANKS, "rounds": COMPRESS_ROUNDS,
+        "leaves": {k: list(sh) for k, sh in shapes.items()}, "elements": elements,
+        "wire_bytes_per_rank": 4 * elements + 4 * len(shapes),
+        "f32_all_reduce_bytes": 4 * elements, "int8_bytes": elements,
+        "ms_per_round": [r["ms_per_round"] for r in ranks], "phase_seconds": wall,
+        "transport": "gloo all_reduce through host memory, 4 ranks on one card"}
+    c = out["compress_tree"]
+    log(f"compress_tree over {COMPRESS_RANKS} gloo ranks on the card, {COMPRESS_ROUNDS} rounds "
+        f"of {elements:,} elements ({', '.join(COMPRESS_LEAVES)} of layer 0): reduced trees "
+        f"and residuals bit-equal to the CPU formula; the int32 sum puts "
+        f"{c['wire_bytes_per_rank']:,} bytes per rank into the all-reduce (an f32 one "
+        f"{c['f32_all_reduce_bytes']:,}; the int8 values {c['int8_bytes']:,}); ms per round "
+        f"per rank {[[round(x, 1) for x in r] for r in c['ms_per_round']]}")
     return out
 
 
@@ -3437,7 +3858,6 @@ def main() -> int:
     phase(f"20. the sharded cache: {SHARDS} logical shards on the card at the main "
           "path's size")
     keys, vals, stream_table = (x.to(DEVICE) for x in host_stream)
-    del host_stream
     summary["sharded"] = run_sharded_cache(torch, cfg, keys, vals, stream_table, summary)
     records[0]["launches_sharded_path"] = summary["sharded"]["launches_rounds_check"][
         "msl_access"]
@@ -3489,6 +3909,19 @@ def main() -> int:
     phase("27. step bundles, input specs and the dry run: phi3-mini-3.8b")
     claims["bundles"] = run_step_bundles(torch)
     claims["dryrun"] = run_dryrun(torch, training[PHI3])
+    release(torch)
+
+    phase("28. the route between processes: D = 2, 4, 8 gloo ranks sharing the card at the "
+          "main path's size")
+    summary["route"] = run_route(torch, cfg, host_stream, summary)
+    del host_stream
+    records[0]["launches_route_path"] = summary["route"]["d8"]["msl_access_per_rank"]
+    records[1]["launches_route_path"] = summary["route"]["d8"]["msl_onepass_per_rank"]
+    release(torch)
+
+    phase("29. int8 gradient compression: the card against the CPU, then over 4 gloo ranks")
+    training["compression"] = run_compression(torch)
+    release(torch)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

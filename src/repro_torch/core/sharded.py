@@ -7,37 +7,36 @@ mesh and routes each query to the shard that owns its set with an
 never contend: the set-associative independence argument of the paper's
 fine-grained locks, lifted from cores to devices.
 
-The port runs the D shards of the ``("cache",)`` mesh as D logical shards on
-one device (``launch/mesh.py``).  The table is one (D * s_local, A, C)
-tensor, shard ``d`` owning rows ``[d * s_local, (d + 1) * s_local)``.
+Shard ``d`` owns sets ``[d * s_local, (d + 1) * s_local)``.  Two meshes
+(``launch/mesh.py``):
 
-Capacity: each shard sends at most ``cap`` queries to each peer per call
-(``per_peer_cap``).  Overflow queries are shed for this call and reported by
-the ``served`` mask; ``ShardedCacheClient`` sheds whole chains (or, under
-split placement, a chunk suffix) on the host before they reach the engine,
-and the serving tier retries them next tick.
+* ``CacheMesh``: D logical shards in one process on one device, the table
+  one (D * s_local, A, C) tensor.  ``make_sharded_engine`` makes no exchange
+  there: a shard takes its queries in arrival order (source slab, slot),
+  which is caller order, so the route there and back changes no result.
+  It ranks each query among its slab's queries to the same owner (a one-hot
+  cumsum, as the JAX route ranks a send buffer's slots), sheds those ranked
+  past ``cap``, and runs one conflict update over the whole table keyed by
+  the global set id: the D per-shard updates, since shards own disjoint
+  sets.
+* ``ProcessCacheMesh``: one shard per rank of a process group; each rank
+  holds its ``s_local`` rows and its slab of every batch, and
+  ``make_sharded_engine`` runs the JAX route (``make_routed_engine``):
+  send buffers of depth k per peer plus a sacrificial column k that catches
+  every overflow row, one ``all_to_all`` there and one back (two more for
+  the chain probe), the update on the local rows.  The route runs over a
+  ``CacheMesh`` too, where its ``all_to_all`` is a transpose: the in-process
+  check that it gives the direct engine's results.
 
-One call, for all shards at once:
-  1. hash the queries -> (owner shard, rank among the source slab's queries
-     to that owner), the rank a one-hot cumsum; a query ranked past ``cap``
-     is shed, as the JAX route sheds the rows past a send buffer's depth;
-  2. one conflict update over the whole table, keyed by the global set id,
-     of the served queries.  Shards own disjoint sets and each takes its
-     queries in arrival order (source slab, slot), which is caller order,
-     so each set sees its served queries in caller order: one update is
-     the D per-shard updates, and on one device the ``all_to_all`` there
-     and back is a permutation that changes no result, so none is made.
-     ``engine="rounds"`` runs the access kernel per conflict round,
-     ``engine="onepass"`` the one-pass kernel once (the CUDA kernels for a
-     table on the card, their plain versions on the CPU).
-
-Chain ops add a membership pre-phase: a read-only probe of the batch-start
-table and the longest-prefix scan over each slab's chains
-(``chain_exec_from_hits``; chains never straddle slabs).  An optional
-``order`` plane carries each query's caller-order rank; the served rows are
-stably sorted by it before the update, so the table is bit-equal to the
-local engine fed the queries in rank order, however the caller packed them
-into slabs.
+``engine="rounds"`` runs the access kernel per conflict round,
+``engine="onepass"`` the one-pass kernel once per call (the CUDA kernels
+for a table on the card, their plain versions on the CPU).  Chain ops add a
+membership pre-phase: a read-only probe of the batch-start table and the
+longest-prefix scan over each slab's chains (``chain_exec_from_hits``;
+chains never straddle slabs).  An optional ``order`` plane carries each
+query's caller-order rank; the served rows are stably sorted by it before
+the update, so the table is bit-equal to the local engine fed the queries
+in rank order, however the caller packed them into slabs.
 
 ``ShardedCacheClient`` is the host-side backend of
 ``serving.prefix_cache.PrefixCache``: whole-chain (``load``/``roundrobin``)
@@ -45,7 +44,9 @@ or split placement onto shard slabs, the host shed pre-check that mirrors
 the device ranks, the per-home-shard pressure EWMA that drives admission
 throttling, degraded shards, injected route failures and live resharding.
 Its placement is the JAX package's numpy code, unchanged, so every counter
-and pressure comes out equal to the JAX client's.
+and pressure comes out equal to the JAX client's.  Over a
+``ProcessCacheMesh`` every rank runs the same placement on the same batch,
+feeds its own slab and gathers every slab's results.
 """
 
 from __future__ import annotations
@@ -62,8 +63,9 @@ from repro_torch.core.multistep import (AccessResult, MSLRUConfig, OP_ACCESS,
                                         OP_CHAIN_GET, OP_CHAIN_PUT, OP_LOOKUP,
                                         init_table, row_lookup, set_index_for)
 
-__all__ = ["make_sharded_engine", "make_sharded_stream_runner", "shard_table",
-           "ShardedCacheClient", "per_peer_cap", "sets_per_shard"]
+__all__ = ["make_routed_engine", "make_sharded_engine", "make_sharded_stream_runner",
+           "shard_table", "gather_shards", "ShardedCacheClient", "per_peer_cap",
+           "sets_per_shard"]
 
 _INT32_MAX = 2**31 - 1
 
@@ -95,13 +97,20 @@ def shard_table(table, mesh, axis: str = "cache", dummy: bool = False):
     """A (S, A, C) table (tensor or numpy) as the sharded table on the
     mesh's device: padded with EMPTY sets to ``ndev * s_local`` rows when
     ``ndev`` does not divide S (the padded sets live on the last shard and
-    no key reaches them; host reads slice back to ``[:num_sets]``).
+    no key reaches them; host reads slice back to ``[:num_sets]``).  On a
+    ``ProcessCacheMesh`` the rank's own ``s_local`` rows of it.
     ``dummy=True`` appends the conflict engines' dummy row, for engines
     built with ``in_place=True``."""
     ndev = mesh.shape[axis]
-    table = torch.as_tensor(table).to(mesh.device, torch.int32)
+    table = torch.as_tensor(table)
     s = table.shape[0]
-    pad = ndev * sets_per_shard(s, ndev) - s + (1 if dummy else 0)
+    s_local = sets_per_shard(s, ndev)
+    if mesh.rank is not None:
+        table = table[mesh.rank * s_local:(mesh.rank + 1) * s_local].to(
+            mesh.device, torch.int32, copy=True)
+        s, ndev = table.shape[0], 1
+    table = table.to(mesh.device, torch.int32)
+    pad = ndev * s_local - s + (1 if dummy else 0)
     if pad:
         empty = table.new_zeros((pad,) + tuple(table.shape[1:]))
         empty[:, :, 0] = EMPTY_KEY
@@ -109,16 +118,27 @@ def shard_table(table, mesh, axis: str = "cache", dummy: bool = False):
     return table.contiguous()
 
 
+def gather_shards(mesh, x: torch.Tensor) -> torch.Tensor:
+    """What every shard holds, concatenated in shard order along dim 0 (a
+    rank's table rows give the whole (ndev * s_local, A, C) table): ``x``
+    itself on a ``CacheMesh``, every rank's ``x`` on a
+    ``ProcessCacheMesh``."""
+    return x if mesh.rank is None else mesh.all_gather(x)
+
+
 def make_sharded_engine(cfg: MSLRUConfig, mesh, axis: str = "cache", cap=None,
                         max_rounds: int | None = None, engine: str = "rounds",
                         in_place: bool = False):
     """Build ``run(table, qkeys, qvals, ops=None, chain_ids=None,
-    order=None, costs=None)``.
+    order=None, costs=None)``: the direct engine below on a ``CacheMesh``,
+    the route (``make_routed_engine``) on a ``ProcessCacheMesh``.
 
     table: (D * s_local, A, C) from ``shard_table`` (with ``in_place`` the
-           table with the dummy row appended, updated in place).
+           table with the dummy row appended, updated in place); on a
+           ``ProcessCacheMesh`` the rank's (s_local, A, C) rows.
     qkeys: (Q, KP), qvals: (Q, V): D contiguous slabs of Q / D queries, slab
-           ``d`` the queries shard ``d`` holds.
+           ``d`` the queries shard ``d`` holds; on a ``ProcessCacheMesh``
+           the rank's slab.
     ops:   (Q,) optional opcodes.
     chain_ids: (Q,) optional chain segment ids for CHAIN_GET/CHAIN_PUT rows
            (requires ``ops``), slab-local in [0, Q / D) with every chain in
@@ -132,6 +152,8 @@ def make_sharded_engine(cfg: MSLRUConfig, mesh, axis: str = "cache", cap=None,
     shed queries; ``served`` False only for shed queries, whose planes are
     all zero.  ``engine`` is the conflict scheme of the update.
     """
+    if mesh.rank is not None:
+        return make_routed_engine(cfg, mesh, axis, cap, max_rounds, engine, in_place)
     update = make_conflict_update(cfg, engine, max_rounds, in_place=True)
     ndev = mesh.shape[axis]
     s_local = sets_per_shard(cfg.num_sets, ndev)
@@ -209,6 +231,143 @@ def make_sharded_engine(cfg: MSLRUConfig, mesh, axis: str = "cache", cap=None,
     return run
 
 
+def make_routed_engine(cfg: MSLRUConfig, mesh, axis: str = "cache", cap=None,
+                       max_rounds: int | None = None, engine: str = "rounds",
+                       in_place: bool = False):
+    """The JAX package's route over any mesh with ``all_to_all``:
+    ``run(table, qkeys, qvals, ops=None, chain_ids=None, order=None,
+    costs=None)`` with ``make_sharded_engine``'s operands and results, for
+    the L shards this process holds (all D on a ``CacheMesh``, its own on a
+    ``ProcessCacheMesh``): ``table`` their L * s_local rows, the queries their
+    L slabs.
+
+    Each slab packs its queries into (D, k + 1, planes) send buffers, slot =
+    the query's rank among the slab's queries to the same owner (a one-hot
+    cumsum); a query ranked past k is shed, and its scatter lands in the
+    sacrificial column k, which the exchange leaves out, so it clobbers no
+    admitted row.  The planes are the key, the values, then the opcode, the
+    chain execute bit, the cost and the ``order`` rank when present.  Each
+    owner updates its rows with what it received, in arrival order (source,
+    slot) or stably sorted by ``order``, and the hit and value planes (chain
+    mode: also the evicted ones) go back by the same slots.  Chain mode
+    first routes the keys alone: the owners probe the batch-start table and
+    the hits come back for the longest-prefix scan at the source."""
+    update = make_conflict_update(cfg, engine, max_rounds, in_place=True)
+    ndev = mesh.shape[axis]
+    local = ndev if mesh.rank is None else 1
+    s_local = sets_per_shard(cfg.num_sets, ndev)
+    kp, v = cfg.key_planes, cfg.value_planes
+    ve = max(v, 1)
+
+    def exchange(send):
+        """(L, D, k, planes) send stacks -> the L receive stacks."""
+        return mesh.all_to_all(send) if mesh.rank is None else mesh.all_to_all(send[0])[None]
+
+    def route(qkeys, planes, q, k):
+        """Pack and exchange.  Returns the routed rows (L * D * k, planes),
+        each query's (slab, owner, slot) address for the way back, and the
+        served mask."""
+        dev = qkeys.device
+        owner = set_index_for(cfg, qkeys).to(torch.int64).view(local, q) // s_local
+        onehot = owner[:, :, None] == torch.arange(ndev, device=dev)
+        slot = onehot.to(torch.int32).cumsum(1).gather(2, owner[:, :, None])[:, :, 0] - 1
+        served = slot < k
+        payload = torch.cat([qkeys, *planes], dim=1).view(local, q, -1)
+        send = torch.full((local, ndev, k + 1, payload.shape[-1]), EMPTY_KEY,
+                          dtype=torch.int32, device=dev)
+        slab = torch.arange(local, device=dev)[:, None].expand(local, q)
+        send[slab, owner, torch.where(served, slot, k)] = payload
+        recv = exchange(send[:, :, :k])
+        back = (slab, owner, torch.where(served, slot, k - 1))   # shed rows: clamped
+        return recv.reshape(local * ndev * k, -1), back, served.reshape(-1)
+
+    def route_back(planes, back, k):
+        """The routed rows' result planes back to their sources, unpacked to
+        query order (a shed row reads a clamped slot, masked by the caller)."""
+        out = torch.cat(planes, dim=1).view(local, ndev, k, -1)
+        return exchange(out)[back].reshape(local * back[0].shape[1], -1)
+
+    def run(table, qkeys, qvals, ops=None, chain_ids=None, order=None, costs=None):
+        if order is not None and ops is None:
+            raise ValueError("order requires an ops vector")
+        if chain_ids is not None and ops is None:
+            raise ValueError("chain_ids requires an ops vector")
+        dev = table.device
+        q_all = qkeys.shape[0]
+        if q_all % local:
+            raise ValueError(f"{q_all} queries do not split into {local} slabs")
+        q = q_all // local
+        k = per_peer_cap(cap, q, ndev)
+        padded = table if in_place else pad_dummy_row(table)
+        qkeys = as_i32(qkeys, dev).reshape(q_all, kp)
+        qvals = as_i32(qvals, dev).reshape(q_all, v)
+        ops, chain_ids, order, costs = (as_i32(x, dev) for x in
+                                        (ops, chain_ids, order, costs))
+        # a routed row's row in this process's table: its owner's local
+        # index times s_local plus its set within the owner (padding rows,
+        # EMPTY keys, land inside their receiving shard)
+        rows_of = (torch.arange(local * ndev * k, device=dev) // (ndev * k)) * s_local
+
+        def local_rows(keys):
+            return rows_of + set_index_for(cfg, keys) % s_local
+
+        live = None
+        if chain_ids is not None:
+            rq, back, served = route(qkeys, [], q, k)
+            p_keys = rq[:, :kp]
+            p_hit, _, _ = row_lookup(cfg, padded[local_rows(p_keys)], p_keys)
+            p_hit = p_hit & (p_keys[:, 0] != EMPTY_KEY)
+            home = route_back([p_hit.to(torch.int32)[:, None]], back, k)
+            slab = torch.arange(q_all, device=dev, dtype=torch.int32) // q * q
+            live = chain_exec_from_hits(ops, chain_ids + slab, (home[:, 0] != 0) & served,
+                                        valid=served)
+
+        planes = [qvals] + [x[:, None] for x in (ops, live, costs, order) if x is not None]
+        rq, back, served = route(qkeys, planes, q, k)
+        # the kernels take contiguous planes
+        r_keys, r_vals = rq[:, :kp].contiguous(), rq[:, kp:kp + v].contiguous()
+        valid = r_keys[:, 0] != EMPTY_KEY
+        col = iter(range(kp + v, rq.shape[1]))
+
+        def plane(x, fill):
+            return None if x is None else torch.where(valid, rq[:, next(col)], fill)
+
+        r_ops, r_live = plane(ops, OP_ACCESS), plane(live, 0)
+        r_cost, r_ord = plane(costs, 0), plane(order, _INT32_MAX)
+        lsid = local_rows(r_keys)
+        perm = None
+        if r_ord is not None:
+            perm = torch.sort(r_ord, stable=True).indices
+
+        def p(x):
+            return x if x is None or perm is None else x[perm]
+
+        _, res, _ = update(padded, p(lsid), p(valid), p(r_keys), p(r_vals), p(r_ops),
+                           chain_live=p(r_live), costs=p(r_cost))
+        if perm is not None:
+            inv = torch.empty_like(perm)
+            inv[perm] = torch.arange(perm.shape[0], device=dev)
+            res = AccessResult(*(x[inv] for x in res))
+
+        n = rq.shape[0]
+        zeros = torch.zeros((n, 1), dtype=torch.int32, device=dev)
+        out = [(res.hit & valid).to(torch.int32)[:, None], res.value if v else zeros]
+        if chain_ids is not None:
+            out += [res.evicted_val if v else zeros,
+                    (res.evicted_valid & valid).to(torch.int32)[:, None]]
+        home = route_back(out, back, k)
+        # a shed row is a plain miss with all-zero planes
+        zero = served[:, None]
+        hit = (home[:, 0] != 0) & served
+        val = torch.where(zero, home[:, 1:1 + ve], 0)
+        if chain_ids is not None:
+            ev_val = torch.where(zero, home[:, 1 + ve:1 + 2 * ve], 0)
+            return padded[:-1], hit, val, served, ev_val, (home[:, 1 + 2 * ve] != 0) & served
+        return padded[:-1], hit, val, served
+
+    return run
+
+
 def make_sharded_stream_runner(cfg: MSLRUConfig, mesh, axis: str = "cache",
                                cap=None, batch: int = 4096, engine: str = "rounds",
                                **engine_kwargs):
@@ -221,9 +380,16 @@ def make_sharded_stream_runner(cfg: MSLRUConfig, mesh, axis: str = "cache",
     The counterpart of the JAX package's ``lax.scan``: the table is copied
     once (the dummy row appended), every batch updates it in place, and the
     loop itself makes no host sync (the rounds engine reads its round count
-    once per batch, as it does everywhere)."""
+    once per batch, as it does everywhere).  On a ``ProcessCacheMesh`` every
+    rank passes the whole stream and feeds its slab of each batch; one
+    gather at the end sums the counts over the ranks."""
     eng = make_sharded_engine(cfg, mesh, axis, cap, engine=engine, in_place=True,
                               **engine_kwargs)
+    ndev = mesh.shape[axis]
+    if batch % ndev:
+        raise ValueError(f"batch {batch} does not split into {ndev} slabs")
+    q = batch // ndev
+    lo, hi = (0, batch) if mesh.rank is None else (mesh.rank * q, (mesh.rank + 1) * q)
 
     def run(table, qkeys, qvals, ops=None, chain_ids=None, costs=None):
         if chain_ids is not None and ops is None:
@@ -233,13 +399,15 @@ def make_sharded_stream_runner(cfg: MSLRUConfig, mesh, axis: str = "cache",
         hits = torch.zeros((), dtype=torch.int64, device=padded.device)
         served = torch.zeros((), dtype=torch.int64, device=padded.device)
         for i in range(0, n, batch):
-            sl = slice(i, i + batch)
+            sl = slice(i + lo, i + hi)
             out = eng(padded, qkeys[sl], qvals[sl],
                       None if ops is None else ops[sl],
                       None if chain_ids is None else chain_ids[sl],
                       costs=None if costs is None else costs[sl])
             hits += out[1].sum()
             served += out[3].sum()
+        if mesh.rank is not None:
+            hits, served = mesh.all_gather(torch.stack([hits, served])[None]).sum(0)
         return padded[:-1], hits, served
 
     return run
@@ -325,8 +493,14 @@ class ShardedCacheClient:
 
     @property
     def table(self) -> torch.Tensor:
-        """The (ndev * s_local, A, C) sharded table (a view)."""
+        """The (ndev * s_local, A, C) sharded table (a view); on a
+        ``ProcessCacheMesh`` this rank's (s_local, A, C) rows."""
         return self._padded[:-1]
+
+    def _one_process(self, what: str) -> None:
+        if self.mesh.rank is not None:
+            raise NotImplementedError(f"{what} across processes needs subgroups of "
+                                      "the mesh; it runs on a one-process CacheMesh")
 
     @property
     def device(self) -> torch.device:
@@ -443,17 +617,22 @@ class ShardedCacheClient:
         # key + val + op + live [+ cost] + order
         self.route_shape = (q, k_depth, 1 + v + 3 + (0 if costs is None else 1))
 
-        # one host-to-device copy of the packed slabs, one fetch of results
+        # one host-to-device copy of the packed slabs (on a process mesh,
+        # this rank's), one fetch of every slab's results
         cols = [k[:, None], vv, oo[:, None], cc[:, None], od[:, None]]
         if cst is not None:
             cols.append(cst[:, None])
-        x = torch.from_numpy(np.concatenate(cols, axis=1)).to(self.device)
+        x = np.concatenate(cols, axis=1)
+        if self.mesh.rank is not None:
+            x = x[self.mesh.rank * q:(self.mesh.rank + 1) * q]
+        x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
         _, hit, val, served, ev_val, ev_ok = self._run(
             self._padded, x[:, :1], x[:, 1:1 + v], x[:, 1 + v], x[:, 2 + v],
             order=x[:, 3 + v], costs=None if cst is None else x[:, 4 + v])
         ve = val.shape[1]
         out = torch.cat([hit.to(torch.int32)[:, None], served.to(torch.int32)[:, None],
-                         ev_ok.to(torch.int32)[:, None], val, ev_val], dim=1).cpu().numpy()
+                         ev_ok.to(torch.int32)[:, None], val, ev_val], dim=1)
+        out = gather_shards(self.mesh, out).cpu().numpy()
         hit_h, served_h, ev_ok_h = out[:, 0] != 0, out[:, 1] != 0, out[:, 2] != 0
         val_h, ev_val_h = out[:, 3:3 + ve], out[:, 3 + ve:]
         # the pre-check admits only rows that fit their per-peer buffer; a
@@ -739,6 +918,7 @@ class ShardedCacheClient:
         """Treat ``shard`` as lost: wipe its sets and shed every later group
         homing a chunk there (until a ``reshard``).  Returns the orphaned
         pages (value plane 0 of the shard's entries, each once)."""
+        self._one_process("mark_degraded")
         if not 0 <= shard < self.ndev:
             raise ValueError(f"shard {shard} outside [0, {self.ndev})")
         if shard in self.degraded:
@@ -792,6 +972,7 @@ class ShardedCacheClient:
         registered chain reaches (each once)."""
         from repro_torch.launch.mesh import make_cache_mesh
 
+        self._one_process("reshard")
         if new_ndev < 1:
             raise ValueError(f"new_ndev must be >= 1, got {new_ndev}")
         if self.cfg.value_planes < 1:
@@ -875,5 +1056,6 @@ class ShardedCacheClient:
     @property
     def occupancy(self) -> float:
         """Share of live ways over the real sets (float64, as numpy's mean)."""
-        live = self.table[: self.cfg.num_sets, :, 0] != EMPTY_KEY
-        return int(live.sum()) / live.numel()
+        live = (self.table[: self.cfg.num_sets, :, 0] != EMPTY_KEY).sum()
+        return int(gather_shards(self.mesh, live[None]).sum()) / (self.cfg.num_sets
+                                                                 * self.cfg.assoc)

@@ -1,22 +1,33 @@
-"""Dry run: trace every (arch × shape) cell's step on the meta device and
-write its roofline record for one H100.
+"""Dry run: every (arch × shape) cell's step on the meta device, as a
+roofline record for one H100, or its state per device on a production mesh.
 
-Port of ``repro.launch.dryrun`` on one device.  The JAX dry run lowers and
-compiles each cell on the production meshes of 256 and 512 chips and reads
-the counts from the compiled HLO; the port runs one device (``chips = 1``)
-and traces each step once on meta tensors (``configs.specs``: nothing is
-allocated), counting its FLOPs, bytes and memory as it runs
-(``roofline.counts``), then the three terms (``roofline.analysis``).  Train
-cells use ``remat="full"`` and ``launch.steps.default_microbatches``;
+Port of ``repro.launch.dryrun``.  The JAX dry run lowers and compiles each
+cell on the production meshes of 256 and 512 chips and reads the counts
+from the compiled HLO.  The port has two kinds of record:
+
+* one device (the default, ``__1dev``): each step traced once on meta
+  tensors (``configs.specs``: nothing is allocated), its FLOPs, bytes and
+  memory counted as it runs (``roofline.counts``), then the three terms
+  (``roofline.analysis``).  Train cells use ``remat="full"`` and
+  ``launch.steps.default_microbatches``.
+* ``--mesh pod1`` or ``pod2`` (the JAX cells ``__pod1``/``__pod2``; 256 or
+  512 chips; ``--multi-pod`` is ``--mesh pod2``): the bytes per device of
+  the state the step's inputs and outputs hold under the sharding rules
+  (``launch/sharding.py``): the parameters, AdamW's f32 master, m and v
+  (train), the batch, and the KV or recurrent cache (prefill and decode),
+  and whether that state alone fits the card.  Counted on meta shapes, so
+  nothing is allocated.  The port cannot yet count a step's activations or
+  collectives on a mesh: those fields are null, as are the terms.
+
 ``long_500k`` runs only where the arch ``supports_long``.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun                # all cells
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh pod2
 
 Records go to ``results/dryrun_torch/`` as JSON, one per cell; a cell that
-already has one is skipped unless ``--force``.  ``--multi-pod`` raises: the
-port has no mesh of pods.  Exits 1 if a cell failed.
+already has one is skipped unless ``--force``.  Exits 1 if a cell failed.
 """
 
 from __future__ import annotations
@@ -28,9 +39,15 @@ import time
 import traceback
 from pathlib import Path
 
+import torch
+
 from repro_torch.configs import SHAPES, get_config, list_archs
+from repro_torch.configs import specs
 from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.launch import sharding as shd
+from repro_torch.launch.mesh import axis_sizes, batch_axes, make_production_mesh
 from repro_torch.launch.steps import bundle_for, default_microbatches
+from repro_torch.models.model import make_model
 from repro_torch.roofline import analysis as roofline
 from repro_torch.roofline.counts import count_step
 
@@ -41,8 +58,14 @@ RESULTS_DIR = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 TRAIN_REMAT = "full"
 
 
-def cell_id(arch: str, shape: str) -> str:
-    return f"{arch}__{shape}__1dev"
+# the production meshes by record name: multi_pod for make_production_mesh
+MESHES = {"pod1": False, "pod2": True}
+NOT_COUNTED = ("activations and collectives: the port cannot count a step on a mesh "
+               "yet (it comes with the sharded step)")
+
+
+def cell_id(arch: str, shape: str, mesh: str | None = None) -> str:
+    return f"{arch}__{shape}__{mesh or '1dev'}"
 
 
 def applicable(cfg: ArchConfig, shape_name: str) -> bool:
@@ -72,23 +95,94 @@ def analyze_cell(cfg: ArchConfig, shape: ShapeSpec, *,
     return rec
 
 
-def run_cell(arch: str, shape_name: str, out_dir: Path, force: bool = False) -> dict:
-    out_path = out_dir / (cell_id(arch, shape_name) + ".json")
+def _bytes_per_device(mesh, t, spec) -> int:
+    """Bytes of ``t``'s shard on one device under ``spec`` (the rules shard
+    only dims their axes divide)."""
+    sizes = axis_sizes(mesh)
+    n = 1
+    for e in spec:
+        for a in (e if isinstance(e, tuple) else (e,) if e else ()):
+            n *= sizes[a]
+    return t.numel() * t.element_size() // n
+
+
+def mesh_state_cell(cfg: ArchConfig, shape: ShapeSpec, mesh_name: str) -> dict:
+    """The state record of one cell on the production mesh ``mesh_name``:
+    per device, the parameters, the optimizer state (train: f32 master, m
+    and v of each parameter, and the step counter), the batch (decode: the
+    tokens and ``cur_len``) and the cache (prefill's output and decode's
+    input, ``init_cache``'s shapes)."""
+    mesh = make_production_mesh(multi_pod=MESHES[mesh_name])
+    model = make_model(cfg)
+    b = shape.global_batch
+    leaves = list(shd.tree_key_paths(specs.abstract_params(model)))
+    param_bytes = sum(_bytes_per_device(mesh, p, shd.param_spec(cfg, mesh, path, p))
+                      for path, p in leaves)
+    dev = {"param_bytes": param_bytes, "optimizer_bytes": 0, "batch_bytes": 0,
+           "cache_bytes": 0}
+    if shape.kind == "train":
+        elems = sum(_bytes_per_device(mesh, p, shd.param_spec(cfg, mesh, path, p))
+                    // p.element_size() for path, p in leaves)
+        dev["optimizer_bytes"] = 3 * 4 * elems + 4
+    if shape.kind == "decode":
+        tokens = specs.sds((b, 1), torch.int32)
+        dev["batch_bytes"] = _bytes_per_device(
+            mesh, tokens, (shd._if_div(mesh, batch_axes(mesh), b), None)) + 4
+    else:
+        batch = (specs.train_batch_specs if shape.kind == "train"
+                 else specs.prefill_batch_specs)(cfg, shape)
+        spec = shd.batch_shardings(cfg, mesh, batch, b)
+        dev["batch_bytes"] = sum(_bytes_per_device(mesh, t, spec[k]) for k, t in batch.items())
+    if shape.kind != "train":
+        cache = model.init_cache(b, shape.seq_len, device=specs.META)
+        cspec = shd.cache_shardings(cfg, mesh, cache, b)
+
+        def walk(t, sp):
+            if isinstance(t, dict):
+                return sum(walk(t[k], sp[k]) for k in t)
+            return _bytes_per_device(mesh, t, sp)
+
+        dev["cache_bytes"] = walk(cache, cspec)
+    dev["state_bytes"] = sum(dev.values())
+    dev.update({"activation_bytes": None, "flops": None, "bytes": None,
+                "collective_bytes": None})
+    return {"mesh": mesh_name, "mesh_shape": dict(mesh.shape), "chips": mesh.size,
+            "per_device": dev, "device_bytes": roofline.HBM_BYTES,
+            "state_fits": dev["state_bytes"] <= roofline.HBM_BYTES,
+            "terms_seconds": None, "dominant": None, "not_counted": NOT_COUNTED,
+            "model_flops": roofline.model_flops_for(cfg, shape),
+            "batch": b, "seq_len": shape.seq_len,
+            "params": cfg.param_count(), "active_params": cfg.active_param_count()}
+
+
+def run_cell(arch: str, shape_name: str, out_dir: Path, force: bool = False,
+             mesh: str | None = None) -> dict:
+    """One cell's record: the one-device trace, or with ``mesh`` ("pod1",
+    "pod2") the state per device on that production mesh."""
+    out_path = out_dir / (cell_id(arch, shape_name, mesh) + ".json")
     if out_path.exists() and not force:
         return json.loads(out_path.read_text())
     cfg = get_config(arch)
     if not applicable(cfg, shape_name):
-        rec = {"cell": cell_id(arch, shape_name), "skipped": True,
+        rec = {"cell": cell_id(arch, shape_name, mesh), "skipped": True,
                "reason": cfg.long_skip_reason}
     else:
-        rec = analyze_cell(cfg, SHAPES[shape_name])
-        rec.update({"cell": cell_id(arch, shape_name), "arch": arch, "shape": shape_name,
-                    "multi_pod": False, "skipped": False})
+        rec = (analyze_cell(cfg, SHAPES[shape_name]) if mesh is None
+               else mesh_state_cell(cfg, SHAPES[shape_name], mesh))
+        rec.update({"cell": cell_id(arch, shape_name, mesh), "arch": arch,
+                    "shape": shape_name, "multi_pod": mesh == "pod2", "skipped": False})
     out_path.write_text(json.dumps(rec, indent=1))
     return rec
 
 
 def summary(rec: dict) -> str:
+    if rec.get("mesh"):
+        d = rec["per_device"]
+        return (f"{rec['mesh']} ({rec['chips']} chips), per device: params "
+                f"{d['param_bytes'] / 1e9:.3f}GB optimizer {d['optimizer_bytes'] / 1e9:.3f}GB "
+                f"batch {d['batch_bytes'] / 1e9:.4f}GB cache {d['cache_bytes'] / 1e9:.3f}GB "
+                f"state {d['state_bytes'] / 1e9:.3f}GB of {rec['device_bytes'] / 1e9:.0f} "
+                f"(fits: {rec['state_fits']}); activations and collectives not counted")
     t = rec["terms_seconds"]
     m = rec["memory"]
     return (f"terms: compute={t['compute'] * 1e3:.2f}ms memory={t['memory'] * 1e3:.2f}ms "
@@ -103,16 +197,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--shape", default=None, help="one shape (default: all)")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--out", default=str(RESULTS_DIR))
-    ap.add_argument("--multi-pod", action="store_true",
-                    help="the JAX dry run's mesh of TPU pods; not ported")
+    ap.add_argument("--mesh", choices=sorted(MESHES), default=None,
+                    help="state per device on a production mesh (default: one device)")
+    ap.add_argument("--multi-pod", action="store_true", help="the same as --mesh pod2")
     return ap
 
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    if args.multi_pod:
-        raise NotImplementedError("--multi-pod: the port runs one device, "
-                                  "with no mesh of pods")
+    mesh = "pod2" if args.multi_pod else args.mesh
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     archs = [args.arch] if args.arch else list_archs()
@@ -122,15 +215,16 @@ def main(argv=None):
     for arch in archs:
         for shape_name in shapes:
             try:
-                rec = run_cell(arch, shape_name, out_dir, force=args.force)
+                rec = run_cell(arch, shape_name, out_dir, force=args.force, mesh=mesh)
                 if rec.get("skipped"):
                     print(f"[{rec['cell']}] SKIP: {rec.get('reason', '')}")
                 else:
-                    print(f"[{rec['cell']}] {summary(rec)} ({rec['trace_s']:.1f} s)",
+                    print(f"[{rec['cell']}] {summary(rec)}"
+                          + (f" ({rec['trace_s']:.1f} s)" if "trace_s" in rec else ""),
                           flush=True)
             except Exception as e:  # noqa: BLE001 - a cell's failure is reported, the rest run
                 failures.append((arch, shape_name, repr(e)))
-                print(f"[{cell_id(arch, shape_name)}] FAILED: {e}")
+                print(f"[{cell_id(arch, shape_name, mesh)}] FAILED: {e}")
                 traceback.print_exc()
 
     print(f"\n{'=' * 70}\ndry-run complete; failures: {len(failures)}")

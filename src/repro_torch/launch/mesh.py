@@ -1,29 +1,129 @@
-"""The sharded cache's mesh: D logical shards on one device.
+"""Meshes: the production meshes, the sharded cache's, and their processes.
 
-Port of ``repro.launch.mesh.make_cache_mesh``.  The JAX package runs the
-sharded cache over a 1-D ``("cache",)`` mesh of D devices (D fake CPU
-devices in its tests) and routes queries between them with
-``jax.lax.all_to_all``.  NCCL does not put two ranks on one GPU, so the
-port runs the D shards of that mesh as D logical shards in one process on
-one device, the counterpart of the fake-device mesh.  On one device the
-sharded engine makes no exchange (``core/sharded.py``: the route there and
-back changes no result); ``all_to_all``, the exchange of every shard's send
-buffers at once as a transpose of their stack, is the interface a
-transport across cards implements.
+Port of ``repro.launch.mesh``.  Importing this module touches no device and
+starts no process group.
+
+Production meshes (the JAX package's TPU pods of 256 chips):
+  single-pod:  (data=16, model=16)
+  multi-pod:   (pod=2, data=16, model=16), 512 chips.
+A batch shards over ('pod', 'data'), tensor parallelism over 'model', FSDP
+parameter sharding over 'data'.  ``make_production_mesh`` and
+``make_debug_mesh`` give a ``torch.distributed`` ``DeviceMesh`` of that
+shape when a process group of that size exists, and otherwise a
+``MeshShape``: the record of the axes that the sharding rules
+(``launch/sharding.py``) and the dry run read, which allocates nothing.
+
+The sharded cache uses a flat ``"cache"`` axis.  ``CacheMesh`` holds its D
+shards as D logical shards in one process on one device (the counterpart of
+the JAX package's fake-device mesh); ``ProcessCacheMesh`` holds one shard per
+rank of a process group.  Both exchange send buffers with ``all_to_all``:
+the transpose of the stacked buffers in one process, ``all_to_all_single``
+across processes.  The backend of a process group is the caller's choice:
+``nccl`` passes device tensors and needs one card per rank (NCCL does not put
+two ranks on one card); ``gloo`` stages every exchange through host buffers
+(pinned when CUDA is present), which lets D ranks share one card, and times
+that staging apart from the exchange.  ``run_on_ranks`` spawns the ranks.
 """
 
 from __future__ import annotations
 
+import datetime
+import math
+import os
+import queue
+import socket
+import time
+import traceback
+from collections.abc import Mapping
+
 import torch
 
-__all__ = ["CacheMesh", "make_cache_mesh"]
+__all__ = ["AXIS_DATA", "AXIS_MODEL", "AXIS_POD", "CacheMesh", "MeshShape",
+           "ProcessCacheMesh", "all_reduce", "axis_names", "axis_sizes", "batch_axes",
+           "make_cache_mesh", "make_debug_mesh", "make_production_mesh",
+           "run_on_ranks"]
 
+AXIS_POD = "pod"
+AXIS_DATA = "data"
+AXIS_MODEL = "model"
+
+
+class MeshShape:
+    """A mesh as the record of its axes: ``shape`` maps each axis name to
+    its size, as a JAX mesh's ``shape`` does.  It allocates nothing."""
+
+    def __init__(self, shape, axes):
+        if len(shape) != len(axes):
+            raise ValueError(f"mesh shape {tuple(shape)} for axes {tuple(axes)}")
+        self.shape = dict(zip(axes, (int(n) for n in shape)))
+        self.axis_names = tuple(axes)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def __repr__(self) -> str:
+        return f"MeshShape({self.shape})"
+
+
+def axis_sizes(mesh) -> dict:
+    """``{axis name: size}`` of a mesh whose ``shape`` is a mapping (a
+    ``MeshShape``, a JAX mesh, a test's stand-in) or of a ``DeviceMesh``."""
+    if isinstance(mesh.shape, Mapping):
+        return dict(mesh.shape)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def axis_names(mesh) -> tuple:
+    """The mesh's axis names in mesh order."""
+    names = getattr(mesh, "mesh_dim_names", None) or getattr(mesh, "axis_names", None)
+    return tuple(names) if names else tuple(axis_sizes(mesh))
+
+
+def _mesh(shape, axes, device_type):
+    """A ``DeviceMesh`` of ``shape`` when the default process group has
+    exactly that many ranks, else a ``MeshShape``."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() == math.prod(shape):
+        from torch.distributed.device_mesh import init_device_mesh
+
+        return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(axes))
+    return MeshShape(shape, axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = (AXIS_POD, AXIS_DATA, AXIS_MODEL) if multi_pod else (AXIS_DATA, AXIS_MODEL)
+    return _mesh(shape, axes, device_type)
+
+
+def make_debug_mesh(shape=(1, 1), axes=(AXIS_DATA, AXIS_MODEL), device_type: str = "cuda"):
+    """A small mesh for tests: a ``DeviceMesh`` inside a process group of
+    its size, a ``MeshShape`` outside one."""
+    return _mesh(tuple(shape), tuple(axes), device_type)
+
+
+def batch_axes(mesh) -> tuple:
+    """Mesh axes the global batch shards over."""
+    sizes = axis_sizes(mesh)
+    return tuple(a for a in (AXIS_POD, AXIS_DATA) if a in sizes)
+
+
+# ---------------------------------------------------------------------------
+# The sharded cache's "cache" axis
+# ---------------------------------------------------------------------------
 
 class CacheMesh:
-    """D logical shards of the ``"cache"`` axis on ``device``.
+    """D logical shards of the ``"cache"`` axis on ``device``, in one
+    process.
 
-    ``shape["cache"]`` is D, as on a JAX mesh; ``all_to_all`` exchanges
-    the per-peer send buffers of all D shards."""
+    ``shape["cache"]`` is D, as on a JAX mesh; ``rank`` is None: this
+    process holds every shard.  ``all_to_all`` exchanges the per-peer send
+    buffers of all D shards at once."""
+
+    rank = None
 
     def __init__(self, ndev: int, device):
         if ndev < 1:
@@ -60,3 +160,210 @@ def make_cache_mesh(n_devices: int | None = None, device="cuda") -> CacheMesh:
     if n_devices is None:
         n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
     return CacheMesh(n_devices, device)
+
+
+class _HostStage:
+    """Host buffers for a gloo collective of device tensors, one per
+    (role, shape, dtype), pinned when CUDA is present; the copies in and out
+    are timed into ``seconds``."""
+
+    def __init__(self):
+        self._buffers: dict = {}
+        self.seconds = 0.0
+
+    def buffer(self, role, shape, dtype) -> torch.Tensor:
+        key = (role, tuple(shape), dtype)
+        buf = self._buffers.get(key)
+        if buf is None:
+            buf = torch.empty(shape, dtype=dtype, pin_memory=torch.cuda.is_available())
+            self._buffers[key] = buf
+        return buf
+
+    def copy(self, dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+        """A blocking copy (a pinned buffer is reused only after it)."""
+        t = time.perf_counter()
+        dst.copy_(src)
+        self.seconds += time.perf_counter() - t
+        return dst
+
+
+def all_reduce(t: torch.Tensor, op, group=None) -> torch.Tensor:
+    """``dist.all_reduce`` of ``t`` in place over ``group``: device tensors
+    directly under NCCL, through a host copy under gloo.  Returns ``t``."""
+    import torch.distributed as dist
+
+    if dist.get_backend(group) == "nccl" or t.device.type == "cpu":
+        dist.all_reduce(t, op=op, group=group)
+        return t
+    host = t.cpu()
+    dist.all_reduce(host, op=op, group=group)
+    return t.copy_(host)
+
+
+class ProcessCacheMesh:
+    """The ``"cache"`` axis over a process group: rank ``r`` holds shard
+    ``r``, its ``s_local`` table rows and its slab of each batch.
+
+    ``shape["cache"]`` is the group's size and ``all_to_all`` the exchange
+    of this rank's send stack, as on ``CacheMesh``.  Under gloo the
+    exchange goes through host buffers (``stage_seconds`` accumulates the
+    copies to and from them, ``wire_seconds`` the collective itself,
+    ``exchanges`` counts the calls)."""
+
+    def __init__(self, group=None, device="cuda"):
+        import torch.distributed as dist
+
+        from repro_torch.core import resolve_device
+
+        self.group = group if group is not None else dist.group.WORLD
+        self.rank = dist.get_rank(self.group)
+        self.shape = {"cache": dist.get_world_size(self.group)}
+        self.backend = dist.get_backend(self.group)
+        self.device = resolve_device(device)
+        if self.backend == "nccl" and self.device.type != "cuda":
+            raise ValueError("an nccl group exchanges device tensors: pass a CUDA device")
+        self._stage = _HostStage()
+        self.wire_seconds = 0.0
+        self.exchanges = 0
+
+    @property
+    def ndev(self) -> int:
+        return self.shape["cache"]
+
+    @property
+    def stage_seconds(self) -> float:
+        return self._stage.seconds
+
+    def all_to_all(self, send: torch.Tensor) -> torch.Tensor:
+        """``send`` (D, k, planes): ``send[d]`` goes to rank ``d``.  Returns
+        the (D, k, planes) stack this rank receives, ``recv[s]`` what rank
+        ``s`` sent it: ``all_to_all(split_axis=0, concat_axis=0,
+        tiled=True)``."""
+        import torch.distributed as dist
+
+        if send.shape[0] != self.ndev:
+            raise ValueError(f"send buffers {tuple(send.shape)} on a mesh of "
+                             f"{self.ndev} ranks")
+        send = send.contiguous()
+        self.exchanges += 1
+        if self.backend == "nccl":
+            recv = torch.empty_like(send)
+            t = time.perf_counter()
+            dist.all_to_all_single(recv, send, group=self.group)
+            self.wire_seconds += time.perf_counter() - t
+            return recv
+        st = self._stage
+        h_send = st.copy(st.buffer("send", send.shape, send.dtype), send)
+        h_recv = st.buffer("recv", send.shape, send.dtype)
+        t = time.perf_counter()
+        dist.all_to_all_single(h_recv, h_send, group=self.group)
+        self.wire_seconds += time.perf_counter() - t
+        return st.copy(torch.empty_like(send), h_recv)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` (the same shape on each), concatenated along
+        dim 0 in rank order, on this rank's device."""
+        import torch.distributed as dist
+
+        x = x.contiguous()
+        if self.backend == "nccl":
+            out = [torch.empty_like(x) for _ in range(self.ndev)]
+            dist.all_gather(out, x, group=self.group)
+            return torch.cat(out)
+        out = [torch.empty_like(x, device="cpu") for _ in range(self.ndev)]
+        dist.all_gather(out, x.cpu(), group=self.group)
+        return torch.cat(out).to(x.device)
+
+    def __repr__(self) -> str:
+        return (f"ProcessCacheMesh(cache={self.ndev}, rank={self.rank}, "
+                f"backend={self.backend}, device={self.device})")
+
+
+# ---------------------------------------------------------------------------
+# Spawning the ranks
+# ---------------------------------------------------------------------------
+
+RANK_TIMEOUT_S = 600
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(fn, rank, world, backend, device, port, args, results):
+    import torch.distributed as dist
+
+    try:
+        # ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        if torch.device(device).type == "cuda":
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=world, rank=rank,
+                                timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+        results.put((rank, True, fn(*args)))
+    except Exception:
+        # report to the parent, then fail this process as well
+        results.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_on_ranks(fn, world: int, backend: str = "gloo", device="cuda", args: tuple = (),
+                 timeout: float = RANK_TIMEOUT_S) -> list:
+    """Run ``fn(*args)`` on ``world`` spawned processes, each rank ``r`` of
+    one default process group (``backend``, rendezvous on a free localhost
+    port) with its card set (rank ``r`` on card ``r mod count``) when
+    ``device`` is CUDA.  ``fn`` and ``args`` are pickled: a module-level
+    function and plain or numpy values.  Returns every rank's result (also
+    pickled), in rank order.
+
+    Each rank takes an equal share of the host's cores for its torch
+    threads.  Raises if any rank raised (with its traceback), exited
+    without a result, or ran past ``timeout`` seconds; the other ranks are
+    killed then, since they may wait on the failed one in a collective."""
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"backend {backend!r}: gloo or nccl")
+    if backend == "nccl" and world > torch.cuda.device_count():
+        raise ValueError(f"nccl needs one card per rank: {world} ranks, "
+                         f"{torch.cuda.device_count()} cards")
+    ctx = torch.multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(fn, r, world, backend, str(device), port, args, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    done, errors = {}, {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(done) < world and not errors:
+            try:
+                rank, ok, payload = results.get(timeout=1.0)
+            except queue.Empty:
+                for r, p in enumerate(procs):
+                    if r not in done and p.exitcode not in (None, 0):
+                        errors[r] = f"rank {r} exited with code {p.exitcode}"
+                if time.monotonic() > deadline:
+                    errors[-1] = f"ranks still running after {timeout} s"
+                continue
+            (done if ok else errors)[rank] = payload
+    finally:
+        for p in procs:
+            p.join(timeout=5 if errors else 60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        results.close()
+    for r, p in enumerate(procs):
+        if not errors and p.exitcode != 0:
+            errors[r] = f"rank {r} exited with code {p.exitcode} after its result"
+    if errors:
+        raise RuntimeError("run_on_ranks: " + "\n".join(
+            f"[rank {r}] {msg}" for r, msg in sorted(errors.items())))
+    return [done[r] for r in range(world)]

@@ -62,7 +62,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--multi-pod", action="store_true",
-                    help="a mesh of TPU pods in the JAX launcher; not ported")
+                    help="the JAX launcher's mesh of pods; raises until the sharded "
+                         "step is ported")
     ap.add_argument("--device", default="cuda")
     return ap
 
@@ -76,8 +77,9 @@ def build(args, cfg=None):
     """(the Trainer, the data) the arguments describe; ``cfg`` replaces the
     arch's config (a depth cut or another ``remat``)."""
     if args.multi_pod:
-        raise NotImplementedError("--multi-pod: the port trains on one device, "
-                                  "with no mesh of pods")
+        raise NotImplementedError("--multi-pod: the port trains on one device until "
+                                  "the sharded training step (DTensor through the models) "
+                                  "is ported")
     cfg = cfg or get_config(args.arch, smoke=args.smoke)
     model = make_model(cfg)
     if args.smoke:

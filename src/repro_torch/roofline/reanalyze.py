@@ -6,7 +6,8 @@ The counterpart of ``repro.roofline.reanalyze``, which re-reads the saved
 HLO: a port record keeps its per-device counts, so ``terms_seconds``,
 ``dominant``, ``useful_flop_ratio`` and ``roofline_fraction`` are
 recomputed from them with the constants of ``roofline.analysis`` as they
-are now.
+are now.  A production-mesh record (``--mesh``) counts state only and is
+left as it is.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from repro_torch.roofline.analysis import BF16_PEAK, terms
 
 def reanalyze_cell(json_path: Path) -> dict:
     rec = json.loads(json_path.read_text())
-    if rec.get("skipped"):
+    if rec.get("skipped") or rec.get("mesh"):   # a mesh record counts state only
         return rec
     dev = rec["per_device"]
     chips = rec["chips"]
@@ -45,7 +46,7 @@ def main(argv=None):
     n = 0
     for f in sorted(Path(args.dir).glob("*.json")):
         r = reanalyze_cell(f)
-        if not r.get("skipped"):
+        if r.get("terms_seconds"):
             t = r["terms_seconds"]
             print(f"{r['cell']:46s} comp={t['compute'] * 1e3:8.1f}ms "
                   f"mem={t['memory'] * 1e3:9.1f}ms coll={t['collective'] * 1e3:9.1f}ms "

@@ -571,3 +571,48 @@ def test_sharded_serving_on_the_card(cuda):
                                           "throttled_admissions", "partial_sheds")},
                      eng.prefix_cache.stats()["shed"]))
     assert runs[0] == runs[1]
+
+
+# ---------------------------------------------------------------------------
+# The distributed layer's device code
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("engine", ["onepass", "rounds"])
+def test_route_on_the_card_equals_the_direct_engine(cuda, engine):
+    """The route over an in-process ``CacheMesh`` on the card (each kernel
+    fed the routed planes) gives the direct engine's planes and table, at
+    a full and a bounded per-peer depth, with opcodes."""
+    from repro_torch.core.sharded import make_routed_engine, make_sharded_engine, shard_table
+    from repro_torch.launch.mesh import make_cache_mesh
+
+    cfg = MSLRUConfig(num_sets=512, m=2, p=4, value_planes=2)
+    mesh = make_cache_mesh(8, device="cuda")
+    rng = np.random.default_rng(3)
+    for cap in ("full", 24):
+        direct = make_sharded_engine(cfg, mesh, cap=cap, engine=engine)
+        routed = make_routed_engine(cfg, mesh, cap=cap, engine=engine)
+        a = shard_table(init_table(cfg, "cuda"), mesh)
+        b = a.clone()
+        for _ in range(3):
+            keys = torch.from_numpy(rng.integers(1, 3000, (1024, 1)).astype(np.int32)).cuda()
+            vals = torch.cat([keys, -keys], 1)
+            ops = torch.from_numpy(rng.integers(0, 4, 1024).astype(np.int32)).cuda()
+            got, want = routed(b, keys, vals, ops), direct(a, keys, vals, ops)
+            for x, y in zip(got, want):
+                assert torch.equal(x, y), (cap, engine)
+            a, b = want[0], got[0]
+
+
+def test_quantize_int8_on_the_card_equals_the_cpu(cuda):
+    """``quantize_int8``/``dequantize_int8`` on the card bit-equal to the
+    CPU (whose arithmetic equals JAX's), the scale an IEEE quotient on
+    both, over 64 seeded tensors of different maxima."""
+    from repro_torch.train.compression import dequantize_int8, quantize_int8
+
+    gen = torch.Generator().manual_seed(0)
+    for i in range(64):
+        x = torch.randn(4096, generator=gen) * float(torch.rand((), generator=gen)) * 10 ** (i % 5)
+        q, s = quantize_int8(x)
+        qd, sd = quantize_int8(x.to(cuda))
+        assert torch.equal(qd.cpu(), q) and sd.cpu().view(torch.int32) == s.view(torch.int32)
+        assert torch.equal(dequantize_int8(qd, sd).cpu(), dequantize_int8(q, s))

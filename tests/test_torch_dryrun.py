@@ -8,8 +8,12 @@
   MoE decoder, xLSTM; train cells with ``remat="full"``, as the dry run
   sets them) and equal ``FlopCounterMode``'s; the counts with the
   meta-kernel memo equal those without it.
-* The CLI writes a record with every key; ``--multi-pod`` raises;
-  ``reanalyze`` recomputes the terms from a saved record.
+* The CLI writes a record with every key; ``reanalyze`` recomputes the
+  terms from a saved record.  ``--mesh pod1|pod2`` (``--multi-pod`` is
+  pod2) writes state records whose per-device bytes of phi3-mini-3.8b's
+  parameters, AdamW state, batch and cache equal a sum over JAX's
+  ``PartitionSpec``s of the same leaves; activations and collectives null.
+  ``launch/train.py --multi-pod`` still raises.
 * phi3-mini-3.8b at full width traces its train step (1024 x 2, remat
   full) on meta without allocating its 61 GB of state, and counts
   ``chip_smoke.train_flops`` less the recompute that checkpointing stops
@@ -23,6 +27,7 @@ import sys
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
@@ -142,9 +147,98 @@ def test_cli_writes_records_and_reanalyze_recomputes(tmp_path, monkeypatch):
     assert dryrun.run_cell("gemma3-1b", "train_4k", tmp_path) == want
 
 
-def test_multi_pod_raises():
-    with pytest.raises(NotImplementedError):
-        dryrun.main(["--multi-pod"])
+def test_multi_pod_raises(tmp_path):
+    """``--multi-pod`` still raises in the trainer (no sharded step yet); in
+    the dry run it is ``--mesh pod2``: state records of 512 chips, with the
+    activation and collective fields null."""
+    from repro_torch.launch import train
+
+    with pytest.raises(NotImplementedError, match="multi-pod"):
+        train.build(train.parser().parse_args(["--arch", "gemma3-1b", "--smoke", "--multi-pod",
+                                               "--device", "cpu"]))
+    dryrun.main(["--arch", "phi3-mini-3.8b", "--shape", "decode_32k", "--multi-pod",
+                 "--out", str(tmp_path)])
+    dryrun.main(["--arch", "phi3-mini-3.8b", "--shape", "long_500k", "--mesh", "pod1",
+                 "--out", str(tmp_path)])
+    rec = json.loads((tmp_path / "phi3-mini-3.8b__decode_32k__pod2.json").read_text())
+    assert rec["chips"] == 512 and rec["multi_pod"] and rec["mesh"] == "pod2"
+    assert rec["mesh_shape"] == {"pod": 2, "data": 16, "model": 16}
+    dev = rec["per_device"]
+    assert dev["activation_bytes"] is None and dev["collective_bytes"] is None
+    assert rec["terms_seconds"] is None and "not_counted" in rec
+    assert dev["state_bytes"] == sum(dev[k] for k in ("param_bytes", "optimizer_bytes",
+                                                      "batch_bytes", "cache_bytes"))
+    assert json.loads((tmp_path / "phi3-mini-3.8b__long_500k__pod1.json").read_text())[
+        "skipped"]
+    assert reanalyze.reanalyze_cell(tmp_path / "phi3-mini-3.8b__decode_32k__pod2.json") == rec
+
+
+@pytest.mark.parametrize("mesh_name", ["pod1", "pod2"])
+def test_mesh_state_equals_sum_over_jax_specs(mesh_name, monkeypatch):
+    """phi3-mini-3.8b at full width on the production meshes: each cell's
+    per-device parameter, optimizer, batch and cache bytes equal the sum,
+    over JAX's leaves of the same state, of each leaf's bytes divided by
+    the mesh axes its ``PartitionSpec`` names."""
+    import numpy as np
+
+    from repro.configs import specs as jax_specs
+    from repro.launch import sharding as jshd
+    from repro.models.model import make_model as jax_make_model
+
+    monkeypatch.setattr(jshd, "NamedSharding", lambda mesh, spec: spec)
+
+    class FakeMesh:
+        shape = ({"pod": 2, "data": 16, "model": 16} if mesh_name == "pod2"
+                 else {"data": 16, "model": 16})
+
+    def per_device(leaf, spec):
+        n = 1
+        for e in spec:
+            for a in (e if isinstance(e, tuple) else (e,) if e else ()):
+                n *= FakeMesh.shape[a]
+        return int(np.prod(leaf.shape)) * np.dtype(leaf.dtype).itemsize // n
+
+    def tree_bytes(tree, specs):
+        flat = jax.tree_util.tree_leaves(tree)
+        sp = jax.tree_util.tree_leaves(specs, is_leaf=lambda x: isinstance(x, tuple))
+        return sum(per_device(x, s) for x, s in zip(flat, sp, strict=True))
+
+    jcfg = jax_get_config("phi3-mini-3.8b")
+    jmodel = jax_make_model(jcfg)
+    params = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0))
+    flat = jax.tree_util.tree_flatten_with_path(params)[0]
+    pspecs = [jshd.param_spec(jcfg, FakeMesh, tuple(str(k.key) for k in kp), x) for kp, x in flat]
+    param_bytes = sum(per_device(x, s) for (_, x), s in zip(flat, pspecs))
+    param_elems = sum(per_device(x, s) // np.dtype(x.dtype).itemsize
+                      for (_, x), s in zip(flat, pspecs))
+    for name in ("train_4k", "prefill_32k", "decode_32k"):
+        sh = JAX_SHAPES[name]
+        b = sh.global_batch
+        want = {"param_bytes": param_bytes, "optimizer_bytes": 0, "batch_bytes": 0,
+                "cache_bytes": 0}
+        if sh.kind == "train":
+            want["optimizer_bytes"] = 12 * param_elems + 4
+        if sh.kind == "decode":
+            ba = jshd.batch_axes(FakeMesh)
+            tok = jax.ShapeDtypeStruct((b, 1), jnp.int32)
+            want["batch_bytes"] = per_device(
+                tok, (ba if b % max(1, jshd._axis_size(FakeMesh, ba)) == 0 else None,
+                      None)) + 4
+        else:
+            batch = (jax_specs.train_batch_specs if sh.kind == "train"
+                     else jax_specs.prefill_batch_specs)(jcfg, sh)
+            bs = jshd.batch_shardings(jcfg, FakeMesh, batch, b)
+            want["batch_bytes"] = sum(per_device(batch[k], tuple(bs[k])) for k in batch)
+        if sh.kind != "train":
+            cache = jax.eval_shape(lambda: jmodel.init_cache(b, sh.seq_len))
+            cs = jax.tree.map(tuple, jshd.cache_shardings(jcfg, FakeMesh, cache, b),
+                              is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+            want["cache_bytes"] = tree_bytes(cache, cs)
+        got = dryrun.mesh_state_cell(get_config("phi3-mini-3.8b"), SHAPES[name], mesh_name)
+        for k, v in want.items():
+            assert got["per_device"][k] == v, (name, k)
+        assert got["state_fits"] == (sum(want.values()) <= analysis.HBM_BYTES)
+        assert got["chips"] == (512 if mesh_name == "pod2" else 256)
 
 
 def test_full_width_train_cell_traces_on_meta_without_allocating():

@@ -42,13 +42,27 @@ def test_importing_the_port_loads_no_jax():
                    env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=120)
 
 
+def test_importing_the_distributed_layer_starts_no_process_group():
+    """The meshes, the sharding rules, compression and the sharded cache
+    import without starting a process group or a rank (a mesh of the
+    production shape is a record until a group of its size exists)."""
+    code = ("import torch.distributed as dist\n"
+            "import repro_torch.launch.sharding, repro_torch.launch.mesh as m\n"
+            "import repro_torch.train.compression, repro_torch.core.sharded\n"
+            "assert not dist.is_initialized()\n"
+            "assert isinstance(m.make_production_mesh(), m.MeshShape)\n"
+            "assert not dist.is_initialized()\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
+                   env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=120)
+
+
 def test_every_port_module_is_checked():
     """The rule covers every module of the port, the MoE and Mamba modules,
     the configs of the MoE, hymba, xLSTM and Whisper families, the sharded
     cache, its mesh and the elastic plans, the training path (step,
     launcher, optimizer, trainer, checkpoints, synthetic data), the Python
-    oracle and baselines, the input specs, the dry run and the roofline
-    among them."""
+    oracle and baselines, the input specs, the dry run and the roofline,
+    the sharding rules and gradient compression among them."""
     checked = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES
                if p.is_relative_to(ROOT / "src" / "repro_torch")}
     assert {"models/moe.py", "models/ssm.py", "models/transformer.py",
@@ -59,4 +73,5 @@ def test_every_port_module_is_checked():
             "train/optimizer.py", "train/trainer.py", "train/checkpoint.py",
             "data/synthetic.py", "core/policies.py", "configs/specs.py",
             "launch/dryrun.py", "roofline/__init__.py", "roofline/analysis.py",
-            "roofline/counts.py", "roofline/reanalyze.py"} <= checked
+            "roofline/counts.py", "roofline/reanalyze.py", "launch/sharding.py",
+            "train/compression.py"} <= checked

@@ -70,12 +70,14 @@ def chain_batch(chains, staged):
             np.asarray(ops, np.int32), np.asarray(cids, np.int32))
 
 
-def client_steps(seed: int, ndev: int, n_ticks: int = 7, reshard_to: int = 1):
+def client_steps(seed: int, ndev: int, n_ticks: int = 7, reshard_to: int = 1,
+                 faults: bool = True):
     """A seeded sequence of client calls: chain ticks over shared templates
     (same-tick duplicates, shared prefixes, chains that miss and insert),
     one plain ACCESS insert batch and one LOOKUP batch, transient route
     failures, a degraded shard (when ``ndev`` >= 2) and a reshard to
-    ``reshard_to`` shards two ticks before the end."""
+    ``reshard_to`` shards two ticks before the end.  ``faults=False`` leaves
+    out the degraded shard and the reshard (the same draws otherwise)."""
     rng = np.random.default_rng(seed)
     templates = [_hashes(rng, int(rng.integers(2, 7))) for _ in range(6)]
     page = 1
@@ -83,9 +85,9 @@ def client_steps(seed: int, ndev: int, n_ticks: int = 7, reshard_to: int = 1):
     for t in range(n_ticks):
         if t == 2:
             steps.append(("route_fail", 2, 0.4, seed + 11))
-        if t == 3 and ndev >= 2:
+        if t == 3 and ndev >= 2 and faults:
             steps.append(("degrade", ndev - 1))
-        if t == n_ticks - 2:
+        if t == n_ticks - 2 and faults:
             steps.append(("reshard", reshard_to))
         chains = []
         for _ in range(int(rng.integers(3, 7))):
