@@ -198,8 +198,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``model.decode_step`` + argmax over 8 steps; then ``launch/dryrun.py``
    on the host over phi3-mini's four cells and phase 23(b)'s cut train cell
    (counted FLOPs against ``train_flops``, terms and memory beside phase
-   23(b)'s measured step and peak), and its state per device (parameters,
-   AdamW state, batch, cache) on the production meshes pod1 and pod2;
+   23(b)'s measured step and peak); its records on the production meshes
+   are phase 30(c)'s;
 28. the sharded cache with one shard per process: ``run_on_ranks`` spawns
    D = 2, 4 and 8 gloo ranks that share the card (NCCL does not put two
    ranks on one card, so the route's ``all_to_all`` goes through pinned
@@ -217,12 +217,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    2-layer cut; ``compress_tree`` over 4 gloo ranks on the card, two rounds
    carrying the residuals, bit-equal to the formula on the CPU (the int32
    sum of every rank's int8 values times the largest scale; residuals).
-   Any rank's failure fails the run.
+   Any rank's failure fails the run;
+30. the sharded step (``launch/steps.py`` on a ``DeviceMesh``): (a) phase
+   23(b)'s run (phi3-mini-3.8b at full width and depth, remat full, 1024 x
+   2) for MESH_STEPS steps on one device, then through the launcher's
+   ``build`` on a (1, 1) mesh in a process group of one NCCL rank: losses
+   within LOSS_RTOL, parameters within GRAD_ULPS bf16 ulps, ms per step and
+   peak memory beside phase 23(b)'s (what DTensor dispatch costs the
+   host-bound step); (b) phi3-mini at full width, 2 of 32 layers, 256 x 4:
+   one train step, the prefill and CUT_DECODE serve steps on one device,
+   then on meshes (2, 1) and (1, 2) of 2 gloo ranks and (2, 2) of 4 sharing
+   the card, DTensor's collectives through host memory
+   (``HostStagedCollectives``, which counts them), each held against one
+   device (metrics, parameters and the gradients that reached AdamW within
+   the CPU tests' bounds, every rank's parameters, master, m and v those of
+   the one-device update of its shards bit for bit, logits within phase 9's
+   LOGIT_ULPS, greedy tokens equal but at ties), with ms per step per rank
+   and the first step's collectives by kind; (c) ``launch/dryrun.py --mesh
+   pod1|pod2`` for phi3-mini's cells,
+   run on the host beside (a) and (b): every record's activations,
+   collectives, terms, dominant term and roofline fraction counted.
+   Phase 30 launches none of the three kernels.
 
 Then the JSON lines: the main path (phase 20 under ``sharded``, 28 under
 ``route``), the serving path (phases 8, 9, 11-19, 21 under ``sharded``),
-training (phases 22-24, 29 under ``compression``), the oracle, the figures
-and the dry run (phases 25-27) and every kernel's record (the paged
+training (phases 22-24, 29 under ``compression``, 30(a) and 30(b) under
+``sharded_step``), the oracle, the figures and the dry run (phases 25-27,
+30(c) under ``dryrun``'s ``mesh_cells``) and every kernel's record (the paged
 kernel's with ``shapes``: its record at phases 13-16's shapes).
 
 The msl_cache comparisons are bit-exact (all state is int32).  The last
@@ -3282,24 +3303,15 @@ def run_dryrun(torch, phase23):
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import dryrun
 
-    out = {"cells": {}, "mesh_cells": {}}
+    out = {"cells": {}}
     with tempfile.TemporaryDirectory() as tmp:
         for shape in SHAPES:
             rec = dryrun.run_cell(PHI3, shape, Path(tmp))
             out["cells"][shape] = rec
             log(f"dry run {rec['cell']}: " + ("skipped" if rec["skipped"] else
                                               f"{dryrun.summary(rec)} ({rec['trace_s']:.1f} s)"))
-        # the state per device on the production meshes (activations and
-        # collectives are not counted there yet)
-        for mesh in dryrun.MESHES:
-            for shape in SHAPES:
-                rec = dryrun.run_cell(PHI3, shape, Path(tmp), mesh=mesh)
-                out["mesh_cells"][rec["cell"]] = rec
-                log(f"dry run {rec['cell']}: " + ("skipped" if rec["skipped"]
-                                                  else dryrun.summary(rec)))
-                if not rec["skipped"] and (rec["per_device"]["activation_bytes"] is not None
-                                           or rec["per_device"]["state_bytes"] <= 0):
-                    raise AssertionError(f"{rec['cell']}: a mesh record counts state only")
+        # the production meshes' records (the sharded step traced per device)
+        # are phase 30(c)'s
     cfg = get_config(PHI3)
     b, s = DRYRUN_TRAIN_CUT
     rec = dryrun.analyze_cell(cfg, ShapeSpec("train_cut", s, b, "train"), microbatches=1)
@@ -3722,6 +3734,422 @@ def run_compression(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 13: the sharded step (phase 30)
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 3                  # 30(a): phase 23(b)'s run on a (1, 1) mesh
+CUT_LAYERS = 2                  # 30(b): phase 23(a)'s depth cut ...
+CUT_SEQ, CUT_ROWS = 256, 4      # ... at 256 tokens x 4 rows (a data axis of 2)
+CUT_PROMPT, CUT_DECODE = 128, 3
+RANK_MESHES = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}   # (data, model) by ranks
+
+
+def _bf16_ulps(torch, want, got) -> float:
+    """max |want - got| in bf16 ulps of max |want| (0 for an all-zero leaf
+    equal to it)."""
+    m = float(want.abs().max())
+    d = float((want.float() - got.float()).abs().max())
+    return d / 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else (0.0 if d == 0 else math.inf)
+
+
+def _cut_config():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(PHI3), n_layers=CUT_LAYERS)
+
+
+def _cut_batches(workdir, cfg):
+    """30(b)'s seeded train batch and prompts, as files for the ranks."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    t = rng.integers(0, cfg.vocab_size, (CUT_ROWS, CUT_SEQ + 1)).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab_size, (CUT_ROWS, CUT_PROMPT)).astype(np.int32)
+    for name, x in (("tokens", t[:, :-1]), ("labels", t[:, 1:]), ("prompts", prompts)):
+        np.save(Path(workdir) / f"{name}.npy", x)
+
+
+def _cut_inputs(workdir, device):
+    import numpy as np
+    import torch
+
+    def load(name):
+        return torch.from_numpy(np.load(Path(workdir) / f"{name}.npy")).to(device)
+
+    return {"tokens": load("tokens"), "labels": load("labels")}, load("prompts")
+
+
+def redo_update(torch, opt_mod, start, grads, norm, params, opt) -> dict:
+    """The one-device AdamW update (the plain path) of this rank's shard of
+    every leaf, from the shard it ``start``-ed with, its gradient shard and
+    the step's global norm, with ``build_train_step``'s schedule: the
+    elements of the step's parameters, master, m and v it does not give bit
+    for bit, by kind (all 0 when the mesh step updated every shard once, in
+    the right direction, and copied the master back)."""
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.layers import local
+
+    kw = build_train_step.__kwdefaults__
+    norm_t = torch.tensor(norm, dtype=torch.float32, device=DEVICE)
+    global_norm, opt_mod.global_norm = opt_mod.global_norm, lambda tree: norm_t
+    try:
+        _, st, _ = opt_mod.adamw_update(
+            {n: local(g) for n, g in grads.items()}, opt_mod.adamw_init(start), start,
+            lr_fn=opt_mod.cosine_schedule(kw["lr"], kw["warmup"], kw["total_steps"]))
+    finally:
+        opt_mod.global_norm = global_norm
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    got = {"params": {n: local(p).detach() for n, p in params.named_parameters()},
+           **{k: {n: local(x) for n, x in getattr(opt, k).items()} for k in ("master", "m", "v")}}
+    want = {"params": start, "master": st.master, "m": st.m, "v": st.v}
+    return {k: sum(int((bits(want[k][n]) != bits(t)).sum()) for n, t in got[k].items())
+            for k in got}
+
+
+def cut_steps(torch, workdir, mesh=None, ref=None, staged=None):
+    """30(b)'s steps of phi3-mini at full width, 2 layers, on ``mesh`` (None:
+    one device): one train step from the seeded weights (the collectives it
+    issues read from ``staged``, the ``HostStagedCollectives`` they go
+    through), then one more timed; the prefill of the prompts from the
+    seeded weights and CUT_DECODE serve steps on its cache, fed ``ref``'s
+    tokens (None: the greedy ones).  With ``ref`` (the one-device record's
+    ``state`` file), the updated parameters and the f32 gradients that
+    reached AdamW are held against it here (their largest gap in bf16 ulps,
+    on rank 0), and every rank redoes the step's update of its shards
+    (``update_mismatches``)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.steps import (build_prefill_step, build_serve_step,
+                                          build_train_step, place_params)
+    from repro_torch.models.layers import local
+    from repro_torch.models.model import make_model
+    from repro_torch.train import optimizer as opt_mod
+
+    cfg = _cut_config()
+    model = make_model(cfg)
+
+    def fresh():
+        p = model.init(torch.Generator(device=DEVICE).manual_seed(SEED))
+        return p if mesh is None else place_params(cfg, mesh, p)
+
+    def rows(x):
+        return x if mesh is None else shd.local_batch(mesh, {"x": x}, CUT_ROWS)["x"]
+
+    def full(x):
+        x = x.detach()
+        return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+    batch, prompts = _cut_inputs(workdir, DEVICE)
+    batch = {k: rows(v) for k, v in batch.items()}
+    bundle = build_train_step(model, ShapeSpec("cut", CUT_SEQ, CUT_ROWS, "train"), mesh=mesh)
+    params = fresh()
+    opt = opt_mod.adamw_init(params)
+    start = {n: local(p).detach().clone() for n, p in params.named_parameters()}
+    update, seen = opt_mod.adamw_update, []
+
+    def recording(grads, *args, **kw):      # the gradients that reach AdamW
+        seen.append(dict(opt_mod.leaves(grads)))
+        return update(grads, *args, **kw)
+
+    opt_mod.adamw_update = recording
+    try:
+        params, opt, metrics = bundle.fn(params, opt, batch)
+    finally:
+        opt_mod.adamw_update = update
+    rec = {"metrics": {k: float(v) for k, v in metrics.items()}}
+    if staged is not None:
+        rec["collective_calls"], rec["collective_bytes"] = dict(staged.calls), dict(staged.bytes)
+    if mesh is not None:
+        rec["update_mismatches"] = redo_update(torch, opt_mod, start, seen[0],
+                                               rec["metrics"]["grad_norm"], params, opt)
+    del start
+    if ref is not None or mesh is None:
+        state = {"params": {n: full(p) for n, p in params.named_parameters()},
+                 "grads": {n: full(g).float() for n, g in seen[0].items()}}
+        if ref is None:
+            torch.save({k: {n: t.cpu() for n, t in v.items()} for k, v in state.items()},
+                       Path(workdir) / "state.pt")
+        elif mesh.get_rank() == 0:
+            want = torch.load(ref, map_location=DEVICE)
+            rec["ulps"] = {k: max(_bf16_ulps(torch, want[k][n], t) for n, t in v.items())
+                           for k, v in state.items()}
+        del state
+    del seen
+    _sync(torch, DEVICE)
+    t = time.perf_counter()
+    params, opt, metrics = bundle.fn(params, opt, batch)
+    float(metrics["loss"])
+    rec["ms_per_step"] = (time.perf_counter() - t) * 1e3
+    del params, opt
+
+    params = fresh()
+    with torch.no_grad():
+        logits, pcache = build_prefill_step(
+            model, ShapeSpec("p", CUT_PROMPT, CUT_ROWS, "prefill"), mesh=mesh).fn(
+                params, {"tokens": rows(prompts)})
+        rec["prefill"] = full(logits).float().cpu().numpy()
+        cache = model.init_cache(CUT_ROWS, CUT_PROMPT + CUT_DECODE, device=DEVICE)
+        for k in cache:
+            cache[k][:, :, :CUT_PROMPT] = full(pcache[k])
+        del pcache
+        if mesh is not None:
+            cache = shd.distribute_tree(mesh, cache,
+                                        shd.cache_shardings(cfg, mesh, cache, CUT_ROWS))
+        serve = build_serve_step(model, ShapeSpec("d", CUT_PROMPT + CUT_DECODE, CUT_ROWS,
+                                                  "decode"), mesh=mesh)
+        import numpy as np
+
+        tok = np.argmax(rec["prefill"], -1).astype(np.int32)
+        rec["fed"], rec["logits"] = [], []
+        for i in range(CUT_DECODE):
+            if ref is not None:
+                tok = np.load(Path(workdir) / f"fed{i}.npy")
+            rec["fed"].append(tok)
+            lg, cache = serve.fn(params, rows(torch.from_numpy(tok[:, None]).to(DEVICE)), cache,
+                                 CUT_PROMPT + i)
+            rec["logits"].append(full(lg).float().cpu().numpy())
+            tok = np.argmax(rec["logits"][-1], -1).astype(np.int32)
+    return rec
+
+
+def mesh_step_rank(workdir, shapes):
+    """One rank of phase 30(b): ``cut_steps`` on each (data, model) mesh,
+    DTensor's collectives through host memory (``HostStagedCollectives``:
+    they crash over gloo on CUDA tensors otherwise), which counts them."""
+    import torch
+
+    from repro_torch.launch.mesh import HostStagedCollectives, make_debug_mesh
+
+    out = {}
+    for shape in shapes:
+        mesh = make_debug_mesh(shape, device_type="cuda")
+        with HostStagedCollectives() as staged:
+            out[shape] = cut_steps(torch, workdir, mesh, Path(workdir) / "state.pt", staged)
+        out[shape]["staged_seconds"] = staged.seconds
+        release(torch)
+    return out
+
+
+def run_mesh_training(torch, phase23):
+    """Phase 30(a): phase 23(b)'s run (phi3-mini-3.8b at full width and depth,
+    remat full, 1024 x 2) for MESH_STEPS steps on one device, then on a
+    (1, 1) ``DeviceMesh`` in a process group of one NCCL rank (this
+    process): the losses within LOSS_RTOL of the one-device run's (and of
+    phase 23(b)'s first steps), every updated parameter within GRAD_ULPS
+    bf16 ulps; ms per step and peak memory beside phase 23(b)'s."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import _free_port, make_debug_mesh
+
+    cfg = dataclasses.replace(get_config(PHI3), remat="full")
+    b, s = 2, 1024
+    args = train_args("--arch", PHI3, "--seq-len", str(s), "--global-batch", str(b),
+                      "--microbatches", "1", "--steps", str(FULL_STEPS))
+    tr, data = train.build(args, cfg)
+    tr.init_state(resume=False)
+    want_hist = tr.run(data, MESH_STEPS, log_every=1)
+    want_losses = [h["loss"] for h in want_hist]
+    want_ms = sorted(h["sec_per_step"] * 1e3 for h in want_hist[1:])
+    want = {n: p.detach().cpu() for n, p in tr.params.named_parameters()}
+    del tr
+    release(torch)
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_debug_mesh((1, 1), device_type="cuda")
+        tr, data = train.build(args, cfg, mesh=mesh)
+        torch.cuda.reset_peak_memory_stats()
+        tr.init_state(resume=False)
+        hist = tr.run(data, MESH_STEPS, log_every=1)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ulps = max(_bf16_ulps(torch, want[n].to(DEVICE), p.detach().to_local())
+                   for n, p in tr.params.named_parameters())
+        del tr
+        release(torch)
+    finally:
+        dist.destroy_process_group()
+    losses = [h["loss"] for h in hist]
+    ms = sorted(h["sec_per_step"] * 1e3 for h in hist[1:])
+    rel = max(abs(x - y) / abs(y) for x, y in zip(losses, want_losses))
+    rel23 = max((abs(x - y) / abs(y) for x, y in zip(losses, phase23["full"]["losses"])),
+                default=0.0)
+    out = {"mesh": [1, 1], "backend": "nccl", "steps": MESH_STEPS, "losses": losses,
+           "losses_one_device": want_losses, "loss_rel": rel, "loss_rel_phase23": rel23,
+           "param_ulps": ulps, "ms_per_step": ms[len(ms) // 2], "ms_per_step_all": ms,
+           "one_device_ms_per_step": want_ms[len(want_ms) // 2],
+           "one_device_ms_per_step_all": want_ms,
+           "peak_memory_gb": peak_gb, "phase23_ms_per_step": phase23["full"]["ms_per_step"],
+           "phase23_peak_memory_gb": phase23["full"]["peak_memory_gb"]}
+    log(f"phi3-mini-3.8b at full width and depth on a (1, 1) DeviceMesh (one NCCL rank), "
+        f"{b} x {s}, remat full, {MESH_STEPS} steps: losses {[round(x, 5) for x in losses]} "
+        f"against one device's {[round(x, 5) for x in want_losses]} (gap {rel:.2e}; phase "
+        f"23(b)'s {rel23:.2e}), parameters within {ulps:.2f} bf16 ulps; "
+        f"{out['ms_per_step']:.1f} ms per step (one device in this phase: "
+        f"{out['one_device_ms_per_step']:.1f}; phase 23(b): "
+        f"{out['phase23_ms_per_step']:.1f}), peak memory {peak_gb:.1f} GB (phase 23(b): "
+        f"{out['phase23_peak_memory_gb']:.1f})")
+    if rel > LOSS_RTOL or rel23 > LOSS_RTOL or ulps > GRAD_ULPS:
+        raise AssertionError(f"the (1, 1) mesh's run differs from one device's: loss gap "
+                             f"{rel:.2e} ({rel23:.2e} from phase 23(b)), {ulps:.2f} ulps")
+    return out
+
+
+def _logits_close(want, got, what) -> int:
+    """``got`` logits (rows, V) within LOGIT_ULPS bf16 ulps of each row's
+    largest |logit| of ``want`` (phase 9's bound for two full-width paths:
+    the logits are bf16 products, an ulp of 0.03-0.06 at this width), and
+    their argmax equal but where ``want`` puts the two tokens within that
+    bound (a tie): returns the rows split at a tie."""
+    import numpy as np
+
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max(-1))) - 7)
+    diff = np.abs(got - want).max(-1)
+    if np.any(diff > LOGIT_ULPS * ulp):
+        raise AssertionError(f"{what}: logits off by {float((diff / ulp).max()):.2f} bf16 "
+                             f"ulps of the row's largest |logit| (allowed {LOGIT_ULPS})")
+    w, g = np.argmax(want, -1), np.argmax(got, -1)
+    rows = np.flatnonzero(w != g)
+    gaps = np.abs(want[rows, w[rows]] - want[rows, g[rows]])
+    if np.any(gaps > LOGIT_ULPS * ulp[rows]):
+        raise AssertionError(f"{what}: greedy tokens split beyond a tie: {gaps}")
+    return len(rows)
+
+
+def run_rank_meshes(torch):
+    """Phase 30(b): phi3-mini at full width, 2 of 32 layers, 256 x 4: the
+    one-device steps on the card (``cut_steps``), then D = 2 gloo ranks on
+    meshes (2, 1) and (1, 2) and D = 4 on (2, 2), sharing the card: each
+    mesh's train step (metrics within LOSS_RTOL / NORM_RTOL, parameters and
+    the gradients that reached AdamW within GRAD_ULPS bf16 ulps: the CPU
+    tests' bounds; every rank's parameters, master, m and v those of the
+    one-device update of its shards, bit for bit), prefill and serve
+    logits (``_logits_close``) and greedy tokens (equal, or a tie) against
+    one device; per-rank ms per step and the collectives by kind."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch.mesh import run_on_ranks
+
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        _cut_batches(workdir, _cut_config())
+        ref = cut_steps(torch, workdir)
+        release(torch)
+        for i, tok in enumerate(ref["fed"]):
+            np.save(Path(workdir) / f"fed{i}.npy", tok)
+        out["one_device"] = {"metrics": ref["metrics"], "ms_per_step": ref["ms_per_step"]}
+        log(f"30(b) one device: loss {ref['metrics']['loss']:.6f}, grad norm "
+            f"{ref['metrics']['grad_norm']:.6f}, {ref['ms_per_step']:.1f} ms per step")
+        for world, shapes in RANK_MESHES.items():
+            t = time.perf_counter()
+            ranks = run_on_ranks(mesh_step_rank, world, "gloo", DEVICE,
+                                 args=(workdir, shapes), timeout=600)
+            wall = time.perf_counter() - t
+            for shape in shapes:
+                recs = [r[shape] for r in ranks]
+                got = recs[0]
+                what = f"phi3-mini-3.8b, 2 layers, mesh {shape} over {world} gloo ranks"
+                for k, v in got["metrics"].items():
+                    rtol = NORM_RTOL if k == "grad_norm" else LOSS_RTOL
+                    if abs(v - ref["metrics"][k]) > rtol * abs(ref["metrics"][k]):
+                        raise AssertionError(f"{what}: {k} {v} against {ref['metrics'][k]}")
+                if any(u > GRAD_ULPS for u in got["ulps"].values()):
+                    raise AssertionError(f"{what}: {got['ulps']} bf16 ulps")
+                if any(any(x["update_mismatches"].values()) for x in recs):
+                    raise AssertionError(f"{what}: the update is not the one-device update of "
+                                         f"the same gradients: "
+                                         f"{[x['update_mismatches'] for x in recs]}")
+                gap = max(float((np.abs(g - w).max(-1) / 2.0 ** (
+                    np.floor(np.log2(np.abs(w).max(-1))) - 7)).max())
+                    for w, g in zip([ref["prefill"], *ref["logits"]],
+                                    [got["prefill"], *got["logits"]]))
+                split = sum(_logits_close(w, g, f"{what}, step {i}") for i, (w, g) in
+                            enumerate(zip([ref["prefill"], *ref["logits"]],
+                                          [got["prefill"], *got["logits"]])))
+                out[f"{shape[0]}x{shape[1]}"] = r = {
+                    "ranks": world, "metrics": got["metrics"], "ulps": got["ulps"],
+                    "update_mismatches_per_rank": [x["update_mismatches"] for x in recs],
+                    "logits_max_gap_ulps": gap,
+                    "greedy_split_at_ties_of": [split, (CUT_DECODE + 1) * CUT_ROWS],
+                    "ms_per_step_per_rank": [x["ms_per_step"] for x in recs],
+                    "collective_calls": got["collective_calls"],
+                    "collective_bytes": got["collective_bytes"],
+                    "staged_seconds_per_rank": [x["staged_seconds"] for x in recs],
+                    "group_wall_s": wall}
+                log(f"{what}: loss {got['metrics']['loss']:.6f} (one device "
+                    f"{ref['metrics']['loss']:.6f}), parameters within "
+                    f"{got['ulps']['params']:.2f} and gradients within "
+                    f"{got['ulps']['grads']:.2f} bf16 ulps, every rank's update the one-device "
+                    f"update of its shards bit for bit, prefill and serve logits within "
+                    f"{gap:.2f} bf16 ulps of the row's largest, greedy tokens {split} of "
+                    f"{(CUT_DECODE + 1) * CUT_ROWS} split at "
+                    f"ties; ms per step per "
+                    f"rank {[round(x, 1) for x in r['ms_per_step_per_rank']]}; collectives per "
+                    f"rank in the first train step: " + ", ".join(
+                        f"{k} {got['collective_calls'][k]} ({got['collective_bytes'][k]:,} B)"
+                        for k in got["collective_bytes"] if got["collective_calls"][k])
+                    + f"; {got['staged_seconds']:.2f} s in host-staged collectives over the "
+                    f"whole phase on rank 0")
+    return out
+
+
+def start_mesh_dryrun(workdir):
+    """Phase 30(c), started first: ``launch/dryrun.py --mesh`` for phi3-mini's
+    cells on pod1 and pod2, one process each on the host (meta tensors, a
+    process group that moves nothing), while 30(a) and 30(b) run."""
+    env = {**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = []
+    for mesh in ("pod1", "pod2"):
+        out = open(Path(workdir) / f"{mesh}.log", "w")
+        procs.append(subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun",
+                                       "--arch", PHI3, "--mesh", mesh, "--out", str(workdir),
+                                       "--force"], cwd=ROOT, env=env, stdout=out,
+                                      stderr=subprocess.STDOUT))
+        out.close()
+    return procs
+
+
+def finish_mesh_dryrun(procs, workdir):
+    """Phase 30(c): the records of ``start_mesh_dryrun``'s runs, each
+    checked to count activations, collectives and terms."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+
+    for p, mesh in zip(procs, ("pod1", "pod2")):
+        if p.wait(timeout=900) != 0:
+            text = (Path(workdir) / f"{mesh}.log").read_text()
+            raise AssertionError(f"the mesh dry run failed:\n{text[-4000:]}")
+    out = {}
+    for mesh in ("pod1", "pod2"):
+        for shape in SHAPES:
+            rec = json.loads((Path(workdir) / f"{dryrun.cell_id(PHI3, shape, mesh)}.json")
+                             .read_text())
+            out[rec["cell"]] = rec
+            log(f"dry run {rec['cell']}: " + ("skipped" if rec["skipped"]
+                                              else dryrun.summary(rec)
+                                              + f" ({rec['trace_s']:.1f} s)"))
+            if rec["skipped"]:
+                continue
+            dev = rec["per_device"]
+            if not (dev["activation_bytes"] and dev["flops"] and dev["collective_bytes"]
+                    and rec["terms_seconds"] and rec["dominant"]
+                    and rec["roofline_fraction"] is not None):
+                raise AssertionError(f"{rec['cell']}: a field is not counted")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3922,6 +4350,33 @@ def main() -> int:
     phase("29. int8 gradient compression: the card against the CPU, then over 4 gloo ranks")
     training["compression"] = run_compression(torch)
     release(torch)
+
+    # 30(c) traces on the host while 30(a) and 30(b) run on the card; the
+    # training path launches none of the three kernels
+    import tempfile
+
+    zero_launches()
+    with tempfile.TemporaryDirectory() as dry_dir:
+        dry = start_mesh_dryrun(dry_dir)
+        try:
+            phase("30. the sharded step on the card: (a) phi3-mini-3.8b on a (1, 1) mesh of one "
+                  "NCCL rank")
+            sharded = {"one_rank_mesh": run_mesh_training(torch, training[PHI3])}
+            release(torch)
+            phase("30(b). phi3-mini-3.8b, 2 layers, on meshes (2, 1), (1, 2), (2, 2) of gloo "
+                  "ranks sharing the card")
+            sharded["rank_meshes"] = run_rank_meshes(torch)
+            release(torch)
+            phase("30(c). the dry run's pod1 and pod2 records of phi3-mini-3.8b, counted from "
+                  "the sharded step")
+            claims["dryrun"]["mesh_cells"] = finish_mesh_dryrun(dry, dry_dir)
+        finally:
+            for p in dry:
+                p.kill()
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the sharded step launched kernels: {launches}")
+    training["sharded_step"] = sharded
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

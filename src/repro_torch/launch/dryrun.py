@@ -1,5 +1,5 @@
 """Dry run: every (arch × shape) cell's step on the meta device, as a
-roofline record for one H100, or its state per device on a production mesh.
+roofline record for one H100, or per device on a production mesh.
 
 Port of ``repro.launch.dryrun``.  The JAX dry run lowers and compiles each
 cell on the production meshes of 256 and 512 chips and reads the counts
@@ -11,13 +11,18 @@ from the compiled HLO.  The port has two kinds of record:
   (``roofline.analysis``).  Train cells use ``remat="full"`` and
   ``launch.steps.default_microbatches``.
 * ``--mesh pod1`` or ``pod2`` (the JAX cells ``__pod1``/``__pod2``; 256 or
-  512 chips; ``--multi-pod`` is ``--mesh pod2``): the bytes per device of
-  the state the step's inputs and outputs hold under the sharding rules
-  (``launch/sharding.py``): the parameters, AdamW's f32 master, m and v
-  (train), the batch, and the KV or recurrent cache (prefill and decode),
-  and whether that state alone fits the card.  Counted on meta shapes, so
-  nothing is allocated.  The port cannot yet count a step's activations or
-  collectives on a mesh: those fields are null, as are the terms.
+  512 chips; ``--multi-pod`` is ``--mesh pod2``): the cell's sharded step
+  (``launch.steps.bundle_for`` on the mesh) traced on meta DTensors over a
+  process group of 256 or 512 ranks in this process that moves nothing
+  (``launch.mesh.fake_mesh``), counted per device (rank 0's shards): FLOPs,
+  bytes, the peak of what the step makes beside its inputs
+  (``activation_bytes``: activations, gradients, temporaries), and the
+  collectives' result bytes by kind; then the three terms, the collective
+  one over one 400 Gb/s link per GPU.  Beside them, the bytes per device of
+  the state the step's inputs and outputs hold under the sharding rules:
+  the parameters, AdamW's f32 master, m and v (train), the batch, and the
+  KV or recurrent cache (prefill and decode), and whether that state alone
+  fits the card.
 
 ``long_500k`` runs only where the arch ``supports_long``.
 
@@ -45,7 +50,8 @@ from repro_torch.configs import SHAPES, get_config, list_archs
 from repro_torch.configs import specs
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.launch import sharding as shd
-from repro_torch.launch.mesh import axis_sizes, batch_axes, make_production_mesh
+from repro_torch.launch.mesh import (MeshShape, axis_sizes, batch_axes, fake_mesh,
+                                    make_production_mesh)
 from repro_torch.launch.steps import bundle_for, default_microbatches
 from repro_torch.models.model import make_model
 from repro_torch.roofline import analysis as roofline
@@ -60,8 +66,6 @@ TRAIN_REMAT = "full"
 
 # the production meshes by record name: multi_pod for make_production_mesh
 MESHES = {"pod1": False, "pod2": True}
-NOT_COUNTED = ("activations and collectives: the port cannot count a step on a mesh "
-               "yet (it comes with the sharded step)")
 
 
 def cell_id(arch: str, shape: str, mesh: str | None = None) -> str:
@@ -106,13 +110,20 @@ def _bytes_per_device(mesh, t, spec) -> int:
     return t.numel() * t.element_size() // n
 
 
-def mesh_state_cell(cfg: ArchConfig, shape: ShapeSpec, mesh_name: str) -> dict:
-    """The state record of one cell on the production mesh ``mesh_name``:
-    per device, the parameters, the optimizer state (train: f32 master, m
-    and v of each parameter, and the step counter), the batch (decode: the
-    tokens and ``cur_len``) and the cache (prefill's output and decode's
-    input, ``init_cache``'s shapes)."""
-    mesh = make_production_mesh(multi_pod=MESHES[mesh_name])
+def _mesh_shape(mesh) -> MeshShape:
+    """A production mesh by record name ("pod1", "pod2"), or a ``MeshShape``."""
+    return mesh if isinstance(mesh, MeshShape) else make_production_mesh(
+        multi_pod=MESHES[mesh])
+
+
+def mesh_state_cell(cfg: ArchConfig, shape: ShapeSpec, mesh_name) -> dict:
+    """The state record of one cell on the production mesh ``mesh_name`` (or
+    a ``MeshShape``): per device, the parameters, the optimizer state
+    (train: f32 master, m and v of each parameter, and the step counter),
+    the batch (decode: the tokens and ``cur_len``) and the cache (prefill's
+    output and decode's input, ``init_cache``'s shapes).  The step's own
+    counts are ``mesh_cell``'s."""
+    mesh = _mesh_shape(mesh_name)
     model = make_model(cfg)
     b = shape.global_batch
     leaves = list(shd.tree_key_paths(specs.abstract_params(model)))
@@ -144,21 +155,51 @@ def mesh_state_cell(cfg: ArchConfig, shape: ShapeSpec, mesh_name: str) -> dict:
 
         dev["cache_bytes"] = walk(cache, cspec)
     dev["state_bytes"] = sum(dev.values())
-    dev.update({"activation_bytes": None, "flops": None, "bytes": None,
-                "collective_bytes": None})
-    return {"mesh": mesh_name, "mesh_shape": dict(mesh.shape), "chips": mesh.size,
+    return {"mesh": mesh_name if isinstance(mesh_name, str) else repr(mesh),
+            "mesh_shape": dict(mesh.shape), "chips": mesh.size,
             "per_device": dev, "device_bytes": roofline.HBM_BYTES,
             "state_fits": dev["state_bytes"] <= roofline.HBM_BYTES,
-            "terms_seconds": None, "dominant": None, "not_counted": NOT_COUNTED,
             "model_flops": roofline.model_flops_for(cfg, shape),
             "batch": b, "seq_len": shape.seq_len,
             "params": cfg.param_count(), "active_params": cfg.active_param_count()}
 
 
+def mesh_cell(cfg: ArchConfig, shape: ShapeSpec, mesh_name, *,
+              microbatches: int | None = None) -> dict:
+    """One cell on the production mesh ``mesh_name`` (or a ``MeshShape``):
+    ``mesh_state_cell``'s state record, and the sharded step traced on a
+    ``fake_mesh`` of that shape and counted per device: FLOPs, bytes,
+    ``activation_bytes`` (the peak of what the step makes), the collectives'
+    result bytes by kind, the three terms, the dominant one and the
+    roofline fraction (train cells: ``TRAIN_REMAT``; ``microbatches``
+    defaults to ``default_microbatches``)."""
+    rec = mesh_state_cell(cfg, shape, mesh_name)
+    train = shape.kind == "train"
+    if train:
+        cfg = dataclasses.replace(cfg, remat=TRAIN_REMAT)
+        microbatches = microbatches or default_microbatches(cfg)
+    t0 = time.perf_counter()
+    with fake_mesh(_mesh_shape(mesh_name)) as mesh:
+        bundle = bundle_for(cfg, shape, mesh=mesh, microbatches=microbatches)
+        args = bundle.abstract_args
+        counts = count_step(bundle.fn, args, params=args[0],
+                            opt_state=args[1] if train else None,
+                            microbatches=microbatches or 1)
+    terms = roofline.analyze(counts, chips=rec["chips"], model_flops_total=rec["model_flops"])
+    rec["per_device"].update({"activation_bytes": counts["memory"]["peak_live_bytes"],
+                              "flops": counts["flops"], "bytes": counts["bytes"],
+                              "collective_bytes": counts["collective_bytes"]})
+    rec.update({k: terms[k] for k in ("totals", "collectives", "terms_seconds", "dominant",
+                                      "useful_flop_ratio", "roofline_fraction", "memory")})
+    rec.update({"fits": counts["memory"]["fits"], "trace_s": time.perf_counter() - t0,
+                "ops": counts["ops"], "remat": cfg.remat, "microbatches": microbatches})
+    return rec
+
+
 def run_cell(arch: str, shape_name: str, out_dir: Path, force: bool = False,
              mesh: str | None = None) -> dict:
     """One cell's record: the one-device trace, or with ``mesh`` ("pod1",
-    "pod2") the state per device on that production mesh."""
+    "pod2") the sharded step's per device on that production mesh."""
     out_path = out_dir / (cell_id(arch, shape_name, mesh) + ".json")
     if out_path.exists() and not force:
         return json.loads(out_path.read_text())
@@ -168,7 +209,7 @@ def run_cell(arch: str, shape_name: str, out_dir: Path, force: bool = False,
                "reason": cfg.long_skip_reason}
     else:
         rec = (analyze_cell(cfg, SHAPES[shape_name]) if mesh is None
-               else mesh_state_cell(cfg, SHAPES[shape_name], mesh))
+               else mesh_cell(cfg, SHAPES[shape_name], mesh))
         rec.update({"cell": cell_id(arch, shape_name, mesh), "arch": arch,
                     "shape": shape_name, "multi_pod": mesh == "pod2", "skipped": False})
     out_path.write_text(json.dumps(rec, indent=1))
@@ -176,14 +217,21 @@ def run_cell(arch: str, shape_name: str, out_dir: Path, force: bool = False,
 
 
 def summary(rec: dict) -> str:
+    t = rec["terms_seconds"]
     if rec.get("mesh"):
         d = rec["per_device"]
+        coll = ", ".join(f"{k} {v / 1e9:.3f}" for k, v in rec["collectives"].items()
+                         if not k.startswith("_") and v)
         return (f"{rec['mesh']} ({rec['chips']} chips), per device: params "
                 f"{d['param_bytes'] / 1e9:.3f}GB optimizer {d['optimizer_bytes'] / 1e9:.3f}GB "
                 f"batch {d['batch_bytes'] / 1e9:.4f}GB cache {d['cache_bytes'] / 1e9:.3f}GB "
-                f"state {d['state_bytes'] / 1e9:.3f}GB of {rec['device_bytes'] / 1e9:.0f} "
-                f"(fits: {rec['state_fits']}); activations and collectives not counted")
-    t = rec["terms_seconds"]
+                f"state {d['state_bytes'] / 1e9:.3f}GB, activations "
+                f"{d['activation_bytes'] / 1e9:.3f}GB of {rec['device_bytes'] / 1e9:.0f} "
+                f"(fits: {rec['fits']}); {d['flops'] / 1e12:.3f} TFLOP, "
+                f"{d['bytes'] / 1e9:.2f} GB, collectives {coll or 'none'} GB; terms: "
+                f"compute={t['compute'] * 1e3:.2f}ms memory={t['memory'] * 1e3:.2f}ms "
+                f"collective={t['collective'] * 1e3:.2f}ms dominant={rec['dominant']} "
+                f"roofline_frac={rec['roofline_fraction']:.3f}")
     m = rec["memory"]
     return (f"terms: compute={t['compute'] * 1e3:.2f}ms memory={t['memory'] * 1e3:.2f}ms "
             f"collective={t['collective'] * 1e3:.2f}ms dominant={rec['dominant']} "
@@ -198,7 +246,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--out", default=str(RESULTS_DIR))
     ap.add_argument("--mesh", choices=sorted(MESHES), default=None,
-                    help="state per device on a production mesh (default: one device)")
+                    help="the sharded step per device on a production mesh (default: one "
+                         "device)")
     ap.add_argument("--multi-pod", action="store_true", help="the same as --mesh pod2")
     return ap
 

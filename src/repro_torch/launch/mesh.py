@@ -11,7 +11,10 @@ parameter sharding over 'data'.  ``make_production_mesh`` and
 ``make_debug_mesh`` give a ``torch.distributed`` ``DeviceMesh`` of that
 shape when a process group of that size exists, and otherwise a
 ``MeshShape``: the record of the axes that the sharding rules
-(``launch/sharding.py``) and the dry run read, which allocates nothing.
+(``launch/sharding.py``) read, which allocates nothing.  ``fake_mesh``
+gives a ``DeviceMesh`` of any shape in this one process, over a process
+group whose collectives do nothing: the dry run traces a sharded step on it
+on meta tensors.
 
 The sharded cache uses a flat ``"cache"`` axis.  ``CacheMesh`` holds its D
 shards as D logical shards in one process on one device (the counterpart of
@@ -23,10 +26,18 @@ across processes.  The backend of a process group is the caller's choice:
 two ranks on one card); ``gloo`` stages every exchange through host buffers
 (pinned when CUDA is present), which lets D ranks share one card, and times
 that staging apart from the exchange.  ``run_on_ranks`` spawns the ranks.
+
+DTensor's collectives (the functional ``_c10d_functional`` ops) on CUDA
+tensors over a gloo group crash the process at their wait in PyTorch 2.11
+(a segmentation fault), where the same collectives called directly work.
+``HostStagedCollectives`` runs them through host memory instead, for the
+block it covers, and counts what it moves: gloo ranks sharing one card run
+the sharded step inside it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
 import os
@@ -38,9 +49,9 @@ from collections.abc import Mapping
 
 import torch
 
-__all__ = ["AXIS_DATA", "AXIS_MODEL", "AXIS_POD", "CacheMesh", "MeshShape",
-           "ProcessCacheMesh", "all_reduce", "axis_names", "axis_sizes", "batch_axes",
-           "make_cache_mesh", "make_debug_mesh", "make_production_mesh",
+__all__ = ["AXIS_DATA", "AXIS_MODEL", "AXIS_POD", "CacheMesh", "HostStagedCollectives",
+           "MeshShape", "ProcessCacheMesh", "all_reduce", "axis_names", "axis_sizes", "batch_axes",
+           "fake_mesh", "make_cache_mesh", "make_debug_mesh", "make_production_mesh",
            "run_on_ranks"]
 
 AXIS_POD = "pod"
@@ -103,6 +114,28 @@ def make_debug_mesh(shape=(1, 1), axes=(AXIS_DATA, AXIS_MODEL), device_type: str
     """A small mesh for tests: a ``DeviceMesh`` inside a process group of
     its size, a ``MeshShape`` outside one."""
     return _mesh(tuple(shape), tuple(axes), device_type)
+
+
+@contextlib.contextmanager
+def fake_mesh(mesh):
+    """A ``DeviceMesh`` with ``mesh``'s axes (a ``MeshShape``) over a process
+    group of that many ranks in this process, of which this process is rank
+    0, with PyTorch's ``fake`` backend: every collective returns at once and
+    moves nothing.  A step traced on meta DTensors over it issues the
+    collectives it would issue on the mesh.  The group is destroyed on exit;
+    no other default group may exist."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_mesh: a default process group exists already")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=mesh.size)
+    try:
+        yield init_device_mesh("cpu", tuple(mesh.shape.values()),
+                               mesh_dim_names=tuple(mesh.shape))
+    finally:
+        dist.destroy_process_group()
 
 
 def batch_axes(mesh) -> tuple:
@@ -277,6 +310,77 @@ class ProcessCacheMesh:
     def __repr__(self) -> str:
         return (f"ProcessCacheMesh(cache={self.ndev}, rank={self.rank}, "
                 f"backend={self.backend}, device={self.device})")
+
+
+class HostStagedCollectives:
+    """DTensor's functional collectives on ``dispatch_key`` tensors (CUDA
+    by default) through host memory, inside the ``with`` block: each of
+    ``all_reduce``, ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+    ``all_to_all_single`` and ``broadcast`` copies its input to the host,
+    runs the blocking collective of its process group there (gloo), and
+    copies the result back, so that its wait has nothing left to do.
+    ``calls``, ``bytes`` (each collective's result, by kind) and
+    ``seconds`` (the whole of each call) count what went through it.  An
+    ``avg`` reduction is a sum divided by the group's size."""
+
+    KINDS = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+             "all_to_all_single", "broadcast")
+
+    def __init__(self, dispatch_key: str = "CUDA"):
+        self.key = dispatch_key
+        self.calls = dict.fromkeys(self.KINDS, 0)
+        self.bytes = dict.fromkeys(self.KINDS, 0)
+        self.seconds = 0.0
+        self._lib = None
+
+    def __enter__(self):
+        self._lib = torch.library.Library("_c10d_functional", "IMPL")
+        for kind in self.KINDS:
+            self._lib.impl(kind, self._staged(kind), self.key)
+        return self
+
+    def __exit__(self, *exc):
+        self._lib._destroy()
+        self._lib = None
+
+    def _staged(self, kind):
+        import torch.distributed as dist
+        from torch.distributed.distributed_c10d import _resolve_process_group
+
+        ops = {"sum": dist.ReduceOp.SUM, "avg": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+               "min": dist.ReduceOp.MIN, "product": dist.ReduceOp.PRODUCT}
+
+        def reduced(h, reduce_op, pg):
+            return h.div_(pg.size()) if reduce_op == "avg" else h
+
+        def run(x, *args):
+            t = time.perf_counter()
+            pg = _resolve_process_group(args[-1])
+            h = x.detach().to("cpu", copy=True, memory_format=torch.contiguous_format)
+            if kind == "all_reduce":
+                dist.all_reduce(h, ops[args[0]], group=pg)
+                out = reduced(h, args[0], pg)
+            elif kind == "all_gather_into_tensor":
+                out = h.new_empty((args[0] * h.shape[0], *h.shape[1:]))
+                dist.all_gather_into_tensor(out, h, group=pg)
+            elif kind == "reduce_scatter_tensor":
+                out = h.new_empty((h.shape[0] // args[1], *h.shape[1:]))
+                dist.reduce_scatter_tensor(out, h, ops[args[0]], group=pg)
+                out = reduced(out, args[0], pg)
+            elif kind == "all_to_all_single":
+                outs, ins = (list(args[0]) or None), (list(args[1]) or None)
+                out = h.new_empty((sum(outs) if outs else h.shape[0], *h.shape[1:]))
+                dist.all_to_all_single(out, h, outs, ins, group=pg)
+            else:
+                dist.broadcast(h, args[0], group=pg)
+                out = h
+            out = out.to(x.device)
+            self.calls[kind] += 1
+            self.bytes[kind] += out.numel() * out.element_size()
+            self.seconds += time.perf_counter() - t
+            return out
+
+        return run
 
 
 # ---------------------------------------------------------------------------

@@ -14,8 +14,9 @@ dim an axis name, a tuple of names, or None (``P()`` is ``()``).  The rules
 read only the mesh's axis sizes, so they run on a ``MeshShape``, on a JAX
 mesh and on a ``DeviceMesh`` alike; ``placements`` turns a spec into one
 DTensor placement per mesh dim, and ``distribute_params`` places a
-parameter tree on a ``DeviceMesh``.  The activation hints of the JAX step
-builders (``make_hints``) come with the sharded training step.
+parameter tree on a ``DeviceMesh``.  ``make_hints`` is the activation
+hint the step builders register on a mesh (``models.layers.hint``):
+``hint_spec`` gives each tag's spec, JAX's rule for JAX's tags.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from repro_torch.launch.mesh import AXIS_DATA, AXIS_MODEL, axis_names, axis_size
 
 __all__ = ["COL_NAMES", "EMBED_NAMES", "MOE_REPLICATE_BYTES", "REPLICATED_NAMES",
            "ROW_NAMES", "batch_shardings", "cache_shardings", "distribute_params",
-           "kv_cache_spec", "logits_sharding", "moe_experts_replicated", "param_placements",
+           "distribute_tree", "gather_fsdp", "hint_spec", "kv_cache_spec", "local_batch", "local_shard",
+           "logits_sharding", "make_hints", "moe_experts_replicated", "param_placements",
            "param_spec", "placements", "tree_key_paths"]
 
 COL_NAMES = {"wq", "wk", "wv", "w_gate", "w_up", "w_in", "w_dt", "w_gates",
@@ -169,26 +171,117 @@ def logits_sharding(cfg: ArchConfig, mesh, batch_size: int) -> tuple:
     return _spec(ba, _if_div(mesh, tp, cfg.vocab_size))
 
 
+def hint_spec(cfg: ArchConfig, mesh, tag: str, shape) -> tuple | None:
+    """The spec ``make_hints`` lays an activation of ``shape`` out by, or
+    None where the tag pins nothing.  JAX's tags:
+
+      act          — (B, S, D) residual stream: batch over the batch axes
+                     where they divide it, the rest replicated;
+      logits       — (..., V): batch-sharded, vocab over 'model' if it
+                     divides;
+      moe_dispatch, moe_return — (gc, E, C, D) expert buffers: gc over the
+                     batch axes, experts over 'model' unless
+                     ``moe_experts_replicated``.
+
+    and the port's own, where a DTensor needs a layout GSPMD finds itself:
+      heads        — (B, S, n·Dh) q/k/v projection or attention output:
+                     batch-sharded, the last dim over 'model' only when the
+                     n heads divide it (hymba's 5 heads over 2 stay whole);
+      loss_logits  — the cross-entropy's logits chunk: batch-sharded with
+                     whole vocab rows (its gather and logsumexp read a
+                     row)."""
+    ba = batch_axes(mesh)
+    tp = AXIS_MODEL if AXIS_MODEL in axis_sizes(mesh) else None
+    nd = len(shape)
+    if tag == "act" and nd >= 2:
+        return _spec(_if_div(mesh, ba, shape[0]), *([None] * (nd - 1)))
+    if tag == "logits":
+        return _spec(_if_div(mesh, ba, shape[0]), *([None] * (nd - 2)),
+                     _if_div(mesh, tp, shape[-1]))
+    if tag in ("moe_dispatch", "moe_return") and nd == 4:
+        etp = None if moe_experts_replicated(cfg) else _if_div(mesh, tp, shape[1])
+        return _spec(_if_div(mesh, ba, shape[0]), etp, None, None)
+    if tag == "heads" and nd >= 2 and shape[-1] % cfg.head_dim == 0:
+        n = shape[-1] // cfg.head_dim
+        whole = tp if tp and n % _axis_size(mesh, tp) == 0 else None
+        return _spec(_if_div(mesh, ba, shape[0]), *([None] * (nd - 2)), whole)
+    if tag == "loss_logits" and nd >= 1:
+        return _spec(_if_div(mesh, ba, shape[0]), *([None] * (nd - 1)))
+    return None
+
+
+def _pin():
+    """The autograd Function of a hint: the value redistributed to the
+    placements, and its gradient too on the way back, as a sharding
+    constraint in JAX constrains the cotangent (DTensor would otherwise
+    carry a pending sum over 'model' into the backward's matmuls and run
+    them on every rank of the axis)."""
+    import torch
+
+    class Pin(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, mesh, want):
+            ctx.mesh, ctx.want = mesh, want
+            return x.redistribute(mesh, want) if tuple(x.placements) != want \
+                else x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            if tuple(g.placements) != ctx.want:
+                g = g.redistribute(ctx.mesh, ctx.want)
+            return g, None, None
+
+    return Pin
+
+
+def make_hints(cfg: ArchConfig, mesh):
+    """The activation hint of a step on the ``DeviceMesh`` ``mesh``
+    (registered with ``models.layers.set_sharding_hints``): a DTensor and
+    its gradient are redistributed to its tag's ``hint_spec`` (a pending
+    sum is reduced there); a plain tensor, or a tag with no spec, is left as
+    it is.  The rules read the activation's own leading dim, so JAX's
+    ``batch_size`` argument, which its rules never read, is dropped."""
+    from torch.distributed.tensor import DTensor
+
+    pin = _pin()
+
+    def hint(x, tag):
+        if not isinstance(x, DTensor):
+            return x
+        spec = hint_spec(cfg, mesh, tag, tuple(x.shape))
+        if spec is None:
+            return x
+        want = placements(spec, mesh)
+        if tuple(x.placements) == want and not x.requires_grad:
+            return x
+        return pin.apply(x, mesh, want)
+
+    return hint
+
+
 # ---------------------------------------------------------------------------
 # Specs as DTensor placements
 # ---------------------------------------------------------------------------
 
 def placements(spec: tuple, mesh) -> tuple:
     """One DTensor placement per mesh dim, in mesh order: ``Shard(i)`` where
-    tensor dim ``i`` of ``spec`` names that axis (alone or in a tuple),
-    ``Replicate()`` where no dim does.  A tuple entry must list its axes in
-    mesh order, since DTensor splits a dim over several mesh dims in that
-    order."""
+    tensor dim ``i`` of ``spec`` names that axis (alone or in a tuple) and
+    the axis is wider than one device, ``Replicate()`` where no dim does.
+    A tuple entry must list its axes in mesh order, since DTensor splits a
+    dim over several mesh dims in that order."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = axis_names(mesh)
+    sizes = axis_sizes(mesh)
     out = []
     for name in names:
         dims = [i for i, e in enumerate(spec)
                 if e == name or (isinstance(e, tuple) and name in e)]
         if len(dims) > 1:
             raise ValueError(f"spec {spec} shards dims {dims} over one axis {name!r}")
-        out.append(Shard(dims[0]) if dims else Replicate())
+        # an axis of one device holds the whole dim: DTensor cannot merge a
+        # dim it counts as sharded into another (a view), even over one device
+        out.append(Shard(dims[0]) if dims and sizes[name] > 1 else Replicate())
     for e in spec:
         if isinstance(e, tuple) and list(e) != sorted(e, key=names.index):
             raise ValueError(f"spec entry {e} is not in mesh order {names}")
@@ -241,11 +334,76 @@ def param_placements(cfg: ArchConfig, mesh, params):
 def distribute_params(cfg: ArchConfig, mesh, params):
     """``params`` placed on the ``DeviceMesh`` ``mesh`` by ``param_spec``:
     a tree of DTensors (nested dicts and lists).  Every rank passes the same
-    global values."""
-    from torch.distributed.tensor import distribute_tensor
+    global values and keeps its block (``local_shard``; no communication,
+    so meta tensors place too)."""
+    from repro_torch.models.layers import from_local
 
     def place(path, p):
-        return distribute_tensor(p.detach(), mesh, placements(param_spec(cfg, mesh, path, p),
-                                                              mesh))
+        pl = placements(param_spec(cfg, mesh, path, p), mesh)
+        t = p.detach()
+        return from_local(local_shard(t, mesh, pl), mesh, pl, t.shape, t.stride())
 
     return _map_tree(params, place)
+
+
+def gather_fsdp(mesh, params):
+    """The parameter tree as a step reads it on ``mesh``: each DTensor
+    gathered over the batch axes (FSDP: 'data' shards a weight only at rest,
+    ZeRO-3 style), still sharded over 'model' (nested dicts and lists).
+    Differentiable: each gradient goes back reduce-scattered into its
+    parameter's layout."""
+    from torch.distributed.tensor import Replicate
+
+    ba = set(batch_axes(mesh))
+    names = axis_names(mesh)
+
+    def gathered(path, p):
+        want = tuple(Replicate() if names[i] in ba else pl for i, pl in enumerate(p.placements))
+        return p if tuple(p.placements) == want else p.redistribute(mesh, want)
+
+    return _map_tree(params, gathered)
+
+
+def local_shard(t, mesh, pl):
+    """This rank's block of the full tensor ``t`` under the placements
+    ``pl`` on the ``DeviceMesh`` ``mesh``, as ``distribute_tensor`` lays it
+    out (``torch.chunk`` along each sharded dim, mesh dims in order), with
+    no communication: every rank holds ``t``."""
+    import torch
+
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(pl):
+        if p.is_shard():
+            chunks = torch.chunk(t, mesh.size(i), p.dim)
+            t = chunks[coord[i]] if coord[i] < len(chunks) else t.narrow(p.dim, 0, 0)
+    return t
+
+
+def distribute_tree(mesh, tree, specs):
+    """The nested dicts ``tree`` of full tensors, equal on every rank, as
+    DTensors on ``mesh`` laid out by ``specs`` (the same nesting; e.g.
+    ``cache_shardings``), each rank keeping its block with no
+    communication."""
+    from repro_torch.models.layers import from_local
+
+    if isinstance(tree, dict):
+        return {k: distribute_tree(mesh, v, specs[k]) for k, v in tree.items()}
+    pl = placements(specs, mesh)
+    return from_local(local_shard(tree, mesh, pl), mesh, pl, tree.shape, tree.stride())
+
+
+def local_batch(mesh, batch: dict, batch_size: int) -> dict:
+    """This rank's rows of a global batch (a dict of arrays or tensors with
+    ``batch_size`` rows), per ``batch_shardings``: the block of the batch
+    axes' coordinate (pod major) when those axes divide the batch, else
+    every row."""
+    ba = _if_div(mesh, batch_axes(mesh), batch_size)
+    if ba is None:
+        return dict(batch)
+    coord = dict(zip(axis_names(mesh), mesh.get_coordinate()))
+    sizes = axis_sizes(mesh)
+    idx, n = 0, 1
+    for a in ba:
+        idx, n = idx * sizes[a] + coord[a], n * sizes[a]
+    rows = batch_size // n
+    return {k: v[idx * rows:(idx + 1) * rows] for k, v in batch.items()}

@@ -1,13 +1,21 @@
-"""Training entry point: ``python -m repro_torch.launch.train --arch <id> [--smoke] [--device cpu]``.
+"""Training entry point: ``python -m repro_torch.launch.train --arch <id> [--smoke]
+[--multi-pod] [--device cpu]``.
 
-Port of ``repro.launch.train``, with its flags and its log lines, on one
-device: ``--device`` (default ``cuda``; ``--device cpu`` trains on the
-CPU).  ``--smoke`` trains the reduced config at 128 tokens x 4 rows;
-without it, the published widths and depth at ``train_4k``'s 4096 x 256
-unless ``--seq-len``/``--global-batch`` say otherwise.  Checkpoint and
-restart: rerunning with the same ``--ckpt-dir`` resumes (the directory may
-be one the JAX launcher wrote).  ``--multi-pod`` picks a mesh of TPU pods
-in the JAX launcher; the port has no mesh, and the flag raises.
+Port of ``repro.launch.train``, with its flags and its log lines.
+``--device`` (default ``cuda``; ``--device cpu`` trains on the CPU).
+``--smoke`` trains the reduced config at 128 tokens x 4 rows on JAX's
+``make_debug_mesh((1, 1))``: a (1, 1) ``DeviceMesh`` inside a process group
+of one rank, one device outside any.  Without it, the published widths and
+depth at ``train_4k``'s 4096 x 256 unless ``--seq-len``/``--global-batch``
+say otherwise, on the production mesh, as the JAX launcher trains: inside a
+process group of 256 ranks, the (16, 16) mesh; with ``--multi-pod``, a group
+of 512 ranks and the (2, 16, 16) mesh.  A process group of another size, or
+``--multi-pod`` outside one, raises a ``ValueError`` naming the ranks it
+needs: the launcher never trains on one device in place of a mesh.  A launch
+outside any process group (and without ``--multi-pod``) trains on one
+device.  Checkpoint and restart: rerunning with the same ``--ckpt-dir``
+resumes (the directory may be one the JAX launcher wrote, or a run on
+another mesh: checkpoints hold full tensors).
 
 The data is ``SyntheticLM``.  Whisper's batches also carry frames (B,
 enc_len, d_model) drawn from the step in place of the stubbed frontend
@@ -15,8 +23,9 @@ enc_len, d_model) drawn from the step in place of the stubbed frontend
 launcher's batches have none, and its Whisper training stops there.
 
 ``build(args)`` returns the trainer and the data, so that other scripts
-(the repository's ``chip_smoke.py``) run exactly this path;
-``build_train_smoke`` is the run of ``examples/train_smoke.py``.
+(the repository's ``chip_smoke.py``) run exactly this path, on a mesh of
+their own when they pass one; ``build_train_smoke`` is the run of
+``examples/train_smoke.py``.
 """
 
 from __future__ import annotations
@@ -25,9 +34,11 @@ import argparse
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.configs import SHAPES, ShapeSpec, get_config, list_archs
 from repro_torch.data.synthetic import SyntheticLM
+from repro_torch.launch.mesh import MeshShape, make_debug_mesh, make_production_mesh
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models.model import make_model
 from repro_torch.train.trainer import Trainer
@@ -62,8 +73,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--multi-pod", action="store_true",
-                    help="the JAX launcher's mesh of pods; raises until the sharded "
-                         "step is ported")
+                    help="train on the (2, 16, 16) mesh of 512 ranks (in a process "
+                         "group of that size)")
     ap.add_argument("--device", default="cuda")
     return ap
 
@@ -73,13 +84,33 @@ def _data(cfg, shape: ShapeSpec):
     return WithFrames(data, cfg) if cfg.enc_dec else data
 
 
-def build(args, cfg=None):
+def launch_mesh(args):
+    """The mesh the arguments train on: a ``DeviceMesh``, or None for one
+    device (see the module docstring)."""
+    import torch.distributed as dist
+
+    device_type = torch.device(args.device).type
+    in_group = dist.is_available() and dist.is_initialized()
+    if args.smoke:
+        mesh = make_debug_mesh((1, 1), device_type=device_type)
+        return None if isinstance(mesh, MeshShape) else mesh
+    if not (args.multi_pod or in_group):
+        return None
+    mesh = make_production_mesh(multi_pod=args.multi_pod, device_type=device_type)
+    if isinstance(mesh, MeshShape):
+        what = "--multi-pod trains" if args.multi_pod else "a run in a process group trains"
+        here = (f"this process group has {dist.get_world_size()}" if in_group
+                else "this process is in no process group")
+        raise ValueError(f"{what} on the {tuple(mesh.shape.values())} mesh: it needs a "
+                         f"process group of {mesh.size} ranks; {here}")
+    return mesh
+
+
+def build(args, cfg=None, mesh=None):
     """(the Trainer, the data) the arguments describe; ``cfg`` replaces the
-    arch's config (a depth cut or another ``remat``)."""
-    if args.multi_pod:
-        raise NotImplementedError("--multi-pod: the port trains on one device until "
-                                  "the sharded training step (DTensor through the models) "
-                                  "is ported")
+    arch's config (a depth cut or another ``remat``), ``mesh`` (a
+    ``DeviceMesh``) the mesh the arguments give."""
+    mesh = mesh if mesh is not None else launch_mesh(args)
     cfg = cfg or get_config(args.arch, smoke=args.smoke)
     model = make_model(cfg)
     if args.smoke:
@@ -88,8 +119,8 @@ def build(args, cfg=None):
         base = SHAPES["train_4k"]
         shape = ShapeSpec("train", args.seq_len or base.seq_len,
                           args.global_batch or base.global_batch, "train")
-    bundle = build_train_step(model, shape, lr=args.lr, microbatches=args.microbatches,
-                              total_steps=args.steps)
+    bundle = build_train_step(model, shape, mesh=mesh, lr=args.lr,
+                              microbatches=args.microbatches, total_steps=args.steps)
     trainer = Trainer(model, bundle, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                       device=args.device)
     return trainer, _data(cfg, shape)
@@ -124,8 +155,11 @@ def main(argv=None):
     trainer, data = build(args)
     mode = trainer.init_state(resume=True)
     cfg = trainer.model.cfg
+    mesh = trainer.bundle.mesh
     print(f"[train] arch={cfg.name} params={cfg.param_count():,} "
-          f"state={mode} start_step={trainer.step} device={trainer.device}")
+          f"state={mode} start_step={trainer.step} device={trainer.device}"
+          + (f" mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}" if mesh is not None
+             else ""))
     trainer.run(data, args.steps)
     print("[train] done; final loss:",
           trainer.history[-1]["loss"] if trainer.history else None)

@@ -20,13 +20,16 @@ the cache (or tail) in place.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels.paged_attn import (NEG_INF, dense_decode_attention,
                                             paged_attn_decode_call, q_scale,
                                             window_value)
-from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
-                                       recompute_in_backward, rmsnorm, rmsnorm_init)
+from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init, from_local, hint,
+                                       is_dtensor, local, recompute_in_backward, rmsnorm,
+                                       rmsnorm_init)
 
 # ---------------------------------------------------------------------------
 # params
@@ -49,9 +52,9 @@ def attn_init(gen: torch.Generator, d_model: int, n_heads: int, n_kv_heads: int,
 
 def _project_qkv(params, x, n_heads, n_kv_heads, d_head, positions, rope_kind, theta):
     b, s, _ = x.shape
-    q = (x @ params["wq"]).reshape(b, s, n_heads, d_head)
-    k = (x @ params["wk"]).reshape(b, s, n_kv_heads, d_head)
-    v = (x @ params["wv"]).reshape(b, s, n_kv_heads, d_head)
+    q = hint(x @ params["wq"], "heads").reshape(b, s, n_heads, d_head)
+    k = hint(x @ params["wk"], "heads").reshape(b, s, n_kv_heads, d_head)
+    v = hint(x @ params["wv"], "heads").reshape(b, s, n_kv_heads, d_head)
     if "q_norm" in params:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)
@@ -111,6 +114,40 @@ def chunked_attention(q, k, v, *, causal: bool = True, window=None,
     return torch.cat(outs, dim=2).transpose(1, 2).to(q.dtype)   # (B, Sq, H, Dh)
 
 
+def per_head(fn, q, k, v, *rows, hq: int, hk: int):
+    """``fn(q, k, v, *rows)``: attention, independent per (row, head), whose
+    output has q's shape.  On DTensors each rank runs ``fn`` on its blocks
+    (a region DTensor would otherwise plan through the einsums' views):
+    rows as q's batch dim is sharded, heads over a mesh dim q shards them on
+    when both q's and the KV's head counts (dims ``hq``, ``hk``) divide it
+    (each rank's q heads then read its own KV heads), every other dim whole;
+    ``rows`` (per-row vectors) follow the rows.  A plain call on one
+    device."""
+    if not is_dtensor(q):
+        return fn(q, k, v, *rows)
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = q.device_mesh
+    pq, pk = [], []
+    for i, p in enumerate(q.placements):
+        n = mesh.size(i)
+        if p == Shard(0) and q.shape[0] % n == 0:
+            pq.append(p), pk.append(p)
+        elif p == Shard(hq) and q.shape[hq] % n == 0 and k.shape[hk] % n == 0:
+            pq.append(p), pk.append(Shard(hk))
+        else:
+            pq.append(Replicate()), pk.append(Replicate())
+    pr = [p if p == Shard(0) else Replicate() for p in pq]
+
+    def block(x, pl):
+        if not is_dtensor(x):
+            x = from_local(x, mesh, [Replicate()] * mesh.ndim)
+        return x.redistribute(mesh, pl).to_local()
+
+    out = fn(block(q, pq), block(k, pk), block(v, pk), *(block(r, pr) for r in rows))
+    return from_local(out.contiguous(), mesh, pq, q.shape)
+
+
 def masked_batch_attention(q, k, v, *, q_pos, k_pos, k_valid, window=None,
                            softcap: float = 0.0, chunk: int = 512):
     """``chunked_attention`` with per-ROW positions and key validity.
@@ -140,10 +177,10 @@ def attn_apply(params, x, positions, *, n_heads, n_kv_heads, d_head,
     """Full attention sublayer for training and prefill. Returns (out, (k, v))."""
     q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, d_head,
                            positions, rope_kind, theta)
-    ctx = chunked_attention(q, k, v, causal=causal, window=window,
-                            softcap=softcap, chunk=chunk)
+    ctx = per_head(functools.partial(chunked_attention, causal=causal, window=window,
+                                     softcap=softcap, chunk=chunk), q, k, v, hq=2, hk=2)
     b, s = ctx.shape[:2]
-    return ctx.reshape(b, s, n_heads * d_head) @ params["wo"], (k, v)
+    return hint(ctx.reshape(b, s, n_heads * d_head), "heads") @ params["wo"], (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -177,12 +214,43 @@ def attn_decode(params, x, cache_k, cache_v, cur_len, *, n_heads, n_kv_heads,
     cur = _cur_rows(cur_len, b, x.device)
     q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, d_head,
                            rope_positions(cur[:, None], rope_kind), rope_kind, theta)
-    rows = torch.arange(b, device=x.device)
-    cache_k[rows, cur] = k[:, 0].to(cache_k.dtype)
-    cache_v[rows, cur] = v[:, 0].to(cache_v.dtype)
-    ctx = dense_decode_attention(q[:, 0], cache_k, cache_v, cur, window=window,
-                                 softcap=softcap)
+    _write_rows(cache_k, cur, k[:, 0])
+    _write_rows(cache_v, cur, v[:, 0])
+    ctx = per_head(functools.partial(dense_decode_attention, window=window, softcap=softcap),
+                   q[:, 0], cache_k, cache_v, cur, hq=1, hk=2)
     return (ctx.reshape(b, n_heads * d_head) @ params["wo"])[:, None, :], cache_k, cache_v
+
+
+def _write_rows(cache: torch.Tensor, cur: torch.Tensor, new: torch.Tensor) -> None:
+    """``cache[b, cur[b]] = new[b]`` for every row b, in place: cache (B,
+    Smax, KVH, Dh), new (B, KVH, Dh).  A DTensor cache (batch over the batch
+    axes, KV heads or the sequence over 'model') is written shard by shard:
+    each rank writes its rows at the positions its block of the sequence
+    holds (DTensor has no rule for an in-place scatter into a sharded
+    tensor)."""
+    if not is_dtensor(cache):
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, cur] = new.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh, pl = cache.device_mesh, cache.placements
+    # new laid out as the cache without its sequence dim
+    new_pl = tuple(Shard(p.dim - (p.dim > 1)) if p.is_shard() and p.dim != 1 else Replicate()
+                   for p in pl)
+    new_l = local(new.redistribute(mesh, new_pl) if is_dtensor(new) else new)
+    shape, offset = compute_local_shape_and_global_offset(cache.shape, mesh, pl)
+    cache_l = cache.to_local()
+    if cache_l.numel() == 0:
+        return
+    cur = cur.full_tensor() if is_dtensor(cur) else cur
+    pos = cur[offset[0]:offset[0] + shape[0]] - offset[1]
+    inside = (pos >= 0) & (pos < shape[1])
+    pos = pos.clamp(0, shape[1] - 1)
+    rows = torch.arange(shape[0], device=cache_l.device)
+    cache_l[rows, pos] = torch.where(inside[:, None, None], new_l.to(cache_l.dtype),
+                                     cache_l[rows, pos])
 
 
 # ---------------------------------------------------------------------------

@@ -25,11 +25,109 @@ Port of ``repro.models.layers`` with the JAX package's conventions:
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.bfloat16
+
+# ---------------------------------------------------------------------------
+# activation-sharding hints
+#
+# The step builders on a mesh register a hint fn (launch/sharding.make_hints)
+# and the model pins its activations with it at block boundaries, as the JAX
+# package's pjit steps do: a DTensor is laid out again by its tag's spec.
+# With no fn registered, ``hint`` is the identity.
+# ---------------------------------------------------------------------------
+
+_HINT = {"fn": None}
+
+
+def set_sharding_hints(fn) -> None:
+    """fn(x, tag) -> x laid out for ``tag``, or None to disable."""
+    _HINT["fn"] = fn
+
+
+def hint(x, tag: str):
+    fn = _HINT["fn"]
+    return x if fn is None else fn(x, tag)
+
+
+@contextlib.contextmanager
+def sharding_hints(fn):
+    """``fn`` registered as the hint inside the block, the previous one
+    restored on the way out (a step on a mesh never leaves its hint to a
+    later step on one device)."""
+    prev = _HINT["fn"]
+    set_sharding_hints(fn)
+    try:
+        yield
+    finally:
+        set_sharding_hints(prev)
+
+
+def from_local(x: torch.Tensor, mesh, placements, shape=None, stride=None):
+    """The DTensor whose shard on this rank is ``x``, with no check and no
+    communication: of global ``shape`` (default ``x``'s, for placements that
+    split nothing) and ``stride`` (default contiguous)."""
+    from torch.distributed.tensor import DTensor
+
+    shape = torch.Size(x.shape if shape is None else shape)
+    if stride is None:
+        stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(x, mesh, tuple(placements), run_check=False, shape=shape,
+                              stride=stride)
+
+
+def elementwise(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for an elementwise ``fn``.  A DTensor takes ``fn`` shard by
+    shard and keeps its placements (a pending sum is reduced first): for
+    ops DTensor has no sharding rule for, such as ``logsigmoid``'s
+    backward."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import Replicate
+
+    pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    if pl != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, pl)
+    return from_local(fn(x.to_local()), x.device_mesh, pl, x.shape, x.stride())
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the shard itself (a DTensor's global strides may say contiguous)
+        return from_local(g.to_local().contiguous(), g.device_mesh, g.placements, g.shape,
+                          g.stride())
+
+
+def contiguous_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x``, with a DTensor's gradient made contiguous on its way back: a
+    redistributed gradient's shard may come back in a transposed layout,
+    which DTensor cannot ``view`` (a reshape's backward).  A plain tensor is
+    returned as it is."""
+    return _ContiguousGrad.apply(x) if is_dtensor(x) else x
+
+
+def is_dtensor(x) -> bool:
+    """``x`` is a DTensor (a step on a mesh)."""
+    if type(x) is torch.Tensor:          # the one-device path imports nothing
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank (its storage), any other tensor itself."""
+    return x.to_local() if is_dtensor(x) else x
 
 # ---------------------------------------------------------------------------
 # initializers
@@ -242,7 +340,50 @@ def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(embedding):
+        return _embed_local(embedding, tokens)
     return embedding[tokens.long()].to(COMPUTE_DTYPE)
+
+
+def _embed_local(embedding, tokens):
+    """The lookup of a DTensor table, vocab-parallel as GSPMD and Megatron
+    do it: each rank looks its rows of ``tokens`` up in its own slice of the
+    vocab (the table's shard over the mesh dims that split its rows; every
+    other dim whole), other ids giving zero rows, and one all-reduce over
+    those mesh dims sums the rows (exactly: one rank's row is nonzero).  The
+    rows' activations are laid out as the tokens.  Backward: each rank's
+    slice gradient is a partial sum over the mesh dims the tokens are
+    sharded on.  (DTensor's own scatter-add backward of the lookup fails on
+    some PyTorch versions.)"""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = embedding.device_mesh
+    rows = tokens.placements if is_dtensor(tokens) else (Replicate(),) * mesh.ndim
+    vocab = tuple(not r.is_shard() and p == Shard(0)
+                  for r, p in zip(rows, embedding.placements))
+    want = tuple(Shard(0) if v else Replicate() for v in vocab)
+    if tuple(embedding.placements) != want:
+        embedding = embedding.redistribute(mesh, want)
+    table = embedding.to_local(grad_placements=tuple(
+        Shard(0) if v else Partial() if r.is_shard() else Replicate()
+        for v, r in zip(vocab, rows)))
+    ids = local(tokens).long()
+    if any(vocab):
+        # this rank's slice: torch.chunk of the rows, mesh dims in order
+        coord, lo, n = mesh.get_coordinate(), 0, embedding.shape[0]
+        for i, v in enumerate(vocab):
+            if v:
+                n //= mesh.size(i)
+                lo += coord[i] * n
+        ids = ids - lo
+        mine = (ids >= 0) & (ids < table.shape[0])
+        h = torch.where(mine[..., None], table[torch.where(mine, ids, 0)], 0)
+    else:
+        h = table[ids]
+    shape = (*tokens.shape, embedding.shape[-1])
+    out = from_local(h.to(COMPUTE_DTYPE), mesh,
+                     tuple(Partial() if v else r for v, r in zip(vocab, rows)), shape)
+    return out.redistribute(mesh, rows) if any(vocab) else out
 
 
 def recompute_in_backward(fn, *args):
@@ -255,7 +396,8 @@ def recompute_in_backward(fn, *args):
 
 
 def _xent_sum(logits_fn, hc, yc):
-    logits = logits_fn(hc).float()
+    # the gather and logsumexp read whole vocab rows
+    logits = hint(logits_fn(hc).float(), "loss_logits")
     gold = logits.gather(-1, yc[..., None].long())[..., 0]
     return (torch.logsumexp(logits, dim=-1) - gold).sum()
 

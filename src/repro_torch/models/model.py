@@ -37,6 +37,13 @@ xLSTM group, a Whisper decoder block) as ``_maybe_remat`` does: ``"none"``,
 ``"full"`` (everything recomputed in backward) or ``"dots"`` (the (d_in,
 d_out) matmul outputs saved, the rest recomputed).
 
+On a mesh (``launch/steps.py`` with ``mesh=``) the parameters are DTensors
+and the step registers an activation hint (``models.layers.hint``): the
+model pins the residual stream at every block boundary (``act``) and its
+logits (``logits``), at JAX's sites, and the MoE expert buffers
+(``moe_dispatch``/``moe_return``); with no hint registered (one device)
+each call returns its argument.
+
 Serving: decode writes the new token's KV into the cache in place and
 returns a cache whose ``"k"``/``"v"`` are those same tensors.  Recurrent
 state comes back as new tensors, so that a caller keeps or drops each
@@ -65,7 +72,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import rope_positions
 from repro_torch.models.layers import (COMPUTE_DTYPE, _normal, chunked_softmax_xent,
-                                       embed_init, embed_tokens)
+                                       embed_init, embed_tokens, hint)
 
 
 class Model(NamedTuple):
@@ -148,14 +155,14 @@ def _head_init(cfg: ArchConfig, gen: torch.Generator) -> dict:
 
 def _logits_fn(cfg: ArchConfig, params):
     w = params["head"]["embed"] if cfg.tie_embeddings else params["head"]["lm_head"]
-    return lambda hc: (hc @ w.T).float()
+    return lambda hc: hint((hc @ w.T).float(), "logits")
 
 
 def _embed(cfg: ArchConfig, params, tokens):
     h = embed_tokens(params["head"]["embed"], tokens)
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=COMPUTE_DTYPE)
-    return h
+    return hint(h, "act")
 
 
 def _final(cfg: ArchConfig, params, h):
@@ -255,9 +262,11 @@ def _make_decoder(cfg: ArchConfig) -> Model:
 
     def block(p_l, h, aux, positions, w_l, t_l):
         if is_hymba:
-            return tfm.hymba_block_apply(cfg, p_l, h, positions, w_l, t_l)[0], aux
+            h = tfm.hymba_block_apply(cfg, p_l, h, positions, w_l, t_l)[0]
+            return hint(h, "act"), aux
         aux = dict(aux)
-        return tfm.attn_block_apply(cfg, p_l, h, positions, w_l, t_l, aux)[0], aux
+        h = tfm.attn_block_apply(cfg, p_l, h, positions, w_l, t_l, aux)[0]
+        return hint(h, "act"), aux
 
     body = _maybe_remat(cfg, block)
 
@@ -282,6 +291,7 @@ def _make_decoder(cfg: ArchConfig) -> Model:
                 ms.append(mst)
             else:
                 h, (k, v) = tfm.attn_block_apply(cfg, p_l, h, positions, w_l, t_l)
+            h = hint(h, "act")
             ks.append(k)
             vs.append(v)
         h = _final(cfg, params, h)
@@ -321,6 +331,7 @@ def _make_decoder(cfg: ArchConfig) -> Model:
             else:
                 h, _, _ = tfm.attn_block_decode(cfg, p_l, h, cache["k"][l],
                                                 cache["v"][l], pos, w_l, t_l)
+            h = hint(h, "act")
         h = _final(cfg, params, h)
         if is_hymba:
             cache = {"k": cache["k"], "v": cache["v"],
@@ -361,10 +372,11 @@ def _make_xlstm(cfg: ArchConfig) -> Model:
         states = []
         for gi, p_g in enumerate(params["blocks"]):
             h, st = step(gi, p_g, h)
+            h = hint(h, "act")
             states.append(st)
         return _logits_fn(cfg, params)(_final(cfg, params, h)[:, -1]), cache_of(states)
 
-    body = _maybe_remat(cfg, lambda p_g, h: tfm.xlstm_group_apply(cfg, p_g, h)[0])
+    body = _maybe_remat(cfg, lambda p_g, h: hint(tfm.xlstm_group_apply(cfg, p_g, h)[0], "act"))
 
     def forward(params, batch):
         """The training forward: (the final-normed h, zero aux sums)."""
@@ -426,12 +438,12 @@ def _make_encdec(cfg: ArchConfig) -> Model:
         h = frames.to(COMPUTE_DTYPE) + tfm.sinusoid_positions(frames.shape[1], d,
                                                              device=frames.device)
         for p_l in params["enc"]:
-            h = tfm.enc_block_apply(cfg, p_l, h, None)
+            h = hint(tfm.enc_block_apply(cfg, p_l, h, None), "act")
         return tfm._norm(cfg, params["enc_norm"], h)
 
     def dec_block(p_l, h, enc_h):
         ek, ev = tfm.cross_kv(cfg, p_l["cross_attn"], enc_h)
-        return tfm.dec_block_apply(cfg, p_l, h, None, ek, ev)[0]
+        return hint(tfm.dec_block_apply(cfg, p_l, h, None, ek, ev)[0], "act")
 
     body = _maybe_remat(cfg, dec_block)
 
@@ -458,6 +470,7 @@ def _make_encdec(cfg: ArchConfig) -> Model:
         for p_l in params["dec"]:
             ek, ev = tfm.cross_kv(cfg, p_l["cross_attn"], enc_h)
             h, (k, v) = tfm.dec_block_apply(cfg, p_l, h, None, ek, ev)
+            h = hint(h, "act")
             for name, x in zip(("k", "v", "xk", "xv"), (k, v, ek, ev)):
                 cache[name].append(x)
         h = _final(cfg, params, h)
@@ -479,6 +492,7 @@ def _make_encdec(cfg: ArchConfig) -> Model:
         for l, p_l in enumerate(params["dec"]):
             h, _, _ = tfm.dec_block_decode(cfg, p_l, h, cache["k"][l], cache["v"][l],
                                            cache["xk"][l], cache["xv"][l], cur_len)
+            h = hint(h, "act")
         h = _final(cfg, params, h)
         return _logits_fn(cfg, params)(h[:, -1]), cache
 

@@ -24,7 +24,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import COMPUTE_DTYPE, _normal, dense_init
+from repro_torch.models.layers import (COMPUTE_DTYPE, _normal, contiguous_grad,
+                                       dense_init, hint)
 
 
 def moe_init(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int) -> dict:
@@ -83,13 +84,18 @@ def moe_apply(params, x: torch.Tensor, *, n_experts: int, top_k: int,
     slot = torch.where(keep, my_pos, cap - 1)
     rows = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
     xf = x.repeat_interleave(k, dim=1)                          # (B, S*k, D)
-    buf = torch.zeros((e, b, cap, d), dtype=x.dtype, device=x.device)
+    buf = x.new_zeros((e, b, cap, d))
     # kept choices own distinct (expert, row, slot) cells; a dropped one adds
     # zero to its expert's last slot, as in JAX (no boolean indexing: that
     # would sync with the host)
     buf.index_put_((ef, rows, slot), torch.where(keep[..., None], xf, 0).to(x.dtype),
                    accumulate=True)
-    out = _experts(params, buf.reshape(e, b * cap, d)).reshape(e, b, cap, d)
+    # the hints take JAX's (groups, E, C, D) layout: expert-shard here ...
+    # (contiguous: a no-op on one device; a DTensor's shard may come back
+    # transposed, which its reshape cannot view)
+    buf = hint(buf.transpose(0, 1), "moe_dispatch").transpose(0, 1).contiguous()
+    out = contiguous_grad(_experts(params, buf.reshape(e, b * cap, d)).reshape(e, b, cap, d))
+    out = hint(out.transpose(0, 1), "moe_return").transpose(0, 1)   # ... back to rows
 
     gate = torch.where(keep, gf, 0.0).to(out.dtype)
     yf = out[ef, rows, slot] * gate[..., None]                  # (B, S*k, D)
@@ -105,7 +111,7 @@ def moe_decode(params, x: torch.Tensor, *, n_experts: int, top_k: int) -> torch.
     the outputs combine through the gate mask in f32."""
     b = x.shape[0]
     _, _, gate_v, gate_i = route(params, x[:, 0], top_k)
-    mask = torch.zeros((b, n_experts), dtype=torch.float32, device=x.device)
+    mask = gate_v.new_zeros((b, n_experts))
     mask.scatter_(1, gate_i, gate_v)
     out = _experts(params, x[:, 0])                             # (E, B, D)
     y = torch.einsum("ebd,be->bd", out.float(), mask)

@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import COMPUTE_DTYPE, _normal, dense_init
+from repro_torch.models.layers import COMPUTE_DTYPE, _normal, dense_init, elementwise
 
 
 def mamba_init(gen: torch.Generator, d_model: int, d_inner: int, d_state: int,
@@ -255,7 +255,7 @@ def mlstm_apply(params, x: torch.Tensor, *, n_heads: int, chunk: int = 256,
     dh = d_inner // n_heads
     q, k, v, li, lf_pre = _mlstm_in(params, xi, xc, n_heads)
     li = li.transpose(1, 2)                                  # (B, H, S)
-    lf = F.logsigmoid(lf_pre.transpose(1, 2))
+    lf = elementwise(F.logsigmoid, lf_pre.transpose(1, 2))
 
     nc = -(-s // chunk)
     pad = nc * chunk - s
@@ -293,7 +293,7 @@ def mlstm_decode(params, x: torch.Tensor, state: dict, *, n_heads: int):
     xc = _silu_bf16(xc)
     q, k, v, li, lf_pre = _mlstm_in(params, xi, xc, n_heads)
     q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]              # (B, H, Dh)
-    li, lf = li[:, 0], F.logsigmoid(lf_pre[:, 0])             # (B, H)
+    li, lf = li[:, 0], elementwise(F.logsigmoid, lf_pre[:, 0])             # (B, H)
 
     m_new = torch.maximum(lf + state["m"], li)
     f_w = torch.exp(lf + state["m"] - m_new)
@@ -342,7 +342,7 @@ def slstm_apply(params, x: torch.Tensor, *, n_heads: int, state: dict | None = N
     for t in range(s):
         rec = torch.einsum("bhd,hde->bhe", h.reshape(b, n_heads, dh), r).reshape(b, 4 * d)
         zp, ip, fp, op = (wx[:, t] + rec + params["gate_bias"]).split(d, dim=-1)
-        lf = F.logsigmoid(fp)
+        lf = elementwise(F.logsigmoid, fp)
         m_new = torch.maximum(lf + m, ip)
         i_w = torch.exp(ip - m_new)
         f_w = torch.exp(lf + m - m_new)

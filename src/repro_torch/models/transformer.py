@@ -20,13 +20,15 @@ drops the KV and state they return.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.configs.base import xlstm_ffn_dim
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
-from repro_torch.models.layers import (COMPUTE_DTYPE, gelu_mlp, gelu_mlp_init,
+from repro_torch.models.layers import (COMPUTE_DTYPE, gelu_mlp, gelu_mlp_init, hint,
                                        layernorm, layernorm_init, rmsnorm,
                                        rmsnorm_init, swiglu, swiglu_init)
 
@@ -90,7 +92,9 @@ def _residual(cfg, p, h, x, a_out, ffn=_ffn_apply):
     ``_ffn_decode`` in decode), sequential or parallel block."""
     if cfg.parallel_block:
         return h + a_out + ffn(cfg, p, x)
-    h = h + a_out
+    # (each sub-layer's sum pinned by the hint: a DTensor holds the
+    # attention's row-parallel output as a pending sum over 'model')
+    h = hint(h + a_out, "act")
     if cfg.ffn != "none":
         h = h + ffn(cfg, p, _norm(cfg, p["ln2"], h))
     return h
@@ -153,8 +157,8 @@ def hymba_block_init(gen: torch.Generator, cfg) -> dict:
 def _hymba_mix(cfg, p, h, a_out, m_out):
     """h + the fused attention and Mamba outputs (f32 gates cast to bf16),
     then the SwiGLU sublayer."""
-    h = h + (p["fuse_a"].to(COMPUTE_DTYPE) * a_out
-             + p["fuse_m"].to(COMPUTE_DTYPE) * m_out)
+    h = hint(h + (p["fuse_a"].to(COMPUTE_DTYPE) * a_out
+                  + p["fuse_m"].to(COMPUTE_DTYPE) * m_out), "act")
     return h + swiglu(p["mlp"], _norm(cfg, p["ln2"], h))
 
 
@@ -203,7 +207,7 @@ def _slstm_block(cfg, sl, h, state=None):
     """The sLSTM block with its GeLU MLP; returns (h, the sLSTM state)."""
     y, state = ssm.slstm_apply(sl["cell"], _norm(cfg, sl["ln"], h), n_heads=cfg.n_heads,
                                state=state)
-    h = h + y
+    h = hint(h + y, "act")
     return h + gelu_mlp(sl["mlp"], _norm(cfg, sl["ln_ffn"], h)), state
 
 
@@ -215,7 +219,7 @@ def xlstm_group_apply(cfg, p, h):
     for pl in p["mlstm"]:
         y, st = ssm.mlstm_apply(pl["cell"], _norm(cfg, pl["ln"], h), n_heads=cfg.n_heads,
                                 chunk=cfg.ssm_chunk, return_state=True)
-        h = h + y
+        h = hint(h + y, "act")
         mst.append(st)
     h, sst = _slstm_block(cfg, p["slstm"], h)
     return h, {"mlstm": mst, "slstm": sst}
@@ -255,7 +259,7 @@ def enc_block_apply(cfg, p, h, positions):
                            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                            d_head=cfg.head_dim, rope_kind="none", causal=False,
                            chunk=cfg.attn_chunk)
-    h = h + a
+    h = hint(h + a, "act")
     return h + gelu_mlp(p["mlp"], _norm(cfg, p["ln2"], h))
 
 
@@ -276,22 +280,24 @@ def dec_block_init(gen: torch.Generator, cfg) -> dict:
 def _cross_attend(cfg, p, x, enc_k, enc_v):
     """x (B, S, D) queries against the encoder's K/V (B, Senc, KVH, Dh)."""
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    ctx = attn.chunked_attention(q, enc_k, enc_v, causal=False, chunk=cfg.attn_chunk)
-    return ctx.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    q = hint(x @ p["wq"], "heads").reshape(b, s, cfg.n_heads, cfg.head_dim)
+    ctx = attn.per_head(functools.partial(attn.chunked_attention, causal=False,
+                                          chunk=cfg.attn_chunk), q, enc_k, enc_v, hq=2, hk=2)
+    return hint(ctx.reshape(b, s, cfg.n_heads * cfg.head_dim), "heads") @ p["wo"]
 
 
 def cross_kv(cfg, p, enc_h):
     """The cross-attention K and V (B, Senc, KVH, Dh) of the encoder's output."""
     b, se, _ = enc_h.shape
-    k = (enc_h @ p["wk"]).reshape(b, se, cfg.n_kv_heads, cfg.head_dim)
-    v = (enc_h @ p["wv"]).reshape(b, se, cfg.n_kv_heads, cfg.head_dim)
+    k = hint(enc_h @ p["wk"], "heads").reshape(b, se, cfg.n_kv_heads, cfg.head_dim)
+    v = hint(enc_h @ p["wv"], "heads").reshape(b, se, cfg.n_kv_heads, cfg.head_dim)
     return k, v
 
 
 def _dec_tail(cfg, p, h, enc_k, enc_v):
     """Cross-attention and the GeLU MLP, after the self-attention."""
-    h = h + _cross_attend(cfg, p["cross_attn"], _norm(cfg, p["ln_x"], h), enc_k, enc_v)
+    h = hint(h + _cross_attend(cfg, p["cross_attn"], _norm(cfg, p["ln_x"], h), enc_k, enc_v),
+             "act")
     return h + gelu_mlp(p["mlp"], _norm(cfg, p["ln2"], h))
 
 
@@ -301,7 +307,7 @@ def dec_block_apply(cfg, p, h, positions, enc_k, enc_v):
                             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                             d_head=cfg.head_dim, rope_kind="none", causal=True,
                             chunk=cfg.attn_chunk)
-    return _dec_tail(cfg, p, h + a, enc_k, enc_v), kv
+    return _dec_tail(cfg, p, hint(h + a, "act"), enc_k, enc_v), kv
 
 
 def dec_block_decode(cfg, p, h, cache_k, cache_v, enc_k, enc_v, cur_len):
@@ -310,7 +316,7 @@ def dec_block_decode(cfg, p, h, cache_k, cache_v, enc_k, enc_v, cur_len):
         p["self_attn"], _norm(cfg, p["ln1"], h), cache_k, cache_v, cur_len,
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, d_head=cfg.head_dim,
         rope_kind="none")
-    return _dec_tail(cfg, p, h + a, enc_k, enc_v), ck, cv
+    return _dec_tail(cfg, p, hint(h + a, "act"), enc_k, enc_v), ck, cv
 
 
 def sinusoid(pos: torch.Tensor, d: int) -> torch.Tensor:

@@ -9,8 +9,9 @@ the TPU v5e's:
 
 The counts come from ``roofline.counts`` (a traced step on the meta device,
 per device), not from XLA's HLO.  On one device the step moves no
-collective bytes, so the collective term is 0 until the port runs across
-cards.  Pure Python: importing this module loads no torch.
+collective bytes, so the collective term is 0; on a mesh (``launch/dryrun.py
+--mesh``) it is the collective result bytes per device over one link.
+Pure Python: importing this module loads no torch.
 """
 
 from __future__ import annotations
@@ -20,9 +21,12 @@ from __future__ import annotations
 BF16_PEAK = 989e12        # bf16 tensor-core FLOP/s
 HBM_BW = 3.35e12          # HBM3 bytes/s (80 GB)
 HBM_BYTES = 80e9          # device memory
-# NVLink 4 on the same data sheet: 900 GB/s per GPU over 18 links; no
-# collective runs on one device, so the term is 0 there whatever this is.
-LINK_BW = 900e9 / 18      # bytes/s per link
+# The production meshes' 'model' axis is 16 wide: two nodes of 8 H100s, so
+# its collectives cross the nodes' network, one 400 Gb/s NDR InfiniBand
+# adapter per GPU (NVIDIA ConnectX-7, as in the DGX H100), not NVLink (900
+# GB/s per GPU inside a node).  The term divides a device's collective bytes
+# by that one link.
+LINK_BW = 400e9 / 8       # bytes/s per GPU
 
 
 def terms(flops: float, nbytes: float, collective_bytes: float) -> dict:
@@ -53,6 +57,7 @@ def analyze(counts: dict, *, chips: int = 1, model_flops_total: float) -> dict:
                        "collective_bytes": coll_dev},
         "totals": {"flops": flops_dev * chips, "bytes": bytes_dev * chips,
                    "collective_bytes": coll_dev * chips},
+        "collectives": counts.get("collectives"),
         "terms_seconds": t,
         "dominant": max(t, key=t.get),
         "model_flops": model_flops_total,

@@ -25,6 +25,15 @@ counts, per op:
     the step makes, beside what its inputs hold), against the device's 80
     GB.
 
+On a mesh the step runs on meta DTensors over a process group that moves
+nothing (``launch.mesh.fake_mesh``): the counter lets DTensor turn each op
+into its local ops and collectives first, so every count is per device
+(this rank's shards), each local op counted once; the collectives
+(``_c10d_functional``'s all-gather, reduce-scatter, all-reduce and
+all-to-all) add their result bytes to ``collective_bytes``, by kind, as the
+JAX package's ``collective_bytes_per_device`` sums HLO result bytes, and
+nothing to FLOPs or bytes.
+
 On the CPU, these counts are what the step would do on the card: the same
 Python runs on either (``launch/dryrun.py``).
 """
@@ -39,12 +48,16 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.models.layers import local
 from repro_torch.roofline.analysis import HBM_BYTES
 
 _aten = torch.ops.aten
 META = torch.device("meta")
 _FREE = {_aten._unsafe_view, _aten.empty, _aten.empty_like, _aten.empty_strided,
          _aten.lift_fresh, _aten.detach, _aten.alias}
+# collectives by their functional op's name (``_coalesced`` forms join theirs)
+COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce",
+               "all_to_all_single")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,8 +68,21 @@ class _Meta:
     dtype: torch.dtype
 
 
+def _wrappers() -> tuple:
+    """The tensor subclasses a count looks through: DTensor and the
+    functional collectives' result (empty without torch.distributed)."""
+    if not torch.distributed.is_available():
+        return ()
+    from torch.distributed._functional_collectives import AsyncCollectiveTensor
+    from torch.distributed.tensor import DTensor
+
+    return DTensor, AsyncCollectiveTensor
+
+
 def tensor_bytes(t: torch.Tensor) -> int:
-    """The bytes ``t`` spans in memory: an expanded (stride 0) axis once."""
+    """The bytes ``t`` spans in memory: an expanded (stride 0) axis once (a
+    DTensor: its shard's)."""
+    t = local(t)
     return t.element_size() * math.prod(n for n, st in zip(t.shape, t.stride()) if st)
 
 
@@ -137,6 +163,9 @@ class _Counter(TorchDispatchMode):
         self.flops = 0
         self.bytes = 0
         self.ops = 0
+        self.collectives = dict.fromkeys(COLLECTIVES, 0)
+        self.collective_calls = dict.fromkeys(COLLECTIVES, 0)
+        self._through = _wrappers()
         self.live = _Live()
         self.memo = {} if memo else None
         self._kind = {}       # func -> (free, memoizable, flop formula)
@@ -153,7 +182,9 @@ class _Counter(TorchDispatchMode):
         return kind
 
     def _run(self, func, args, kwargs, ins, memoizable):
-        if not memoizable or any(t.device.type != "meta" for t in ins):
+        # only an op on meta operands is answered from the memo (a factory's
+        # device is in its arguments)
+        if not memoizable or not ins or any(t.device.type != "meta" for t in ins):
             return func(*args, **kwargs)
         try:
             key = (func, _spec(args), _spec(tuple(sorted(kwargs.items()))))
@@ -171,16 +202,27 @@ class _Counter(TorchDispatchMode):
         return out
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, self._through) for t in types):
+            return NotImplemented       # DTensor runs first: its local ops come back here
         kwargs = kwargs or {}
+        if func.namespace == "_c10d_functional":
+            out = func(*args, **kwargs)
+            kind = func.overloadpacket.__name__.removesuffix("_coalesced")
+            if kind in self.collectives:
+                self.collectives[kind] += sum(map(tensor_bytes, _tensors(out)))
+                self.collective_calls[kind] += 1
+            return out
         free, memoizable, flops = self._classify(func)
         ins = list(_tensors((args, kwargs)))
         out = self._run(func, args, kwargs, ins, memoizable)
-        if free:
+        outs = list(_tensors(out))
+        if free or all(t.device.type != "meta" for t in ins + outs):
+            # host arithmetic (a constant, DTensor's own index sums) is no
+            # device work
             return out
         self.ops += 1
         if flops is not None:
             self.flops += flops(*args, **kwargs, out_val=out)
-        outs = list(_tensors(out))
         self.bytes += sum(map(tensor_bytes, ins)) + sum(map(tensor_bytes, outs))
         fresh = {id(t.untyped_storage()) for t in ins}
         for t in outs:                     # results, not inputs written in place
@@ -188,6 +230,10 @@ class _Counter(TorchDispatchMode):
             if id(st) not in fresh:
                 self.live.add(st)
         return out
+
+
+def _storage(t: torch.Tensor):
+    return local(t).untyped_storage()
 
 
 def _tree_bytes(tree) -> int:
@@ -210,12 +256,12 @@ def count_step(fn, args, *, params=None, opt_state=None, microbatches: int = 1) 
     (``peak_live_bytes``); ``grad_bytes`` (bf16 gradients and, with
     ``microbatches`` > 1, their f32 accumulator) and
     ``saved_activation_bytes`` are parts of that peak."""
-    params_ids = ({id(p.untyped_storage()) for p in params.parameters()}
+    params_ids = ({id(_storage(p)) for p in params.parameters()}
                   if params is not None else set())
     saved = _Live()
 
     def pack(t):
-        st = t.untyped_storage()
+        st = _storage(t)
         if id(st) not in params_ids:
             saved.add(st)
         return t
@@ -227,7 +273,7 @@ def count_step(fn, args, *, params=None, opt_state=None, microbatches: int = 1) 
     opt_bytes = _tree_bytes(opt_state)
     grad_bytes = 0
     if opt_state is not None:
-        n_params = sum(p.numel() for p in params.parameters())
+        n_params = sum(local(p).numel() for p in params.parameters())
         grad_bytes = param_bytes + (4 * n_params if microbatches > 1 else 0)
     memory = {
         "param_bytes": param_bytes, "optimizer_bytes": opt_bytes,
@@ -241,4 +287,6 @@ def count_step(fn, args, *, params=None, opt_state=None, microbatches: int = 1) 
                              + counter.live.peak)
     memory["fits"] = memory["total_bytes"] <= HBM_BYTES
     return {"flops": float(counter.flops), "bytes": float(counter.bytes),
-            "collective_bytes": 0.0, "ops": counter.ops, "memory": memory}
+            "collective_bytes": float(sum(counter.collectives.values())),
+            "collectives": {**counter.collectives, "_counts": counter.collective_calls},
+            "ops": counter.ops, "memory": memory}

@@ -6,8 +6,7 @@ The counterpart of ``repro.roofline.reanalyze``, which re-reads the saved
 HLO: a port record keeps its per-device counts, so ``terms_seconds``,
 ``dominant``, ``useful_flop_ratio`` and ``roofline_fraction`` are
 recomputed from them with the constants of ``roofline.analysis`` as they
-are now.  A production-mesh record (``--mesh``) counts state only and is
-left as it is.
+are now, for a production-mesh record (``--mesh``) as for one device.
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ from repro_torch.roofline.analysis import BF16_PEAK, terms
 
 def reanalyze_cell(json_path: Path) -> dict:
     rec = json.loads(json_path.read_text())
-    if rec.get("skipped") or rec.get("mesh"):   # a mesh record counts state only
+    if rec.get("skipped"):
         return rec
     dev = rec["per_device"]
     chips = rec["chips"]

@@ -21,6 +21,13 @@ blocks on a second one: ``params/blocks/mlstm/cell/wq`` is (groups, g-1,
 ``opt/.m/<key>`` and ``opt/.v/<key>``.  A port parameter's name maps to its
 key and index by dropping the layer indices: ``blocks.3.mlstm.2.cell.wq``
 is ``blocks/mlstm/cell/wq`` at (3, 2).
+
+A sharded run's leaves are DTensors: a checkpoint holds their full tensors
+in the same layout, as the JAX package's ``save`` holds ``jax.device_get``'s.
+Every rank gathers them (``full_tensor``, a collective) and rank 0 of the
+default process group writes; on restore every rank reads the full arrays
+and copies its own block into its shard.  So a one-device checkpoint resumes
+a sharded run and a sharded one a one-device run.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.models.layers import is_dtensor
 from repro_torch.train.optimizer import OptState
 
 
@@ -62,13 +70,22 @@ def _key(path):
             tuple(int(c) for c in path if c.isdigit()))
 
 
+def _writes() -> bool:
+    """This process writes checkpoints: no process group, or its rank 0."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 def _host(tree):
     """The tree's leaves as host numpy arrays by JAX key (layers stacked),
-    with each one's dtype name."""
+    with each one's dtype name.  A DTensor leaf gives its full tensor (every
+    rank of its mesh takes part)."""
     parts = {}
     for path, t in _walk(tree):
         key, idx = _key(path)
-        parts.setdefault(key, {})[idx] = t.detach()
+        t = t.detach()
+        parts.setdefault(key, {})[idx] = t.full_tensor() if is_dtensor(t) else t
     arrays, dtypes = {}, {}
     for key, by_idx in sorted(parts.items()):
         first = next(iter(by_idx.values()))
@@ -109,8 +126,12 @@ def _write(ckpt_dir: Path, step: int, arrays: dict, dtypes: dict, extra: dict | 
 
 def save(ckpt_dir: str | Path, step: int, tree, extra: dict | None = None) -> Path:
     """Write ``tree`` (e.g. ``{"params": ParamTree, "opt": OptState}``) as
-    step ``step``."""
-    return _write(Path(ckpt_dir), step, *_host(tree), extra)
+    step ``step`` (in a process group: gathered by every rank, written by
+    rank 0)."""
+    arrays, dtypes = _host(tree)
+    ckpt_dir = Path(ckpt_dir)
+    return _write(ckpt_dir, step, arrays, dtypes, extra) if _writes() \
+        else ckpt_dir / f"step_{step}"
 
 
 class AsyncCheckpointer:
@@ -125,6 +146,8 @@ class AsyncCheckpointer:
     def save(self, step: int, tree, extra: dict | None = None):
         self.wait()
         arrays, dtypes = _host(tree)
+        if not _writes():
+            return
         self._thread = threading.Thread(
             target=_write, args=(self.ckpt_dir, step, arrays, dtypes, extra), daemon=True)
         self._thread.start()
@@ -145,8 +168,8 @@ def latest_step(ckpt_dir: str | Path) -> int | None:
 def restore(ckpt_dir: str | Path, template, step: int | None = None):
     """Load step ``step`` (default: the latest) into ``template``'s tensors
     in place (each leaf checked against the manifest's shape, cast to the
-    template's dtype, on the template's device).  Returns (template,
-    step)."""
+    template's dtype, on the template's device; a DTensor leaf takes its
+    rank's block).  Returns (template, step)."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -169,5 +192,11 @@ def restore(ckpt_dir: str | Path, template, step: int | None = None):
                 raise ValueError(f"{key}{list(idx)}: checkpoint shape {tuple(leaf.shape)}, "
                                  f"template {tuple(t.shape)}")
             with torch.no_grad():
-                t.copy_(leaf.to(t.dtype))
+                if is_dtensor(t):
+                    from repro_torch.launch.sharding import local_shard
+
+                    t.to_local().copy_(local_shard(leaf, t.device_mesh, t.placements)
+                                       .to(t.dtype))
+                else:
+                    t.copy_(leaf.to(t.dtype))
     return template, step

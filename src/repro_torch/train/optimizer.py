@@ -13,6 +13,15 @@ walks the leaves one at a time and writes master, m and v in place, then
 copies the master back into the compute parameter (``copy_`` rounds f32 to
 bf16 as ``astype`` does): no whole-tree temporary (at phi3-mini-3.8b's 3.8 B
 parameters an f32 copy of the gradients is 15 GB).
+
+On a mesh the leaves are DTensors (``launch.steps``): master, m and v take
+their parameter's placements, each gradient comes laid out as its
+parameter, and the update runs on each rank's local shards, leaf by leaf
+and in place.  The global norm is one all-reduce over every rank: each rank
+adds the squares of the shards it is the first holder of (coordinate 0 on
+every mesh dim the leaf is replicated over), so that every element counts
+once; every rank then clips with the same scalar, and a replicated leaf
+takes the same update on every rank.
 """
 
 from __future__ import annotations
@@ -22,6 +31,8 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+
+from repro_torch.models.layers import is_dtensor, local
 
 
 class OptState(NamedTuple):
@@ -43,10 +54,8 @@ def adamw_init(params) -> OptState:
     return OptState(
         step=torch.zeros((), dtype=torch.int32, device=device),
         master={n: p.detach().to(torch.float32, copy=True) for n, p in ps.items()},
-        m={n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           for n, p in ps.items()},
-        v={n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           for n, p in ps.items()},
+        m={n: torch.zeros_like(p, dtype=torch.float32) for n, p in ps.items()},
+        v={n: torch.zeros_like(p, dtype=torch.float32) for n, p in ps.items()},
     )
 
 
@@ -76,12 +85,35 @@ def cosine_schedule(base_lr: float, warmup: int, total: int, min_frac: float = 0
     return lr
 
 
+def _first_holder(g) -> bool:
+    """This rank holds the first copy of its shard of the DTensor ``g``:
+    coordinate 0 on every mesh dim ``g`` is replicated over."""
+    coord = g.device_mesh.get_coordinate()
+    return all(c == 0 for c, p in zip(coord, g.placements) if not p.is_shard())
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    total = None
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares.  DTensor
+    leaves: each rank sums the squares of the shards it first holds, then
+    one all-reduce over the mesh's ranks adds them."""
+    total, mesh = None, None
     for g in leaves(tree).values():
-        sq = torch.square(g.float()).sum()
+        if is_dtensor(g):
+            mesh = g.device_mesh
+            sq = torch.square(g.to_local().float()).sum()
+            if not _first_holder(g):
+                sq = torch.zeros_like(sq)
+        else:
+            sq = torch.square(g.float()).sum()
         total = sq if total is None else total + sq
+    if mesh is not None:
+        import torch.distributed as dist
+        from torch.distributed import _functional_collectives as funcol
+
+        if mesh.size() != dist.get_world_size():
+            raise ValueError(f"a mesh of {mesh.size()} of {dist.get_world_size()} ranks: the "
+                             f"norm's all-reduce spans every rank")
+        total = funcol.wait_tensor(funcol.all_reduce(total, "sum", dist.group.WORLD))
     return torch.sqrt(total)
 
 
@@ -100,11 +132,11 @@ def adamw_update(grads, opt: OptState, params, *, lr_fn, b1=0.9, b2=0.95,
     bc2 = 1 - b2 ** t
     gs = leaves(grads)
     for name, p in leaves(params).items():
-        g = gs[name].float() * scale
-        m, v, master = opt.m[name], opt.v[name], opt.master[name]
+        g = local(gs[name]).float() * scale
+        m, v, master = local(opt.m[name]), local(opt.v[name]), local(opt.master[name])
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g * g)
         u = (m / bc1) / (_sqrt(v / bc2) + eps)
         master.sub_(lr * (u + weight_decay * master))
-        p.copy_(master)
+        local(p).copy_(master)
     return params, opt._replace(step=step), {"grad_norm": gn, "lr": lr}

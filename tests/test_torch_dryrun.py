@@ -10,10 +10,16 @@
   meta-kernel memo equal those without it.
 * The CLI writes a record with every key; ``reanalyze`` recomputes the
   terms from a saved record.  ``--mesh pod1|pod2`` (``--multi-pod`` is
-  pod2) writes state records whose per-device bytes of phi3-mini-3.8b's
+  pod2) writes records whose per-device bytes of phi3-mini-3.8b's
   parameters, AdamW state, batch and cache equal a sum over JAX's
-  ``PartitionSpec``s of the same leaves; activations and collectives null.
-  ``launch/train.py --multi-pod`` still raises.
+  ``PartitionSpec``s of the same leaves, with the sharded step's
+  activations, collectives and terms counted.  ``launch/train.py
+  --multi-pod`` outside a process group of 512 ranks raises a
+  ``ValueError`` naming them.
+* The mesh dry run on a fake (2, 2) group, phi3-smoke: per-device FLOPs
+  times 4 within FLOPS_SPLIT_RTOL of the one-device count for the train,
+  prefill and decode cells; the collectives by kind; the state fields as
+  ``mesh_state_cell`` counts them.
 * phi3-mini-3.8b at full width traces its train step (1024 x 2, remat
   full) on meta without allocating its 61 GB of state, and counts
   ``chip_smoke.train_flops`` less the recompute that checkpointing stops
@@ -24,6 +30,7 @@ import dataclasses
 import json
 import resource
 import sys
+import threading
 from pathlib import Path
 
 import jax
@@ -148,13 +155,14 @@ def test_cli_writes_records_and_reanalyze_recomputes(tmp_path, monkeypatch):
 
 
 def test_multi_pod_raises(tmp_path):
-    """``--multi-pod`` still raises in the trainer (no sharded step yet); in
-    the dry run it is ``--mesh pod2``: state records of 512 chips, with the
-    activation and collective fields null."""
+    """``--multi-pod`` outside a process group of 512 ranks raises in the
+    trainer, naming them (it never trains on one device instead); in the
+    dry run it is ``--mesh pod2``: records of 512 chips whose activations,
+    collectives and terms are counted from the sharded step."""
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match="multi-pod"):
-        train.build(train.parser().parse_args(["--arch", "gemma3-1b", "--smoke", "--multi-pod",
+    with pytest.raises(ValueError, match="512 ranks"):
+        train.build(train.parser().parse_args(["--arch", "phi3-mini-3.8b", "--multi-pod",
                                                "--device", "cpu"]))
     dryrun.main(["--arch", "phi3-mini-3.8b", "--shape", "decode_32k", "--multi-pod",
                  "--out", str(tmp_path)])
@@ -164,13 +172,55 @@ def test_multi_pod_raises(tmp_path):
     assert rec["chips"] == 512 and rec["multi_pod"] and rec["mesh"] == "pod2"
     assert rec["mesh_shape"] == {"pod": 2, "data": 16, "model": 16}
     dev = rec["per_device"]
-    assert dev["activation_bytes"] is None and dev["collective_bytes"] is None
-    assert rec["terms_seconds"] is None and "not_counted" in rec
+    assert dev["activation_bytes"] > 0 and dev["collective_bytes"] > 0
+    assert dev["flops"] > 0 and dev["bytes"] > 0
+    assert set(rec["terms_seconds"]) == {"compute", "memory", "collective"}
+    assert rec["dominant"] is not None and rec["roofline_fraction"] is not None
+    assert "not_counted" not in rec
+    assert dev["collective_bytes"] == sum(v for k, v in rec["collectives"].items()
+                                          if not k.startswith("_"))
     assert dev["state_bytes"] == sum(dev[k] for k in ("param_bytes", "optimizer_bytes",
                                                       "batch_bytes", "cache_bytes"))
     assert json.loads((tmp_path / "phi3-mini-3.8b__long_500k__pod1.json").read_text())[
         "skipped"]
     assert reanalyze.reanalyze_cell(tmp_path / "phi3-mini-3.8b__decode_32k__pod2.json") == rec
+
+
+# per-device FLOPs on a (2, 2) mesh, times 4, against the one-device count:
+# every matmul of the step splits four ways (rows over 'data', heads and
+# hidden widths over 'model'), none runs on every rank of an axis
+FLOPS_SPLIT_RTOL = 0.01
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_mesh_dry_run_splits_the_step_on_a_fake_2x2_group(kind):
+    from repro_torch.launch.mesh import MeshShape
+
+    cfg = get_config("phi3-mini-3.8b", smoke=True)
+    shape = ShapeSpec("c", 64, 8, kind)
+    mb = 2 if kind == "train" else None
+    one = dryrun.analyze_cell(cfg, shape, microbatches=mb)
+    mesh = MeshShape((2, 2), ("data", "model"))
+    rec = dryrun.mesh_cell(cfg, shape, mesh, microbatches=mb)
+    dev = rec["per_device"]
+    assert dev["flops"] * 4 == pytest.approx(one["per_device"]["flops"], rel=FLOPS_SPLIT_RTOL)
+    assert rec["chips"] == 4 and rec["useful_flop_ratio"] == pytest.approx(
+        one["useful_flop_ratio"], rel=FLOPS_SPLIT_RTOL)
+    coll = rec["collectives"]
+    for k, n in coll["_counts"].items():
+        assert (n > 0) == (coll[k] > 0), k
+    # rows over 'data' and tensor parallelism over 'model': parameters are
+    # gathered over 'data' (FSDP) and the row-parallel sums reduced over
+    # 'model'; training reduce-scatters its gradients
+    assert coll["all_gather_into_tensor"] > 0 and coll["all_reduce"] > 0
+    assert coll["reduce_scatter_tensor"] > 0 or kind != "train"
+    assert rec["terms_seconds"]["collective"] == dev["collective_bytes"] / analysis.LINK_BW
+    state = dryrun.mesh_state_cell(cfg, shape, mesh)
+    for k, v in state["per_device"].items():
+        assert dev[k] == v, k
+    assert {k: rec[k] for k in state if k != "per_device"} == \
+        {k: v for k, v in state.items() if k != "per_device"}
+    assert threading.active_count() >= 1 and not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("mesh_name", ["pod1", "pod2"])

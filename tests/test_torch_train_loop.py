@@ -273,16 +273,19 @@ def test_launcher_trains_on_the_cpu(arch, capsys):
 
 
 def test_launcher_resumes_and_refuses(tmp_path, capsys):
-    """Rerunning with the same ``--ckpt-dir`` resumes; ``--multi-pod`` (a
-    TPU mesh) raises; ``--device cuda`` raises without a card."""
+    """Rerunning with the same ``--ckpt-dir`` resumes; ``--multi-pod`` (the
+    (2, 16, 16) mesh) outside a process group of 512 ranks raises, naming
+    them (``--smoke`` trains on JAX's debug mesh whatever ``--multi-pod``
+    says, as the JAX launcher does); ``--device cuda`` raises without a
+    card."""
     argv = ["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "2",
             "--ckpt-dir", str(tmp_path), "--microbatches", "2"]
     train.main(argv)
     train.main(argv)
     assert "state=resumed start_step=2" in capsys.readouterr().out
     assert ckpt.latest_step(tmp_path) == 4
-    with pytest.raises(NotImplementedError, match="multi-pod"):
-        train.main(argv + ["--multi-pod"])
+    with pytest.raises(ValueError, match="512 ranks"):
+        train.main(["--arch", ARCH, "--device", "cpu", "--multi-pod"])
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="cuda"):

@@ -151,3 +151,345 @@ def distribute_rank(arch: str, seed: int, mesh_shape) -> dict:
         assert torch.equal(d.to_local(), want), (path, spec, tuple(d.to_local().shape))
         checked += 1
     return {"checked": checked, "sharded_dims": sharded}
+
+
+# ---------------------------------------------------------------------------
+# The sharded step (test_torch_sharded_step.py): one record per (arch, mesh),
+# made by the same code in the parent (mesh None: one device) and on the ranks
+# ---------------------------------------------------------------------------
+
+STEP_S = 32
+# rows per train step by microbatches: every microbatch is 4 rows (one per
+# rank of a 4-wide data axis), so both steps run ops of the same shapes,
+# whose DTensor sharding plans (the costly part of a rank's first step)
+# are then made once
+TRAIN_ROWS = {1: 4, 2: 8}
+STEP_B = 4                             # prefill and decode rows
+PROMPT, MAX_LEN, DECODE_STEPS = 16, 32, 3
+
+
+def step_batch(cfg, rows: int, seed: int = 0) -> dict:
+    """A train batch, numpy: tokens and labels (rows, S), Whisper's frames."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, cfg.vocab_size, (rows, STEP_S + 1)).astype(np.int32)
+    b = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    if cfg.enc_dec:
+        b["frames"] = rng.standard_normal((rows, cfg.enc_len, cfg.d_model)).astype(np.float32)
+    return b
+
+
+def prompt_batch(cfg, seed: int = 1) -> dict:
+    rng = np.random.default_rng(seed)
+    b = {"tokens": rng.integers(0, cfg.vocab_size, (STEP_B, PROMPT)).astype(np.int32)}
+    if cfg.enc_dec:
+        b["frames"] = rng.standard_normal((STEP_B, cfg.enc_len, cfg.d_model)).astype(np.float32)
+    return b
+
+
+def params_numpy(params) -> dict:
+    """A ``ParamTree``'s leaves by name as (f32 numpy, dtype name)."""
+    return {n: (p.detach().float().numpy(), str(p.dtype).removeprefix("torch."))
+            for n, p in params.named_parameters()}
+
+
+def params_of(model, values: dict):
+    """``model``'s parameters on the CPU with ``params_numpy``'s values."""
+    params = model.init(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for n, p in params.named_parameters():
+            p.copy_(torch.from_numpy(values[n][0]).to(getattr(torch, values[n][1])))
+    return params
+
+
+def _full(x) -> np.ndarray:
+    x = x.detach()
+    x = x.full_tensor() if hasattr(x, "full_tensor") else x
+    return x.float().numpy()
+
+
+class _Routing:
+    """``moe.route`` recording its probabilities and own choices (full,
+    call by call) and, with ``impose``, taking those choices instead (the
+    gates from its own probabilities), as the JAX-held tests impose JAX's."""
+
+    def __init__(self, impose=None):
+        from repro_torch.models import moe
+
+        self.moe, self.route, self.impose, self.log = moe, moe.route, impose, []
+
+    def __enter__(self):
+        self.moe.route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def _route(self, params, x, top_k):
+        logits, probs, gate_v, own = self.route(params, x, top_k)
+        self.log.append((_full(probs), _full(own).astype(np.int64)))
+        if self.impose is None:
+            return logits, probs, gate_v, own
+        gi = torch.from_numpy(self.impose[len(self.log) - 1])
+        if hasattr(own, "placements"):
+            from repro_torch.launch.sharding import distribute_tree
+
+            gi = distribute_tree(own.device_mesh, gi, _spec_of(own))
+        gv = probs.gather(-1, gi)
+        return logits, probs, gv / torch.clamp(gv.sum(-1, keepdim=True), min=1e-9), gi
+
+
+def _spec_of(x) -> tuple:
+    """A DTensor's placements as a spec (each tensor dim: its mesh axes)."""
+    names = x.device_mesh.mesh_dim_names
+    spec = [[] for _ in range(x.dim())]
+    for name, p in zip(names, x.placements):
+        if p.is_shard():
+            spec[p.dim].append(name)
+    return tuple(None if not e else e[0] if len(e) == 1 else tuple(e) for e in spec)
+
+
+def _install(cache, pcache):
+    """prefill's cache into ``init_cache``'s, at its leading positions."""
+    if isinstance(cache, dict):
+        for k in cache:
+            _install(cache[k], pcache[k])
+    elif cache.shape == pcache.shape:
+        cache.copy_(pcache)
+    else:
+        cache[:, :, :pcache.shape[2]] = pcache
+
+
+class _UpdateInputs:
+    """``optimizer.adamw_update`` keeping the gradients that reach it (the
+    step's own tensors, call by call; read them after the step, so that
+    reading a DTensor's in full adds no collective to the step)."""
+
+    def __init__(self):
+        from repro_torch.train import optimizer as opt_mod
+
+        self.opt, self.update, self.grads = opt_mod, opt_mod.adamw_update, []
+
+    def __enter__(self):
+        self.opt.adamw_update = self._update
+        return self
+
+    def __exit__(self, *exc):
+        self.opt.adamw_update = self.update
+
+    def _update(self, grads, *args, **kw):
+        self.grads.append(dict(self.opt.leaves(grads)))
+        return self.update(grads, *args, **kw)
+
+
+def redo_update(arch: str, values: dict, rec: dict) -> dict:
+    """The one-device AdamW update of ``arch``'s smoke parameters
+    ``values`` on a train record's own gradients, with its own global norm
+    (a mesh sums the squares in another order) and ``build_train_step``'s
+    schedule: the parameters, master, m and v the record must hold, by name,
+    and the learning rate."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.model import make_model
+    from repro_torch.train import optimizer as opt_mod
+
+    params = params_of(make_model(get_config(arch, smoke=True)), values)
+    kw = build_train_step.__kwdefaults__
+    norm = torch.tensor(rec["metrics"]["grad_norm"], dtype=torch.float32)
+    global_norm, opt_mod.global_norm = opt_mod.global_norm, lambda tree: norm
+    try:
+        _, st, stats = opt_mod.adamw_update(
+            {n: torch.from_numpy(g) for n, g in rec["grads"].items()}, opt_mod.adamw_init(params),
+            params, lr_fn=opt_mod.cosine_schedule(kw["lr"], kw["warmup"], kw["total_steps"]))
+    finally:
+        opt_mod.global_norm = global_norm
+    return {"params": {n: _full(p) for n, p in params.named_parameters()},
+            "master": {n: _full(x) for n, x in st.master.items()},
+            "m": {n: _full(x) for n, x in st.m.items()},
+            "v": {n: _full(x) for n, x in st.v.items()}, "lr": float(stats["lr"])}
+
+
+def _full_tree(t):
+    return {k: _full_tree(v) for k, v in t.items()} if isinstance(t, dict) else \
+        (t.full_tensor() if hasattr(t, "full_tensor") else t)
+
+
+def run_steps(arch: str, values: dict, mesh_shape=None, impose=None, feed=None,
+              staged: bool = False) -> dict:
+    """``_run_steps``; with ``staged``, its collectives through
+    ``HostStagedCollectives`` (on the CPU here: the transport gloo ranks on
+    one card use), which also counts them."""
+    if not staged:
+        return _run_steps(arch, values, mesh_shape, impose, feed)
+    from repro_torch.launch.mesh import HostStagedCollectives
+
+    with HostStagedCollectives("CPU") as st:
+        rec = _run_steps(arch, values, mesh_shape, impose, feed)
+    rec["staged_calls"] = st.calls
+    return rec
+
+
+def _run_steps(arch: str, values: dict, mesh_shape=None, impose=None, feed=None) -> dict:
+    """``arch``'s smoke config with the parameters ``values``
+    (``params_numpy``) on a (data, model) ``DeviceMesh`` of ``mesh_shape``
+    (None: one device, no mesh): one train step at each of TRAIN_ROWS's
+    microbatch counts (metrics, the f32 gradients that reached AdamW, the
+    updated parameters, master, m and v, all in full), ``prefill_step`` over
+    ``prompt_batch`` (logits), then DECODE_STEPS serve steps (logits bundle
+    and greedy bundle on twin caches) fed ``feed``'s tokens (None: the
+    prompt's greedy token, then each step's; the record's ``fed``).
+    ``impose``: MoE routing choices by call (``_Routing``).
+    On a mesh the record adds, per train step, the leaves whose local shard
+    is not the shape ``param_placements`` gives, and this rank's own copies
+    of the replicated leaves (parameter, master, m and v)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import (build_prefill_step, build_serve_step,
+                                          build_train_step, place_params)
+    from repro_torch.models.model import make_model
+    from repro_torch.train.optimizer import adamw_init
+
+    cfg = get_config(arch, smoke=True)
+    model = make_model(cfg)
+    mesh = None if mesh_shape is None else make_debug_mesh(mesh_shape, device_type="cpu")
+
+    def placed():
+        p = params_of(model, values)
+        return p if mesh is None else place_params(cfg, mesh, p)
+
+    def rows(batch, b=STEP_B):
+        batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        return batch if mesh is None else shd.local_batch(mesh, batch, b)
+
+    rec = {"train": {}, "routing": {}}
+    with _Routing(None if impose is None else impose.get("train")) as routing, \
+            _UpdateInputs() as seen:
+        for a, b in TRAIN_ROWS.items():
+            bundle = build_train_step(model, ShapeSpec("s", STEP_S, b, "train"), mesh=mesh,
+                                      microbatches=a)
+            params = placed()
+            opt = adamw_init(params)
+            params, opt, metrics = bundle.fn(params, opt, rows(step_batch(cfg, b), b))
+            r = {"metrics": {k: float(v) for k, v in metrics.items()},
+                 "grads": {n: _full(g) for n, g in seen.grads[-1].items()},
+                 "params": {n: _full(p) for n, p in params.named_parameters()},
+                 **{k: {n: _full(x) for n, x in getattr(opt, k).items()}
+                    for k in ("master", "m", "v")}}
+            if mesh is not None:
+                r["bad_shards"] = _bad_shards(cfg, mesh, model, params)
+                r["replicated"] = {
+                    n: {"params": _full(p.to_local()),
+                        **{k: _full(getattr(opt, k)[n].to_local()) for k in ("master", "m", "v")}}
+                    for n, p in params.named_parameters()
+                    if all(q.is_replicate() for q in p.placements)}
+            rec["train"][a] = r
+    rec["routing"]["train"] = routing.log
+
+    pshape = ShapeSpec("p", PROMPT, STEP_B, "prefill")
+    dshape = ShapeSpec("d", MAX_LEN, STEP_B, "decode")
+    params = placed()
+    with torch.no_grad(), _Routing(None if impose is None else impose.get("serve")) as routing:
+        logits, pcache = build_prefill_step(model, pshape, mesh=mesh).fn(params,
+                                                                       rows(prompt_batch(cfg)))
+        rec["prefill"] = _full(logits)
+        caches = []
+        for _ in range(2):
+            cache = model.init_cache(STEP_B, MAX_LEN, device="cpu")
+            _install(cache, _full_tree(pcache))
+            if mesh is not None:
+                cache = shd.distribute_tree(mesh, cache,
+                                            shd.cache_shardings(cfg, mesh, cache, STEP_B))
+            caches.append(cache)
+        sb = build_serve_step(model, dshape, mesh=mesh)
+        gb = build_serve_step(model, dshape, mesh=mesh, greedy=True)
+        tok = np.argmax(rec["prefill"], -1).astype(np.int32)
+        rec["logits"], rec["greedy"], rec["fed"] = [], [], []
+        for i in range(DECODE_STEPS):
+            if feed is not None:
+                tok = feed[i]
+            rec["fed"].append(tok)
+            t_in = rows({"t": tok[:, None]})["t"]
+            lg, caches[0] = sb.fn(params, t_in, caches[0], PROMPT + i)
+            g, caches[1] = gb.fn(params, t_in, caches[1], PROMPT + i)
+            rec["logits"].append(_full(lg))
+            rec["greedy"].append(_full(g).astype(np.int32))
+            tok = rec["greedy"][-1]
+    rec["routing"]["serve"] = routing.log
+    return rec
+
+
+def _bad_shards(cfg, mesh, model, params) -> list:
+    """The leaves whose placements or local shard shape are not those their
+    spec gives (``param_spec``, ``placements``, ``local_shard``)."""
+    from repro_torch.configs.specs import abstract_params
+    from repro_torch.launch.sharding import local_shard, param_spec, placements, tree_key_paths
+
+    bad = []
+    for (n, p), (path, leaf) in zip(params.named_parameters(),
+                                    tree_key_paths(abstract_params(model)), strict=True):
+        want = placements(param_spec(cfg, mesh, path, leaf), mesh)
+        if tuple(p.placements) != want or \
+                p.to_local().shape != local_shard(leaf, mesh, want).shape:
+            bad.append(n)
+    return bad
+
+
+CKPT_ARGS = ["--arch", "phi3-mini-3.8b", "--smoke", "--seq-len", "32", "--global-batch", "4",
+             "--steps", "10", "--device", "cpu"]
+
+
+def _trainer(mesh, ckpt_dir=None):
+    from repro_torch.launch import train
+
+    args = CKPT_ARGS + (["--ckpt-dir", str(ckpt_dir)] if ckpt_dir else [])
+    return train.build(train.parser().parse_args(args), mesh=mesh)
+
+
+def trainer_state(tr) -> dict:
+    """A trainer's parameters and AdamW state in full, by checkpoint key."""
+    from repro_torch.train import checkpoint as ckpt_mod
+
+    return ckpt_mod._host({"params": tr.params, "opt": tr.opt_state})[0]
+
+
+def trainer_step(tr, data) -> dict:
+    """One more step of ``tr``: its loss and norm, the full state after."""
+    h = tr.run(data, 1, log_every=1)[-1]
+    return {"loss": h["loss"], "grad_norm": h["grad_norm"], "state": trainer_state(tr)}
+
+
+def resume(tr, ckpt_dir, step: int):
+    """``tr`` (a fresh state) restored from ``ckpt_dir``'s step ``step``."""
+    from repro_torch.train import checkpoint as ckpt_mod
+
+    tr.init_state(resume=False)
+    _, tr.step = ckpt_mod.restore(ckpt_dir, {"params": tr.params, "opt": tr.opt_state}, step)
+    return tr
+
+
+def checkpoint_rank(one_device_dir: str, sharded_dir: str) -> dict:
+    """The launcher's trainer on a (2, 2) mesh (phi3-smoke, CKPT_ARGS): two
+    steps with a checkpoint after each under ``sharded_dir`` (the state
+    after step 1 in full, then step 2: the run that never stopped); a fresh
+    sharded trainer resumed from ``sharded_dir``'s step 1, and one from
+    ``one_device_dir``'s step 1 (a one-device run's), each one step on."""
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    mesh = make_debug_mesh((2, 2), device_type="cpu")
+    tr, data = _trainer(mesh, sharded_dir)
+    tr.init_state(resume=False)
+    tr.run(data, 1, log_every=1)
+    rec = {"after_1": trainer_state(tr), "never_stopped": trainer_step(tr, data)}
+    rec["resumed_sharded"] = trainer_step(resume(_trainer(mesh)[0], sharded_dir, 1), data)
+    rec["resumed_one_device"] = trainer_step(resume(_trainer(mesh)[0], one_device_dir, 1), data)
+    return rec
+
+
+def sharded_step_rank(cases, one_device_dir=None, sharded_dir=None) -> dict:
+    """One rank of a sharded-step test file: ``run_steps(*case)`` for each
+    case, then (with the directories) ``checkpoint_rank``."""
+    out = {"cases": [run_steps(*c) for c in cases]}
+    if one_device_dir is not None:
+        out["ckpt"] = checkpoint_rank(one_device_dir, sharded_dir)
+    return out
