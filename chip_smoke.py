@@ -3,8 +3,9 @@
 form, of its prefix-cached serving path (every architecture of the JAX
 package: the attention decoders, the MoE decoders, the hymba hybrid, xLSTM
 and the Whisper encoder-decoder), of its trainer, of its Python oracle and
-of its step bundles and dry run, of its route between processes and of its
-gradient compression on one NVIDIA GPU.
+of its step bundles and dry run, of its route between processes, of its
+gradient compression and of its faults and resizes across processes on one
+NVIDIA GPU.
 
 Run from the root of a checkout, with one card visible:
 
@@ -84,39 +85,41 @@ Phases, in order; any failure raises and the script exits non-zero:
    weights: streams equal or split at a near-tie (for MoE also a near-tie
    of the router, two experts' gates within ROUTER_TIE); the paged
    kernel's record at each one's shapes;
-14. starcoder2-7b at its published width and depth (32 layers, d_model
-   4608, 36 heads on 4 KV heads, Dh 128, d_ff 18432, vocab 49152; random
-   weights; nothing cut): the in-flight serve with phase 8's checks, then a
+14. starcoder2-7b at its published width (d_model 4608, 36 heads on 4 KV
+   heads, Dh 128, d_ff 18432, vocab 49152; random weights), its depth cut
+   from 32 layers to FULL_WIDTH_LAYERS' 8, as phases 14-19 all are: the
+   in-flight serve with phase 8's checks, then a
    megastep twin on the window buckets phase 11's serve used: tokens,
    ticks, finish order and prefill split equal; ms per decode tick, tokens/s,
    wall, launches, host syncs, peak device memory, the kernel's record;
-15. gemma3-1b at its published width and depth (26 layers, d_model 1152, 4
-   heads on 1 KV head, Dh 256, vocab 262144): the in-flight serve, the same
+15. gemma3-1b at its published width (d_model 1152, 4 heads on 1 KV head,
+   Dh 256, vocab 262144), 6 of its 26 layers (one period of five windowed
+   and one global): the in-flight serve, the same
    checks and numbers.  Each full-width model is freed before the next is
    built; neither's window (4096, 512) binds at the launcher's max_len 256;
-16. olmoe-1b-7b at its published width and depth (16 layers, d_model 2048,
-   16 heads, 64 experts top-8, expert d_ff 1024, vocab 50304; random
-   weights; nothing cut): phase 14's in-flight and megastep serves and
+16. olmoe-1b-7b at its published width (d_model 2048, 16 heads, 64 experts
+   top-8, expert d_ff 1024, vocab 50304; random weights), 4 of its 16
+   layers: phase 14's in-flight and megastep serves and
    numbers, and the MoE FFN's device time per decode step beside its
    expert-weight read;
-17. hymba at smoke width, then at its published width and depth (32
-   layers, d_model 1600, 25 heads on 5 KV heads, Mamba state 16, 128 meta
-   tokens, windows 1024 but three global layers), served through
+17. hymba at smoke width, then at its published width (d_model 1600, 25
+   heads on 5 KV heads, Mamba state 16, 128 meta tokens), 8 of its 32
+   layers (layer 0 global, 1-7 windowed at 1024), served through
    ``serve.build`` with the default ``--kv-mode contiguous`` as the JAX
    engine serves it (no prefix cache: no kernel launches): in-flight, a
    megastep twin (window graphs captured mid-serve, each capture leaving
    the Mamba state bit-equal; tokens, ticks, finish order and prefill split
    equal the in-flight serve's) and a round-robin twin (tokens equal or
    split at a near-tie); at smoke width the window of 16 binds;
-18. xLSTM at smoke width, then xlstm-1.3b at its published width and depth
-   (48 blocks in 6 groups of 7 mLSTM and 1 sLSTM, d_model 2048, 4 heads,
-   mLSTM Dh 1024, vocab 50304; 3.57B parameters; random weights; nothing
-   cut), through phase 17's path: in-flight, a megastep twin whose every
+18. xLSTM at smoke width, then xlstm-1.3b at its published width (d_model
+   2048, 4 heads, mLSTM Dh 1024, vocab 50304; random weights), 8 of its 48
+   blocks (one group of 7 mLSTM and 1 sLSTM), through phase 17's path:
+   in-flight, a megastep twin whose every
    capture leaves each mLSTM and sLSTM leaf bit-equal (tokens, ticks,
    finish order and prefill split equal), and a round-robin twin whose
    tokens must equal the in-flight ones;
-19. Whisper at smoke width, then whisper-medium at its published width and
-   depth (24 encoder and 24 decoder layers, d_model 1024, 16 heads of 64,
+19. Whisper at smoke width, then whisper-medium at its published width
+   (24 encoder layers and 6 of its 24 decoder layers, d_model 1024, 16 heads of 64,
    d_ff 4096, vocab 51865, 1500 frames per request drawn from the seed in
    place of the stubbed conv frontend): in-flight and a megastep twin whose
    every capture leaves the cross-attention KV and the written KV
@@ -167,10 +170,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    FLOPs (``train_flops``) over the bf16 peak, peak device memory against
    the training state; one more step under the profiler (busy share, GEMM
    ms, kernels) and AdamW alone;
-24. ``examples/train_smoke.py``'s run on the card (``build_train_smoke``:
-   300 steps, 2 microbatches, checkpoints every 100 steps in a temporary
-   directory): the loss falls by more than 0.3; a fresh trainer restored
-   from step 200 replays steps 201-300 with the same losses, bit for bit.
+24. ``examples/train_smoke.py``'s run on the card (``build_train_smoke``,
+   its 300 steps cut to 150: 2 microbatches, checkpoints at step 100 and at
+   the end in a temporary directory): the loss falls by more than 0.3; a
+   fresh trainer restored from step 100 replays steps 101-150 with the
+   same losses, bit for bit.
    Phases 22-24 launch none of the three kernels (counted from 0 before 22);
 25. the port's Python oracle (``core/policies.py`` ``MultiStepLRUOracle``)
    against ``MultiStepLRUCache`` on the card through both engines, so both
@@ -188,7 +192,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    vector, fig13's P = 8, fig15's warm-up from a garbage table, fig08's
    shape (longest chain per batch, the Python baselines' µs per query on
    300k queries); the whole 2M-query hit and pos stream of fig07 zipfian at
-   65536, m = 2, equal to the oracle's; claims c1-c6 of
+   65536, m = 2, equal to the oracle's (the oracle and the baselines run on
+   the host in HOST_WORKERS processes while the card streams); claims c1-c6 of
    ``tests/test_paper_claims.py`` with its margins (c1-c3 at 65536, c4 on
    fig11, c5 on fig12 zipfian M = 4, c6 on fig15 over the first C6_WINDOW
    queries);
@@ -201,17 +206,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    23(b)'s measured step and peak); its records on the production meshes
    are phase 30(c)'s;
 28. the sharded cache with one shard per process: ``run_on_ranks`` spawns
-   D = 2, 4 and 8 gloo ranks that share the card (NCCL does not put two
+   one world of 8 gloo ranks that share the card (NCCL does not put two
    ranks on one card, so the route's ``all_to_all`` goes through pinned
-   host buffers), each holding its rows of phase 5's table and its slab of
-   every batch (``ProcessCacheMesh``): at D = 8 the one-pass route over
-   phase 5's whole stream (``ROUTE_D8_BATCHES``), the table gathered to rank
-   0 bit-equal to phase 5's, one ``msl_onepass`` launch per batch on every
-   rank; then the rounds route (``msl_access``) on CHECK_BATCHES batches
-   after it and, from a cold table, a per-peer depth of ROUTE_CAP (sheds)
-   against the one-process engine; at D = 2 and 4 the first
-   ROUTE_SHORT_BATCHES batches against the one-process engine; queries/s
-   per D, host-staging and gloo ms per exchange;
+   host buffers); the cache runs on its first D = 2, 4 and 8 ranks in turn
+   (``ProcessCacheMesh(D)``), each rank holding its rows of the main
+   configuration's table and its slab of every batch: the one-pass route
+   over the first ROUTE_SHORT_BATCHES (D = 2, 4) or ROUTE_D8_BATCHES (D =
+   8) batches of phase 5's stream from a cold table, its rows (at D = 8 the
+   table gathered to rank 0) and the second half's hits bit-equal to phase
+   5's engine (one table) on the same batches, one ``msl_onepass`` launch
+   per batch on every rank; at D = 8 then the rounds route (``msl_access``)
+   on CHECK_BATCHES batches after it and, from a cold table, a per-peer
+   depth of ROUTE_CAP (sheds) against the one-process engine; queries/s per
+   D, host-staging and gloo ms per exchange;
 29. int8 gradient compression: ``quantize_int8``/``dequantize_int8`` on the
    card bit-equal to the CPU on seeded gradients shaped like phi3-mini's
    2-layer cut; ``compress_tree`` over 4 gloo ranks on the card, two rounds
@@ -237,10 +244,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    pod1|pod2`` for phi3-mini's cells,
    run on the host beside (a) and (b): every record's activations,
    collectives, terms, dominant term and roofline fraction counted.
-   Phase 30 launches none of the three kernels.
+   Phase 30 launches none of the three kernels;
+31. faults across processes, one world of FAULT_WORLD gloo ranks sharing
+   the card that runs (a) and then (b): (a) ``ShardedCacheClient.reshard`` and ``mark_degraded`` on a
+   ``ProcessCacheMesh``: ``tests/test_reshard.py``'s workload (one of its
+   seeds 0-2 per pair) from the first D ranks to the first D' for (8, 4),
+   (4, 8), (8, 7), (2, 1) and (8, 7) through the rounds engine, then at
+   the real size (REAL_SETS sets x 8 ways, Zipf 0.99 chains of 1-5 chunks)
+   8 -> 7, ``mark_degraded(3)``, 7 -> 8: every rebuilt table equal to a cold
+   ``MultiStepLRUCache`` on the card fed the drain stream, every chain
+   re-inserted resident, every rank's orphans, drain streams, tables and
+   client state equal to the one-process client's; each engine's kernel
+   launched on exactly the ranks that held rows (launches read before the
+   checks' own); ms per drain and re-insert sweep, per reshard and per
+   ``mark_degraded``; (b) phase 21's
+   first bounded serve with the cache on the ranks and the engine on rank
+   0 (``serve --processes``: rank 0 leads the client, the others replay
+   its calls; the plan's resize to 7 leaves rank 7 outside the group):
+   ticks, fault log, finish order, prefill split, every stats and
+   prefix-cache key, the pool and the gathered table equal phase 21's,
+   tokens equal or split at a near-tie; ms per decode tick and host ms per
+   cache call beside phase 21's, staging and gloo ms per exchange, ms per
+   applied fault, ``msl_onepass`` launches per rank and ``paged_attn``
+   launches on rank 0.
 
 Then the JSON lines: the main path (phase 20 under ``sharded``, 28 under
-``route``), the serving path (phases 8, 9, 11-19, 21 under ``sharded``),
+``route``, 31(a) under ``reshard_processes``), the serving path (phases 8,
+9, 11-19, 21 under ``sharded``, 31(b) under ``sharded_processes``),
 training (phases 22-24, 29 under ``compression``, 30(a) and 30(b) under
 ``sharded_step``), the oracle, the figures and the dry run (phases 25-27,
 30(c) under ``dryrun``'s ``mesh_cells``) and every kernel's record (the paged
@@ -285,11 +315,12 @@ T0 = time.perf_counter()
 
 
 def log(*args):
-    print(*args, flush=True)
+    """A line of the log, after the seconds since this process started."""
+    print(f"[{time.perf_counter() - T0:7.1f}]", *args, flush=True)
 
 
 def phase(name):
-    log(f"== {name} (at {time.perf_counter() - T0:.1f} s)")
+    print(f"== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1119,16 +1150,16 @@ def busy_share(torch, eng, reqs, first=10, n=PROFILE_TICKS):
     return out
 
 
-def run_serving(torch, args=None):
+def run_serving(torch, args=None, cfg=None):
     """Phase 8: the launcher's paged serving path at full width (or the
-    path ``args`` describe).  Launch counts are zeroed just before the
-    serve and read just after."""
+    path ``args`` describe, on ``cfg`` if given).  Launch counts are zeroed
+    just before the serve and read just after."""
     from repro_torch.launch import serve
 
     args = args or serve_args("--kv-mode", "paged")
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    eng = serve.build(args)
+    eng = serve.build(args, cfg=cfg)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in eng.params.parameters())
     log(f"{eng.cfg.name}: {n_params / 1e9:.3f}B parameters "
@@ -1773,8 +1804,8 @@ def run_family_smoke(torch, arch, err):
 
 
 def run_full_width(torch, arch, err, buckets=()):
-    """Phases 14-16: ``arch`` at its published width and depth (random
-    weights from a seeded generator on the card; nothing cut) through the
+    """Phases 14-16: ``arch`` at its published width and FULL_WIDTH_LAYERS'
+    depth (random weights from a seeded generator on the card) through the
     launcher's paged path with phase 8's checks, the paged kernel's record
     at its shapes and, given window ``buckets``, the megastep serve
     (``megastep_serve``; phase 11's buckets: the launcher's request mix
@@ -1782,7 +1813,7 @@ def run_full_width(torch, arch, err, buckets=()):
     early).  An MoE model adds its FFN's device time per decode step
     (``moe_ffn_step``).  Returns the summary and the record."""
     eng, reqs, summary, snapshot = run_serving(
-        torch, serve_args("--arch", arch, "--kv-mode", "paged"))
+        torch, serve_args("--arch", arch, "--kv-mode", "paged"), cfg=cut_depth(arch))
     summary.update(windows_walked(eng, reqs))
     if eng.cfg.ffn == "moe":
         summary["moe_ffn"] = moe_ffn_step(torch, eng)
@@ -1792,7 +1823,8 @@ def run_full_width(torch, arch, err, buckets=()):
         _, summary["megastep"] = megastep_serve(torch, eng, reqs, summary, buckets)
         record["launches_megastep_path"] = summary["megastep"]["launches"]["paged_attn"]
     summary["peak_memory_gb_all"] = torch.cuda.max_memory_allocated() / 1e9
-    log(f"{eng.cfg.name} at full width: {summary['ms_per_decode_tick']:.3f} ms per decode "
+    log(f"{eng.cfg.name} at full width, {eng.cfg.n_layers} layers: "
+        f"{summary['ms_per_decode_tick']:.3f} ms per decode "
         f"tick, {summary['decode_tokens_per_s']:.1f} decode tokens/s, serve "
         f"{summary['wall_s']:.3f} s wall, decode_launches {summary['decode_launches']}, "
         f"host_syncs {summary['host_syncs']}, peak device memory "
@@ -1850,6 +1882,20 @@ def moe_ffn_step(torch, eng):
 HYMBA = "hymba-1.5b"
 XLSTM = "xlstm-1.3b"
 WHISPER = "whisper-medium"
+# phases 14-19 keep each model's published width and cut its depth to
+# whole periods of its layer pattern, to hold the script inside its limit
+FULL_WIDTH_LAYERS = {"starcoder2-7b": 8, "gemma3-1b": 6, "olmoe-1b-7b": 4,
+                     HYMBA: 8, XLSTM: 8, WHISPER: 6}
+
+
+def cut_depth(arch):
+    """``arch``'s published config with FULL_WIDTH_LAYERS' depth (an
+    encoder keeps its own)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=FULL_WIDTH_LAYERS[arch])
 
 
 def kept_leaves(eng):
@@ -1922,7 +1968,8 @@ def admission_ms(torch, eng, req):
 
 
 def run_contiguous(torch, arch, smoke, roundrobin="near-tie"):
-    """Phases 17-19: ``arch`` (hymba, xLSTM or Whisper) through ``serve.build``
+    """Phases 17-19: ``arch`` (hymba, xLSTM or Whisper; unless ``smoke`` at
+    FULL_WIDTH_LAYERS' depth) through ``serve.build``
     with the default ``--kv-mode contiguous``: plain admission, the prefix
     cache unused (``msl_onepass`` and ``paged_attn`` launch 0 times).  The
     launcher's requests in-flight, with the device's busy share, one
@@ -1941,14 +1988,14 @@ def run_contiguous(torch, arch, smoke, roundrobin="near-tie"):
     args = serve_args("--arch", arch, smoke=smoke)
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    eng = serve.build(args)
+    eng = serve.build(args, cfg=None if smoke else cut_depth(arch))
     torch.cuda.synchronize()
     cfg = eng.cfg
     n_params = sum(p.numel() for p in eng.params.parameters())
     kv_mb = sum(eng.cache[n].numel() * 2 for n in ("k", "v") if n in eng.cache) / 1e6
     kept_mb = sum(x.numel() * x.element_size() for x in kept_leaves(eng)) / 1e6
-    log(f"{cfg.name}: {n_params / 1e9:.3f}B parameters ({n_params * 2 / 1e9:.2f} GB bf16), "
-        f"{cfg.meta_tokens} meta tokens, slot KV {kv_mb:.0f} MB, recurrent state and "
+    log(f"{cfg.name}: {cfg.n_layers} layers, {n_params / 1e9:.3f}B parameters "
+        f"({n_params * 2 / 1e9:.2f} GB bf16), {cfg.meta_tokens} meta tokens, slot KV {kv_mb:.0f} MB, recurrent state and "
         f"cross-attention KV {kept_mb:.1f} MB ({kept_mb / eng.slots:.1f} MB per slot); "
         f"built in {time.perf_counter() - t:.1f} s")
     reqs = serve.make_requests(cfg, args)
@@ -2325,16 +2372,34 @@ def serve_with_faults(torch, eng, reqs, plan):
     return time.perf_counter() - t0, decode_ticks
 
 
-def sharded_serve(torch, args, reqs, plan=None, buckets=()):
+def serve_record(eng) -> dict:
+    """What a served run reports, kept on the host to hold another run
+    against: finish order, prefill split, tokens, ticks, fault log, every
+    stats and prefix-cache key, the pool's balance and the backend's table
+    (gathered over its ranks)."""
+    pool = eng.pool
+    return {"order": [r.rid for r in eng.finished],
+            "prefill": [(r.rid, r.prefill_skipped, r.prefill_computed) for r in eng.finished],
+            "tokens": {r.rid: list(r.out_tokens) for r in eng.finished},
+            "ticks": eng.ticks, "fault_log": list(eng.fault_log), "stats": eng.stats(),
+            "prefix_cache": eng.prefix_cache.stats(),
+            "pool": (pool.refcount.tolist(), pool.free_pages, len(pool._reserved)),
+            "table": eng.prefix_cache.cache.gathered_table()}
+
+
+def sharded_serve(torch, args, reqs, plan=None, buckets=(), mesh=None, keep=None):
     """One serve of ``reqs`` through ``serve.build(args)`` (the weights made
     from ``--seed`` anew), launches counted from zero just before it to just
     after (a megastep engine's window ``buckets`` captured first, as in
     phase 11).  Returns the engine and the serve's numbers (the
     shed/split/throttle stats among them; megastep: the windows a fault's
-    tick capped below what ``_plan_window`` plans without the cap)."""
+    tick capped below what ``_plan_window`` plans without the cap; ms per
+    applied fault).  With ``mesh`` (a ``ProcessCacheMesh``, on world rank
+    0) the backend is on its ranks and this rank leads them through the
+    serve and its reads; ``keep`` (a dict) receives ``serve_record``."""
     from repro_torch.launch import serve
 
-    eng = serve.build(args)
+    eng = serve.build(args, mesh=mesh)
     plans = []
     if eng.decode_mode == "megastep":
         for steps in buckets:
@@ -2348,12 +2413,27 @@ def sharded_serve(torch, args, reqs, plan=None, buckets=()):
 
         eng._plan_window = recording
     captured = set(eng.window_graphs)
-    ms = {"access": [], "placement": []}
+    ms = {"access": [], "placement": [], "fault": []}
     timed_backend(eng.prefix_cache.cache, ms)
-    zero_launches()
-    wall, decode_ticks = serve_with_faults(torch, eng, fresh(reqs), plan)
-    launches = read_launches()
-    st, pc = eng.stats(), eng.prefix_cache.stats()
+    apply_fault = eng.apply_fault
+
+    def timed_fault(ev):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        apply_fault(ev)
+        torch.cuda.synchronize()
+        ms["fault"].append(1e3 * (time.perf_counter() - t))
+
+    eng.apply_fault = timed_fault
+    lead = (contextlib.nullcontext() if mesh is None
+            else eng.prefix_cache.cache.leading())
+    with lead:
+        zero_launches()
+        wall, decode_ticks = serve_with_faults(torch, eng, fresh(reqs), plan)
+        launches = read_launches()
+        st, pc = eng.stats(), eng.prefix_cache.stats()
+        if keep is not None:
+            keep.update(serve_record(eng))
     pool = eng.pool
     dec_s = sum(s for s, _ in decode_ticks)
     dec_ticks = sum(k for _, k in decode_ticks)
@@ -2366,6 +2446,7 @@ def sharded_serve(torch, args, reqs, plan=None, buckets=()):
            "prefix_cache_calls": pc["device_calls"],
            "host_ms_per_cache_call": sum(ms["access"]) / max(1, len(ms["access"])),
            "placement_ms_per_cache_call": sum(ms["placement"]) / max(1, len(ms["access"])),
+           "ms_per_applied_fault": ms["fault"],
            "leaked_pages": pool.n_pages - pool.free_pages - int(pool.refcount.sum()),
            "reserved_pages": len(pool._reserved), "pending_inserts": len(eng._pending_inserts),
            "prefill_computed": sum(r.prefill_computed for r in eng.finished),
@@ -2400,7 +2481,7 @@ def sharded_serve(torch, args, reqs, plan=None, buckets=()):
     return eng, out
 
 
-def run_sharded_serving(torch, phase8, buckets):
+def run_sharded_serving(torch, phase8, buckets, keep=None):
     """Phase 21: phi3-mini-3.8b at full width and depth, paged, behind a
     ``ShardedCacheClient`` of ``SHARDS`` logical shards, through
     ``serve.build`` with ``--sharded`` (every serve builds its engine anew,
@@ -2411,7 +2492,9 @@ def run_sharded_serving(torch, phase8, buckets):
     in-flight (the same faults, counters and tokens both times) and once
     megastep (the in-flight serve's ticks, faults and counters, with at
     least one window capped at a fault's tick): every request completes, no
-    page leaks, and the tokens equal phase 8's or split at a near-tie."""
+    page leaks, and the tokens equal phase 8's or split at a near-tie.
+    ``keep`` (a dict) receives the first bounded serve's ``serve_record``
+    (phase 31(b) holds its serve with the cache across processes to it)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
@@ -2442,7 +2525,8 @@ def run_sharded_serving(torch, phase8, buckets):
     runs = []
     for i, mode in enumerate(("inflight", "inflight", "megastep")):
         bargs = serve_args("--kv-mode", "paged", *BOUNDED, "--decode-mode", mode)
-        eng, rec = sharded_serve(torch, bargs, reqs, serve.fault_plan(bargs), buckets)
+        eng, rec = sharded_serve(torch, bargs, reqs, serve.fault_plan(bargs), buckets,
+                                 keep=keep if i == 0 else None)
         got = {rid: toks for rid, toks, _, _ in served(eng, reqs)}
         rec["tokens"] = got
         rec["near_ties"] = near_ties(torch, eng, reqs, got, want)
@@ -2505,8 +2589,9 @@ NORM_SUM_RTOL = 2 ** -16
 ADAMW_ULPS = 1              # master, m and v, given the same norm (both sqrt IEEE)
 PHI3 = "phi3-mini-3.8b"
 FULL_STEPS = 6              # phase 23(b): steps at full width and depth
-SMOKE_STEPS = 300           # phase 24: the train_smoke example's run
-SMOKE_RESUME = 200          # ... resumed from this step's checkpoint
+SMOKE_STEPS = 150           # phase 24: the train_smoke example's run, cut from 300
+SMOKE_RESUME = 100          # ... resumed from this step's checkpoint
+SMOKE_LOG_EVERY = 10
 
 
 def train_args(*extra):
@@ -2819,9 +2904,10 @@ def run_phi3_training(torch):
 
 def run_train_smoke(torch):
     """Phase 24: the train_smoke example's run on the card (its config, 128 x
-    8, lr 3e-3, warm-up 20, 2 microbatches, SMOKE_STEPS steps, checkpoints
-    every 100 steps in a temporary directory): the loss drops by more than
-    0.3 from the first logged step to the last; a fresh trainer restored
+    8, lr 3e-3, warm-up 20, 2 microbatches, cosine to SMOKE_STEPS steps,
+    checkpoints every 100 steps and at the end in a temporary directory):
+    the loss drops by more than 0.3 from the first logged step to the
+    last; a fresh trainer restored
     from step SMOKE_RESUME replays the rest with the first run's losses bit
     for bit."""
     import tempfile
@@ -2833,13 +2919,13 @@ def run_train_smoke(torch):
         tr, data = train.build_train_smoke(SMOKE_STEPS, ckpt_dir=tmp, device=DEVICE)
         tr.init_state(resume=False)
         t = time.perf_counter()
-        hist = tr.run(data, SMOKE_STEPS, log_every=20)
+        hist = tr.run(data, SMOKE_STEPS, log_every=SMOKE_LOG_EVERY)
         wall = time.perf_counter() - t
         replay, data = train.build_train_smoke(SMOKE_STEPS, device=DEVICE)
         replay.init_state(resume=False)
         _, replay.step = ckpt.restore(tmp, {"params": replay.params, "opt": replay.opt_state},
                                       step=SMOKE_RESUME)
-        again = replay.run(data, SMOKE_STEPS - SMOKE_RESUME, log_every=20)
+        again = replay.run(data, SMOKE_STEPS - SMOKE_RESUME, log_every=SMOKE_LOG_EVERY)
     first, last = hist[0]["loss"], hist[-1]["loss"]
     if not last < first - 0.3:
         raise AssertionError(f"train_smoke: loss {first} -> {last}, no clear learning")
@@ -2854,7 +2940,7 @@ def run_train_smoke(torch):
            "replay_bit_equal": True}
     log(f"train_smoke ({out['params']:,} parameters): loss {first:.4f} -> {last:.4f} in "
         f"{SMOKE_STEPS} steps ({out['ms_per_step']:.1f} ms per step with the logging and "
-        f"3 checkpoints); the replay from step {SMOKE_RESUME} gives the losses at steps "
+        f"its checkpoints); the replay from step {SMOKE_RESUME} gives the losses at steps "
         f"{out['replayed_steps']} bit for bit")
     return out
 
@@ -2883,6 +2969,7 @@ C6_WINDOW = 20_000 * FIG_CAP // 4096
 FIG08_QUERIES = 1_000_000
 FIG08_CAPS = [16384, 262144]
 BASELINE_QUERIES = 300_000      # fig08's Python baselines
+HOST_WORKERS = 6                # processes for phase 26's host-only work
 
 
 def oracle_cases():
@@ -3023,23 +3110,106 @@ def python_baseline(name, trace, cap):
     return rec
 
 
+_TRACES: dict = {}
+
+
+def host_trace(spec) -> list:
+    """A figure's trace as a host list, made anew from its seed in a worker
+    (the last one kept): ``("workload", dist, keys, n, alpha, seed)`` is
+    ``make_workload``'s, ``("zipfian", None, keys, n, alpha, seed)``
+    ``zipfian``'s."""
+    from repro_torch.data.ycsb import make_workload, zipfian
+
+    if spec not in _TRACES:
+        kind, dist, n_keys, n, alpha, seed = spec
+        trace = (make_workload(dist, n_keys, n, alpha, seed=seed) if kind == "workload"
+                 else zipfian(n_keys, n, alpha=alpha, seed=seed))
+        _TRACES.clear()
+        _TRACES[spec] = trace.tolist()
+    return _TRACES[spec]
+
+
+def host_baseline(name, spec, cap, head=None):
+    """``python_baseline`` on the first ``head`` queries of ``spec``'s trace."""
+    return python_baseline(name, host_trace(spec)[:head], cap)
+
+
+def host_reuse_lru(spec, caps) -> dict:
+    """The Mattson exact LRU's hit ratio at each capacity, and µs per query."""
+    from repro_torch.core import policies
+
+    trace = host_trace(spec)
+    t = time.perf_counter()
+    rd = policies.ReuseDistanceLRU(len(trace))
+    rd.feed(trace)
+    out = {str(c): rd.hit_ratio(c) for c in caps}
+    out["us_per_query"] = (time.perf_counter() - t) / len(trace) * 1e6
+    return out
+
+
+def host_oracle(spec, cap):
+    """``MultiStepLRUOracle`` (m = 2, p = 4) over ``spec``'s trace: (hit,
+    pos, µs per query)."""
+    import numpy as np
+
+    from repro_torch.core import policies
+
+    trace = host_trace(spec)
+    t = time.perf_counter()
+    oracle = policies.MultiStepLRUOracle(cap // 8, 2, 4)
+    want = [oracle.access(k) for k in trace]
+    us = (time.perf_counter() - t) / len(trace) * 1e6
+    return (np.fromiter((w[0] for w in want), bool, len(want)),
+            np.fromiter((w[1] for w in want), np.int32, len(want)), us)
+
+
 def run_paper_claims(torch):
     """Phase 26: the paper's figures' configurations through the one-pass
     kernel at the figures' scale (1M keys, 2M queries, Zipf 0.99), the
     whole 2M-query hit and pos stream of fig07 zipfian at 65536, m = 2
     against the port's oracle, and claims c1-c6 of
     tests/test_paper_claims.py with its margins against the port's
-    ``ReuseDistanceLRU`` and ``ARC``."""
+    ``ReuseDistanceLRU`` and ``ARC``.  The oracle and the Python baselines
+    run on the host in HOST_WORKERS spawned processes meanwhile, each on a
+    trace made anew from its seed; their µs per query are taken there."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(HOST_WORKERS,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        try:
+            return _paper_claims(torch, pool)
+        except BaseException:
+            pool.shutdown(wait=False, cancel_futures=True)
+            raise
+
+
+def _paper_claims(torch, pool):
     import numpy as np
 
-    from repro_torch.core import init_table, policies, table_to_numpy
+    from repro_torch.core import init_table, table_to_numpy
     from repro_torch.data.ycsb import make_workload, zipfian
 
     t_phase = time.perf_counter()
     zero_launches()
     out = {"keys": FIG_KEYS, "queries": FIG_QUERIES, "alpha": ZIPF_ALPHA, "batch": BATCH,
+           "host_workers": HOST_WORKERS,
            "cuts": ["fig07: the Mattson LRU, GCLOCK and ARC rows for the zipfian trace only",
                     "fig12: ARC's t1/t2 split not run"]}
+    # the host's work first, longest first: it runs while the card streams
+    z07 = ("workload", "zipfian", FIG_KEYS, FIG_QUERIES, ZIPF_ALPHA, 7)
+    z08 = ("zipfian", None, FIG_KEYS, FIG08_QUERIES, ZIPF_ALPHA, 11)
+    host = {"oracle": pool.submit(host_oracle, z07, FIG_CAP),
+            "lru": pool.submit(host_reuse_lru, z07, FIG07_CAPS)}
+    for name in ("arc", "gclock"):
+        for cap in FIG07_CAPS:
+            host[name, cap] = pool.submit(host_baseline, name, z07, cap)
+    host["fig11_arc"] = pool.submit(
+        host_baseline, "arc", ("zipfian", None, FIG_KEYS, FIG_QUERIES, ZIPF_ALPHA, 5), FIG_CAP)
+    for cap in FIG08_CAPS:
+        for name in ("lru", "gclock", "arc", "fifo"):
+            host["fig08", name, cap] = pool.submit(host_baseline, name, z08, cap,
+                                                   BASELINE_QUERIES)
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(DEVICE)
@@ -3061,41 +3231,8 @@ def run_paper_claims(torch):
             row["set_lru"][c] = msl_record(kernel_stream(torch, fig_cfg(cap,
                                                                         policy="set_lru"), tt))
             if dist == "zipfian" and cap == FIG_CAP:
-                t = time.perf_counter()
-                oracle = policies.MultiStepLRUOracle(cap // 8, 2, 4)
-                want = [oracle.access(k) for k in trace.tolist()]
-                hit = np.fromiter((w[0] for w in want), bool, len(want))
-                pos = np.fromiter((w[1] for w in want), np.int32, len(want))
-                if not (np.array_equal(hit, ms["hit"]) and np.array_equal(pos, ms["pos"])):
-                    first = int(np.flatnonzero((hit != ms["hit"]) | (pos != ms["pos"]))[0])
-                    raise AssertionError(f"fig07 zipfian {cap}: the kernel's stream differs "
-                                         f"from the oracle's from query {first}")
-                out["oracle_stream"] = {"queries": len(trace), "capacity": cap, "m": 2,
-                                        "equal": True,
-                                        "oracle_us_per_query":
-                                            (time.perf_counter() - t) / len(trace) * 1e6}
-                log(f"fig07 zipfian, capacity {cap}, m = 2: the kernel's {len(trace)} hits "
-                    f"and positions equal the oracle's "
-                    f"({out['oracle_stream']['oracle_us_per_query']:.2f} µs per query)")
-        if dist == "zipfian":
-            t = time.perf_counter()
-            rd = policies.ReuseDistanceLRU(len(trace))
-            rd.feed(trace.tolist())
-            row["lru"] = {str(c): rd.hit_ratio(c) for c in FIG07_CAPS}
-            row["lru"]["us_per_query"] = (time.perf_counter() - t) / len(trace) * 1e6
-            lst = trace.tolist()
-            for name in ("gclock", "arc"):
-                row[name] = {str(c): python_baseline(name, lst, c) for c in FIG07_CAPS}
+                oracle_ms = ms
         fig07[dist] = row
-        log(f"fig07 {dist}: " + "; ".join(
-            f"{algo} " + " ".join(f"{(v if isinstance(v, float) else v['hit_ratio']):.4f}"
-                                  for k, v in r.items() if k != "us_per_query")
-            for algo, r in row.items()))
-        log(f"  kernel ms per batch (multistep) " + " ".join(
-            f"{r['ms_per_batch']:.3f}" for r in row["multistep"].values())
-            + "; miss cost multistep / cost " + " ".join(
-            f"{row['multistep'][str(c)]['miss_cost']}/{row['cost'][str(c)]['miss_cost']}"
-            for c in FIG07_CAPS))
     out["fig07"] = fig07
 
     # fig11: M sweep at 65536, seed 5
@@ -3103,10 +3240,7 @@ def run_paper_claims(torch):
     tt = dev(trace)
     fig11 = {f"M{m}": msl_record(kernel_stream(torch, fig_cfg(FIG_CAP, m=m), tt))
              for m in (1, 2, 4, 8)}
-    fig11["arc"] = python_baseline("arc", trace.tolist(), FIG_CAP)
     out["fig11"] = fig11
-    log("fig11 (65536, zipfian): " + ", ".join(f"{k} {v['hit_ratio']:.4f}"
-                                                for k, v in fig11.items()))
 
     # fig12: hits by vector, M 2/4/8, seed 9
     fig12 = {}
@@ -3158,13 +3292,41 @@ def run_paper_claims(torch):
                                  tt[:len(trace) // BATCH * BATCH])
     fig08 = {"max_chain_per_batch": {"mean": float(chains.float().mean()),
                                      "max": int(chains.max())}}
-    lst = trace[:BASELINE_QUERIES].tolist()
     for cap in FIG08_CAPS:
         for m in (1, 2):
             fig08[f"msl_m{m}_{cap}"] = msl_record(kernel_stream(torch, fig_cfg(cap, m=m), tt))
-        for name in ("lru", "gclock", "arc", "fifo"):
-            fig08[f"{name}_{cap}"] = python_baseline(name, lst, cap)
     out["fig08"] = fig08
+
+    # the host's results: the oracle's stream against the kernel's, the
+    # baselines into their figures
+    hit, pos, us = host["oracle"].result()
+    if not (np.array_equal(hit, oracle_ms["hit"]) and np.array_equal(pos, oracle_ms["pos"])):
+        first = int(np.flatnonzero((hit != oracle_ms["hit"]) | (pos != oracle_ms["pos"]))[0])
+        raise AssertionError(f"fig07 zipfian {FIG_CAP}: the kernel's stream differs from the "
+                             f"oracle's from query {first}")
+    out["oracle_stream"] = {"queries": FIG_QUERIES, "capacity": FIG_CAP, "m": 2,
+                            "equal": True, "oracle_us_per_query": us}
+    log(f"fig07 zipfian, capacity {FIG_CAP}, m = 2: the kernel's {FIG_QUERIES} hits and "
+        f"positions equal the oracle's ({us:.2f} µs per query)")
+    fig07["zipfian"]["lru"] = host["lru"].result()
+    for name in ("gclock", "arc"):
+        fig07["zipfian"][name] = {str(c): host[name, c].result() for c in FIG07_CAPS}
+    for dist, row in fig07.items():
+        log(f"fig07 {dist}: " + "; ".join(
+            f"{algo} " + " ".join(f"{(v if isinstance(v, float) else v['hit_ratio']):.4f}"
+                                  for k, v in r.items() if k != "us_per_query")
+            for algo, r in row.items()))
+        log(f"  kernel ms per batch (multistep) " + " ".join(
+            f"{r['ms_per_batch']:.3f}" for r in row["multistep"].values())
+            + "; miss cost multistep / cost " + " ".join(
+            f"{row['multistep'][str(c)]['miss_cost']}/{row['cost'][str(c)]['miss_cost']}"
+            for c in FIG07_CAPS))
+    fig11["arc"] = host["fig11_arc"].result()
+    log("fig11 (65536, zipfian): " + ", ".join(f"{k} {v['hit_ratio']:.4f}"
+                                                for k, v in fig11.items()))
+    for cap in FIG08_CAPS:
+        for name in ("lru", "gclock", "arc", "fifo"):
+            fig08[f"{name}_{cap}"] = host["fig08", name, cap].result()
     log("fig08 (1M queries): " + "; ".join(
         f"{k} {v['hit_ratio']:.4f} " + (f"{v['ms_per_batch']:.3f} ms/batch {v['qps']:.4g} q/s"
                                         if "qps" in v else f"{v['us_per_query']:.2f} µs/q")
@@ -3349,9 +3511,9 @@ def run_dryrun(torch, phase23):
 # compression (phase 29)
 # ---------------------------------------------------------------------------
 
-ROUTE_SHARDS = (2, 4, 8)
+ROUTE_SHARDS = (2, 4, 8)    # the cache on the first D ranks of one world of 8
 ROUTE_SHORT_BATCHES = 256   # D = 2 and 4: the first batches of phase 5's stream
-ROUTE_D8_BATCHES = None     # D = 8: None runs phase 5's whole stream
+ROUTE_D8_BATCHES = 512      # D = 8: its first batches (of 4096), to hold the time
 # D = 8: a per-peer depth of half the expected load (a slab of 8192 / 8
 # queries sends 128 to each owner on average), so rows shed
 ROUTE_CAP = BATCH // 8 // 8 // 2
@@ -3393,37 +3555,59 @@ def route_sizes() -> dict:
             "cap_batches": ROUTE_CAP_BATCHES}
 
 
-def route_rank(workdir, ndev, n_batches, check, run):
+def route_rank(workdir, plan, run):
     """One rank of phase 28 (spawned by ``run_on_ranks``, gloo, sharing the
-    card): its shard of the main table, its slab of every batch; ``run``
-    holds the sizes (``route_sizes``).  The one-pass stream runner over
-    ``n_batches`` of phase 5's stream from a cold table (the first half
-    warm, the second timed); its table and the timed half's hits against
-    the parent's one-process results.  With ``check``: the rounds engine on
-    the ``check_batches`` batches after them, and the per-peer depth
-    ``cap`` on the first ``cap_batches`` batches, against the parent's
-    one-process results.  Launches are counted on each path from 0 on this
-    rank."""
+    card): for each (D, batches, check) of ``plan`` in turn, every rank
+    makes the cache on the first D ranks (``ProcessCacheMesh(D)``) and the
+    ranks inside it run ``route_shard``; a rank outside it takes part in the
+    stream runner's gather of the counts (two calls), as
+    ``ProcessCacheMesh`` asks; the world then meets before the next D.  ``run`` holds the sizes (``route_sizes``).  Returns
+    {D: this rank's record} for the D it took part in."""
     import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.sharded import gather_shards
+    from repro_torch.launch.mesh import ProcessCacheMesh
+
+    device = run["device"]
+    keys = _host(torch, _npy(workdir, "keys")).to(device)
+    vals = torch.stack([keys, -keys], dim=1)
+    out = {}
+    for ndev, n_batches, check in plan:
+        mesh = ProcessCacheMesh(ndev, device)
+        if mesh.rank >= 0:
+            out[ndev] = route_shard(torch, workdir, mesh, keys, vals, n_batches, check, run)
+        else:       # the stream runner's one gather per call, of its counts
+            for _ in range(2):
+                gather_shards(mesh, torch.zeros((1, 2), dtype=torch.int64, device=device))
+        dist.barrier()
+    return out
+
+
+def route_shard(torch, workdir, mesh, keys, vals, n_batches, check, run):
+    """Rank ``mesh.rank`` of a cache of ``mesh.ndev`` ranks in phase 28: its
+    shard of the main table, its slab of every batch.  The one-pass stream
+    runner over ``n_batches`` of phase 5's stream from a cold table (the
+    first half warm, the second timed); its rows (gathered to group rank 0
+    when the group is the world) and the timed half's hits against the
+    parent's local-cache results.  With ``check``: the rounds engine on the
+    ``check_batches`` batches after them, and the per-peer depth ``cap`` on
+    the first ``cap_batches`` batches, against the parent's one-process
+    results.  Launches are counted on each path from 0 on this rank."""
     import torch.distributed as dist
 
     from repro_torch.core import MSLRUConfig, init_table
     from repro_torch.core.sharded import (gather_shards, make_sharded_engine,
                                           make_sharded_stream_runner, sets_per_shard,
                                           shard_table)
-    from repro_torch.launch.mesh import ProcessCacheMesh
 
-    device, batch = run["device"], run["batch"]
-    mesh = ProcessCacheMesh(None, device)
-    rank = mesh.rank
+    device, batch, ndev, rank = run["device"], run["batch"], mesh.ndev, mesh.rank
     cfg = MSLRUConfig(num_sets=run["num_sets"], m=2, p=4, key_planes=1, value_planes=2)
     s_local = sets_per_shard(cfg.num_sets, ndev)
     rows = slice(rank * s_local, (rank + 1) * s_local)
     q = batch // ndev
-    keys = _host(torch, _npy(workdir, "keys")).to(device)
-    vals = torch.stack([keys, -keys], dim=1)
     qk = keys[:, None]
-    want = _npy(workdir, f"want_d{ndev}")
+    want = _npy(workdir, f"want_{n_batches}")
 
     def mine(name):
         """This rank's rows of a table the parent wrote."""
@@ -3434,7 +3618,7 @@ def route_rank(workdir, ndev, n_batches, check, run):
     half = n_batches // 2
     zero_launches()
     _sync(torch, device)
-    dist.barrier()
+    dist.barrier(group=mesh.group)
     t0 = time.perf_counter()
     table, _, _ = stream(table, qk[: half * batch], vals[: half * batch])
     _sync(torch, device)
@@ -3451,19 +3635,20 @@ def route_rank(workdir, ndev, n_batches, check, run):
            "stage_ms_per_exchange": 1e3 * (mesh.stage_seconds - stage0) / exchanges,
            "wire_ms_per_exchange": 1e3 * (mesh.wire_seconds - wire0) / exchanges}
     if out["launches_stream"]["msl_onepass"] != n_batches:
-        raise AssertionError(f"rank {rank}: {out['launches_stream']['msl_onepass']} "
-                             f"msl_onepass launches for {n_batches} batches")
+        raise AssertionError(f"D = {ndev}, rank {rank}: "
+                             f"{out['launches_stream']['msl_onepass']} msl_onepass "
+                             f"launches for {n_batches} batches")
     if int(hits) != int(want[0]) or int(served) != (n_batches - half) * batch:
-        raise AssertionError(f"rank {rank}: timed hits {int(hits)} (served {int(served)}), "
-                             f"the one-process engine's {int(want[0])}")
-    if ndev == 8:
+        raise AssertionError(f"D = {ndev}, rank {rank}: timed hits {int(hits)} (served "
+                             f"{int(served)}), the local cache's {int(want[0])}")
+    if ndev == mesh.world_size:
         whole = gather_shards(mesh, table)
-        if rank == 0 and not torch.equal(whole, _host(torch, _npy(workdir, "want_table_d8"))
-                                         .to(device)):
-            raise AssertionError("the routed table gathered to rank 0 differs")
+        if rank == 0 and not torch.equal(
+                whole, _host(torch, _npy(workdir, f"want_table_{n_batches}")).to(device)):
+            raise AssertionError(f"D = {ndev}: the routed table gathered to rank 0 differs")
         del whole
-    elif not torch.equal(table, mine(f"want_table_d{ndev}")):
-        raise AssertionError(f"rank {rank}: its rows differ from the one-process table")
+    elif not torch.equal(table, mine(f"want_table_{n_batches}")):
+        raise AssertionError(f"D = {ndev}, rank {rank}: its rows differ from the local table")
     if not check:
         return out
 
@@ -3507,30 +3692,29 @@ def route_rank(workdir, ndev, n_batches, check, run):
     return out
 
 
-def _one_process_stream(torch, cfg, ndev, keys, vals, n_batches):
-    """The one-process engine (``CacheMesh``, no exchange) over the first
-    ``n_batches`` batches from a cold table, in two halves: (table, the
-    second half's hits)."""
-    from repro_torch.core import init_table
-    from repro_torch.core.sharded import make_sharded_stream_runner, shard_table
-    from repro_torch.launch.mesh import make_cache_mesh
+def _local_stream(torch, cfg, keys, vals, n_batches):
+    """Phase 5's engine (``MultiStepLRUCache``, one table) over the first
+    ``n_batches`` batches from a cold table, the first half warming:
+    (table, the second half's hits)."""
+    from repro_torch.core import MultiStepLRUCache
 
-    mesh = make_cache_mesh(ndev, device=DEVICE)
-    run = make_sharded_stream_runner(cfg, mesh, cap="full", batch=BATCH, engine="onepass")
-    half = n_batches // 2
-    table, _, _ = run(shard_table(init_table(cfg, DEVICE), mesh), keys[: half * BATCH, None],
-                      vals[: half * BATCH])
-    table, hits, _ = run(table, keys[half * BATCH: n_batches * BATCH, None],
-                         vals[half * BATCH: n_batches * BATCH])
-    return table, int(hits)
+    cache = MultiStepLRUCache(cfg, device=DEVICE)
+    hits = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    for i in range(n_batches):
+        q = slice(i * BATCH, (i + 1) * BATCH)
+        res = cache.access(keys[q], vals[q])
+        if i >= n_batches // 2:
+            hits += res.hit.sum()
+    return cache.table, int(hits)
 
 
 def run_route(torch, cfg, host_stream, main):
-    """Phase 28: the sharded cache with one shard per process.  D ranks
-    share the card through ``run_on_ranks(..., backend="gloo")``: the route
-    exchanges through host memory, since NCCL does not put two ranks on one
-    card.  The parent writes phase 5's stream and its own one-process
-    results to a temporary directory; every rank checks its part, and any
+    """Phase 28: the sharded cache with one shard per process.  One world
+    of 8 ranks shares the card through ``run_on_ranks(..., backend="gloo")``
+    (the route exchanges through host memory, since NCCL does not put two
+    ranks on one card); the cache runs on its first D ranks for each D of
+    ROUTE_SHARDS.  The parent writes phase 5's stream and its own results
+    to a temporary directory first; every rank checks its part, and any
     rank's failure fails the phase."""
     import tempfile
 
@@ -3538,24 +3722,21 @@ def run_route(torch, cfg, host_stream, main):
     from repro_torch.core.sharded import make_sharded_engine, shard_table
     from repro_torch.launch.mesh import make_cache_mesh, run_on_ranks
 
-    keys_h, _, table_h = host_stream
-    n_stream = keys_h.numel() // BATCH - CHECK_BATCHES
-    d8 = ROUTE_D8_BATCHES or n_stream
+    keys_h = host_stream[0]
+    world = max(ROUTE_SHARDS)
+    plan = [(d, ROUTE_D8_BATCHES if d == world else ROUTE_SHORT_BATCHES, d == world)
+            for d in ROUTE_SHARDS]
     out = {"transport": "gloo all_to_all_single through pinned host buffers, D ranks on "
-                        "one card (not NCCL)", "cap": ROUTE_CAP}
+                        "one card (not NCCL)", "cap": ROUTE_CAP, "world": world}
     with tempfile.TemporaryDirectory() as workdir:
         keys = keys_h.to(DEVICE)
         vals = torch.stack([keys, -keys], dim=1)
         _npy(workdir, "keys", keys_h)
-        for ndev in ROUTE_SHARDS:
-            n = d8 if ndev == 8 else ROUTE_SHORT_BATCHES
-            if ndev == 8 and d8 == n_stream:    # phase 5's table and timed hits
-                want_table, hits = table_h.to(DEVICE), main["hits"]
-            else:
-                want_table, hits = _one_process_stream(torch, cfg, ndev, keys, vals, n)
-            _npy(workdir, f"want_table_d{ndev}", want_table)
-            _npy(workdir, f"want_d{ndev}", torch.tensor([hits]))
-            if ndev == 8:
+        for n in sorted({n for _, n, _ in plan}):
+            want_table, hits = _local_stream(torch, cfg, keys, vals, n)
+            _npy(workdir, f"want_table_{n}", want_table)
+            _npy(workdir, f"want_{n}", torch.tensor([hits]))
+            if n == ROUTE_D8_BATCHES:
                 local = MultiStepLRUCache(cfg, device=DEVICE)
                 local.load_table(want_table)
                 got = [local.access(keys[i * BATCH:(i + 1) * BATCH], vals[i * BATCH:(i + 1)
@@ -3565,59 +3746,58 @@ def run_route(torch, cfg, host_stream, main):
                 _npy(workdir, "check_val", torch.stack([r.value for r in got]))
                 _npy(workdir, "check_table", local.table)
                 del local, got
-                mesh = make_cache_mesh(8, device=DEVICE)
-                bounded = make_sharded_engine(cfg, mesh, cap=ROUTE_CAP, engine="onepass")
-                t = shard_table(init_table(cfg, DEVICE), mesh)
-                res = []
-                for i in range(ROUTE_CAP_BATCHES):
-                    t, hit, val, srv = bounded(t, keys[i * BATCH:(i + 1) * BATCH, None],
-                                               vals[i * BATCH:(i + 1) * BATCH])
-                    res.append((srv, hit, val))
-                for j, name in enumerate(("served", "hit", "val")):
-                    _npy(workdir, f"cap_{name}", torch.stack([r[j] for r in res]))
-                _npy(workdir, "cap_table", t)
-                out["cap_shed_one_process"] = int(sum(int((~r[0]).sum()) for r in res))
-                del t, res
             del want_table
-            release(torch)
-            t = time.perf_counter()
-            ranks = run_on_ranks(route_rank, ndev, "gloo", DEVICE,
-                                 args=(workdir, ndev, n, ndev == 8, route_sizes()),
-                                 timeout=900)
-            wall = time.perf_counter() - t
-            timed = (n - n // 2) * BATCH
-            slowest = max(r["seconds"] for r in ranks)
-            rec = {"ranks": ndev, "batches": n, "whole_stream": ndev == 8 and n == n_stream,
-                   "timed_queries": timed, "seconds": slowest, "qps": timed / slowest,
-                   "ms_per_batch": 1e3 * slowest / (n - n // 2), "phase_seconds": wall,
-                   "stage_ms_per_exchange": sum(r["stage_ms_per_exchange"] for r in ranks)
-                   / ndev,
-                   "wire_ms_per_exchange": sum(r["wire_ms_per_exchange"] for r in ranks) / ndev,
-                   "exchanges_per_batch": ranks[0]["exchanges_timed"] / (n - n // 2),
-                   "msl_onepass_per_rank": [r["launches_stream"]["msl_onepass"]
-                                            for r in ranks]}
-            if ndev == 8:
-                rec["msl_access_per_rank"] = [r["launches_rounds_check"]["msl_access"]
-                                              for r in ranks]
-                rec["cap_shed"] = sum(r["cap_shed"] for r in ranks)
-                if rec["cap_shed"] != out["cap_shed_one_process"] or rec["cap_shed"] == 0:
-                    raise AssertionError(f"cap {ROUTE_CAP}: {rec['cap_shed']} rows shed, the "
-                                         f"one-process engine {out['cap_shed_one_process']}")
-            out[f"d{ndev}"] = rec
-            log(f"D = {ndev} ranks on one card (gloo through host memory, not NCCL): "
-                f"{n} batches{' (phase 5 whole stream)' if rec['whole_stream'] else ''}, "
-                f"table and hits == the one-process engine's; {rec['qps']:.4g} queries/s, "
-                f"{rec['ms_per_batch']:.3f} ms per batch (phase 5: {main['qps']:.4g}), "
-                f"{rec['exchanges_per_batch']:.0f} exchanges per batch per rank at "
-                f"{rec['stage_ms_per_exchange']:.4f} ms host staging + "
-                f"{rec['wire_ms_per_exchange']:.4f} ms gloo; msl_onepass launches per rank "
-                f"{rec['msl_onepass_per_rank']} (one per batch); {wall:.1f} s")
-        d = out["d8"]
-        log(f"D = 8: rounds engine on {CHECK_BATCHES} batches after the stream == the local "
-            f"cache (msl_access per rank {d['msl_access_per_rank']}); cap {ROUTE_CAP}: "
-            f"{d['cap_shed']} of {ROUTE_CAP_BATCHES * BATCH} rows shed on "
-            f"{ROUTE_CAP_BATCHES} cold batches, served masks, hits, values and tables == the "
-            f"one-process engine's")
+        mesh = make_cache_mesh(world, device=DEVICE)
+        bounded = make_sharded_engine(cfg, mesh, cap=ROUTE_CAP, engine="onepass")
+        t = shard_table(init_table(cfg, DEVICE), mesh)
+        res = []
+        for i in range(ROUTE_CAP_BATCHES):
+            t, hit, val, srv = bounded(t, keys[i * BATCH:(i + 1) * BATCH, None],
+                                       vals[i * BATCH:(i + 1) * BATCH])
+            res.append((srv, hit, val))
+        for j, name in enumerate(("served", "hit", "val")):
+            _npy(workdir, f"cap_{name}", torch.stack([r[j] for r in res]))
+        _npy(workdir, "cap_table", t)
+        out["cap_shed_one_process"] = int(sum(int((~r[0]).sum()) for r in res))
+        del t, res, keys, vals
+        release(torch)
+        t = time.perf_counter()
+        ranks = run_on_ranks(route_rank, world, "gloo", DEVICE,
+                             args=(workdir, plan, route_sizes()), timeout=900)
+        out["phase_seconds"] = time.perf_counter() - t
+    for ndev, n, check in plan:
+        mine = [r[ndev] for r in ranks if ndev in r]
+        timed = (n - n // 2) * BATCH
+        slowest = max(r["seconds"] for r in mine)
+        rec = {"ranks": ndev, "batches": n, "timed_queries": timed, "seconds": slowest,
+               "qps": timed / slowest, "ms_per_batch": 1e3 * slowest / (n - n // 2),
+               "stage_ms_per_exchange": sum(r["stage_ms_per_exchange"] for r in mine) / ndev,
+               "wire_ms_per_exchange": sum(r["wire_ms_per_exchange"] for r in mine) / ndev,
+               "exchanges_per_batch": mine[0]["exchanges_timed"] / (n - n // 2),
+               "msl_onepass_per_rank": [r["launches_stream"]["msl_onepass"] for r in mine]}
+        if len(mine) != ndev:
+            raise AssertionError(f"D = {ndev}: {len(mine)} ranks reported")
+        if check:
+            rec["msl_access_per_rank"] = [r["launches_rounds_check"]["msl_access"]
+                                          for r in mine]
+            rec["cap_shed"] = sum(r["cap_shed"] for r in mine)
+            if rec["cap_shed"] != out["cap_shed_one_process"] or rec["cap_shed"] == 0:
+                raise AssertionError(f"cap {ROUTE_CAP}: {rec['cap_shed']} rows shed, the "
+                                     f"one-process engine {out['cap_shed_one_process']}")
+        out[f"d{ndev}"] = rec
+        log(f"D = {ndev} of {world} ranks on one card (gloo through host memory, not NCCL): "
+            f"{n} batches, table and hits == phase 5's engine's on them; "
+            f"{rec['qps']:.4g} queries/s, {rec['ms_per_batch']:.3f} ms per batch (phase 5: "
+            f"{main['qps']:.4g}), {rec['exchanges_per_batch']:.0f} exchanges per batch per "
+            f"rank at {rec['stage_ms_per_exchange']:.4f} ms host staging + "
+            f"{rec['wire_ms_per_exchange']:.4f} ms gloo; msl_onepass launches per rank "
+            f"{rec['msl_onepass_per_rank']} (one per batch)")
+    d = out[f"d{world}"]
+    log(f"D = {world}: rounds engine on {CHECK_BATCHES} batches after its stream == the local "
+        f"cache (msl_access per rank {d['msl_access_per_rank']}); cap {ROUTE_CAP}: "
+        f"{d['cap_shed']} of {ROUTE_CAP_BATCHES * BATCH} rows shed on "
+        f"{ROUTE_CAP_BATCHES} cold batches, served masks, hits, values and tables == the "
+        f"one-process engine's; {out['phase_seconds']:.1f} s for the world")
     return out
 
 
@@ -4150,6 +4330,460 @@ def finish_mesh_dryrun(procs, workdir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Faults across processes (phase 31): reshard and mark_degraded with one
+# cache shard per gloo rank on the card, and phase 21's bounded serve with
+# its cache on those ranks
+# ---------------------------------------------------------------------------
+
+FAULT_WORLD = 8                 # 31(b) uses SHARDS ranks of this world: the same 8
+# 31(a) at test scale: tests/test_reshard.py's workload, (D, D', engine,
+# seed), every pair starting on the first D ranks of one world of
+# FAULT_WORLD; one of the workload's seeds 0-2 per pair, to keep the
+# script's time (a cache call over 8 gloo ranks sharing one H100 takes
+# about 45 ms, PERF.md), every seed on every pair in the CPU tests
+FAULT_PAIRS = ((8, 4, "onepass", 0), (4, 8, "onepass", 1), (8, 7, "onepass", 2),
+               (2, 1, "onepass", 0), (8, 7, "rounds", 1))
+# 31(a) at the real size: 2^11 sets x M=2 x P=4 = 16384 entries, about as
+# many as one card holds 16-token KV pages of phi3-mini-3.8b (6.3 MB a page,
+# about 11.5k pages after the weights); chains of 1-5 chunks picked Zipf 0.99
+# from REAL_CHAINS, REAL_PER_CALL chains to a cache call
+REAL_SETS = 2**11
+REAL_CHAINS = 100_000
+REAL_CALLS = 96
+REAL_PER_CALL = 128
+
+
+def fault_sizes() -> dict:
+    """Phase 31(a)'s sizes, handed to every rank (a spawned rank imports
+    this script afresh)."""
+    return {"device": DEVICE, "pairs": FAULT_PAIRS, "real_sets": REAL_SETS,
+            "real_chains": REAL_CHAINS, "real_calls": REAL_CALLS,
+            "real_per_call": REAL_PER_CALL}
+
+
+def real_calls(n_chains, n_calls, per_call, seed=SEED):
+    """Cache calls at the real size: ``n_chains`` chains of 1-5 odd 31-bit
+    chunk hashes, each call ``per_call`` of them picked Zipf 0.99, laid out
+    as the prefix cache lays out a tick (a CHAIN_GET island, then a
+    CHAIN_PUT island staging a fresh page per chunk).  Yields (keys, vals,
+    ops, chain_ids, chains)."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_sharded_cases as cases
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 6, n_chains)
+    hashes = (rng.integers(1, 2**31 - 1, int(lens.sum())) | 1).tolist()
+    ends = np.cumsum(lens)
+    chains = [hashes[e - n:e] for n, e in zip(lens.tolist(), ends.tolist())]
+    p = 1.0 / np.arange(1, n_chains + 1) ** ZIPF_ALPHA
+    picks = rng.choice(n_chains, (n_calls, per_call), p=p / p.sum())
+    page = 1
+    for row in picks:
+        tick = [chains[i] for i in row]
+        staged = []
+        for c in tick:
+            staged.append(list(range(page, page + len(c))))
+            page += len(c)
+        yield (*cases.chain_batch(tick, staged), tick)
+
+
+def _digest(x) -> str:
+    import hashlib
+    import pickle
+
+    return hashlib.sha256(pickle.dumps(x, protocol=4)).hexdigest()
+
+
+def _rebuilt_right(torch, client, cfg, table, device, resident=False) -> bool:
+    """The rebuilt ``table`` equals a cold ``MultiStepLRUCache`` on the card
+    fed ``client.last_drain_stream``; with ``resident``, every re-inserted
+    chain is resident too (one LOOKUP call through ``client`` over every
+    re-inserted key).  Its launches are the check's: the caller reads the
+    path's counts before it and zeroes them after it."""
+    import numpy as np
+
+    from repro_torch.core import OP_LOOKUP, MultiStepLRUCache
+
+    cold = MultiStepLRUCache(cfg, engine="onepass", device=device)
+    for b in client.last_drain_stream:
+        cold.access(b["keys"], b["vals"], ops=b["ops"], chain_ids=b["chain_ids"])
+    if not np.array_equal(cold.table.cpu().numpy(), table):
+        return False
+    if not resident or not client.last_drain_stream:
+        return True
+    keys = np.concatenate([b["keys"] for b in client.last_drain_stream])
+    return bool(client.access(keys, ops=np.full(keys.size, OP_LOOKUP, np.int32)).hit.all())
+
+
+def _timed_sweeps(torch, client, ms):
+    """Record the ms of each of ``client``'s drain (CHAIN_GET) and
+    re-insert (CHAIN_PUT) sweeps into ``ms["drain"]``/``ms["reinsert"]``."""
+    from repro_torch.core import OP_CHAIN_GET
+
+    inner = client._sweep_access
+
+    def sweep(keys, vals, ops, chain_ids, costs=None):
+        _sync(torch, client.device)
+        t = time.perf_counter()
+        try:
+            return inner(keys, vals, ops, chain_ids, costs=costs)
+        finally:
+            _sync(torch, client.device)
+            ms["drain" if int(ops[0]) == OP_CHAIN_GET else "reinsert"].append(
+                1e3 * (time.perf_counter() - t))
+
+    client._sweep_access = sweep
+
+
+def _real_size(torch, mesh, run):
+    """The real-size run on ``mesh`` (a process or one-process cache mesh of
+    8 shards): the Zipf calls, then D = 8 -> 7, ``mark_degraded(3)``, 7 -> 8.
+    Returns the record of each step (orphans, drain stream, table, client
+    state), the checks, the launches of the path on this rank (the calls,
+    the reshards and ``mark_degraded``; not the checks' own), and the
+    times."""
+    import numpy as np
+
+    from repro_torch.core import MSLRUConfig
+    from repro_torch.core.sharded import ShardedCacheClient
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_sharded_cases as cases
+
+    device = mesh.device
+    cfg = MSLRUConfig(num_sets=run["real_sets"], m=2, p=4, value_planes=1)
+    cl = ShardedCacheClient(cfg, mesh)
+    ms = {"drain": [], "reinsert": [], "access": [], "reshard": [], "degrade": []}
+    _timed_sweeps(torch, cl, ms)
+    launches = {k: 0 for k in read_launches()}
+
+    def path_launches():
+        """Add the launches since the last zero to the path's."""
+        for k, v in read_launches().items():
+            launches[k] += v
+
+    zero_launches()
+    for keys, vals, ops, cids, tick in real_calls(run["real_chains"], run["real_calls"],
+                                                  run["real_per_call"]):
+        t = time.perf_counter()
+        cl.access(keys, vals, ops=ops, chain_ids=cids)
+        ms["access"].append(1e3 * (time.perf_counter() - t))
+        for c in tick:
+            cl.note_chain(c)
+    path_launches()
+    out = {"occupancy_before": cl.occupancy, "chains": len(cl._chain_registry),
+           "steps": [], "checks": [], "mesh_ranks": []}
+    for what, arg in (("reshard", 7), ("degrade", 3), ("reshard", 8)):
+        zero_launches()
+        _sync(torch, device)
+        t = time.perf_counter()
+        orphans = cl.reshard(arg) if what == "reshard" else cl.mark_degraded(arg)
+        _sync(torch, device)
+        ms[what].append(1e3 * (time.perf_counter() - t))
+        path_launches()
+        table = cl.gathered_table()
+        out["steps"].append({"what": what, "arg": arg, "orphans": orphans, "table": table,
+                             "state": cases.client_state(cl)})
+        out["mesh_ranks"].append(cl.mesh.rank)
+        if what == "reshard":
+            out["checks"].append(_rebuilt_right(torch, cl, cfg, table, device, resident=True))
+    out["occupancy_after"] = cl.occupancy
+    out["launches"] = launches
+    out["ms"] = ms
+    return out
+
+
+def _pair_records(torch, make_mesh, d, dp, engine, seed, device):
+    """A client on ``make_mesh(d)`` through ``tests/test_reshard.py``'s
+    workload of ``seed``, then ``reshard(dp)``: its orphans, drain stream,
+    table, occupancies and ``ndev``; whether the rebuilt table is a cold
+    cache's fed the drain stream with every chain resident; the client's
+    calls; the launches of the workload and the reshard on this rank,
+    counted from 0 and read before the cold cache's check."""
+    from repro_torch.core import MSLRUConfig
+    from repro_torch.core.sharded import ShardedCacheClient
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_sharded_cases as cases
+
+    cfg = MSLRUConfig(**cases.RESHARD_CFG)
+    cl = ShardedCacheClient(cfg, make_mesh(d), engine=engine)
+    calls = [0]
+    access = cl.access
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return access(*a, **k)
+
+    cl.access = counted
+    zero_launches()
+    r = cases.drive_reshard(cl, seed, dp, lambda c: c.gathered_table())
+    launches = read_launches()
+    ok = r["resident"] and r["occ_before"] > 0.5 and r["ndev"] == dp
+    ok = ok and _rebuilt_right(torch, cl, cfg, r["table"], device)
+    return {k: r[k] for k in ("orphans", "drain", "table", "occ_before", "occ_after",
+                              "ndev")}, ok, calls[0], launches
+
+
+def fault_rank(run, argv, phase21_tokens):
+    """One rank of phase 31 (spawned by ``run_on_ranks``, gloo, sharing the
+    card).  (a) For each (D, D', engine, seed): ``_pair_records`` on the
+    first D ranks; then the real size (``_real_size``); rank 0 then makes
+    the one-process client's digests (``one_process_reference``) while the
+    others wait for (b).  (b) ``_bounded_serve``.  Returns digests of every
+    record of (a) (the parent holds every rank's to the one-process
+    client's), its launches per pair and the real size's times, and (b)'s
+    record."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import ProcessCacheMesh
+
+    device = run["device"]
+    out = {"rank": dist.get_rank(), "pairs": {}}
+    t0 = time.perf_counter()
+    for d, dp, engine, seed in run["pairs"]:
+        t = time.perf_counter()
+        rec, ok, calls, launches = _pair_records(
+            torch, lambda n: ProcessCacheMesh(n, device), d, dp, engine, seed, device)
+        out["pairs"][(d, dp, engine, seed)] = {
+            "digest": _digest(rec), "ok": ok, "launches": launches, "calls": calls,
+            "ms_per_call": 1e3 * (time.perf_counter() - t) / calls}
+    out["pairs_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    real = _real_size(torch, ProcessCacheMesh(8, device), run)
+    out["real_seconds"] = time.perf_counter() - t0
+    out["real"] = {"digest": _digest(real["steps"]), "checks": real["checks"],
+                   "launches": real["launches"], "ms": real["ms"],
+                   "occupancy": (real["occupancy_before"], real["occupancy_after"]),
+                   "chains": real["chains"], "mesh_ranks": real["mesh_ranks"],
+                   "orphans": [len(s["orphans"]) for s in real["steps"]],
+                   "drain_rows": [sum(b["keys"].size for b in s["state"]["drain"])
+                                  for s in real["steps"]]}
+    if out["rank"] == 0:
+        t0 = time.perf_counter()
+        out["one_process"] = one_process_reference(torch, run)
+        out["reference_seconds"] = time.perf_counter() - t0
+    release(torch)
+    t0 = time.perf_counter()
+    out["serve"] = _bounded_serve(argv, phase21_tokens)
+    out["serve_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def one_process_reference(torch, run) -> dict:
+    """The digests of the one-process client's records (D logical shards
+    on the card) of phase 31(a)'s calls."""
+    from repro_torch.launch.mesh import make_cache_mesh
+
+    device = run["device"]
+    ref = {pair: _digest(_pair_records(torch, lambda n: make_cache_mesh(n, device), *pair,
+                                       device)[0]) for pair in run["pairs"]}
+    ref["real"] = _digest(_real_size(torch, make_cache_mesh(8, device), run)["steps"])
+    return ref
+
+
+def check_reshards(ranks) -> dict:
+    """Phase 31(a): ``reshard`` and ``mark_degraded`` over FAULT_WORLD gloo
+    ranks sharing the card (one world, every pair on its subgroups).  Every
+    rank's records equal rank 0's and the one-process client's; every
+    rebuilt table is a cold cache's fed the drain stream, every re-inserted
+    chain resident; each engine's kernel ran on every rank that held rows,
+    and on no other."""
+    ref = ranks[0]["one_process"]
+    out = {"world": FAULT_WORLD, "pairs_seconds": ranks[0]["pairs_seconds"],
+           "real_seconds": ranks[0]["real_seconds"],
+           "reference_seconds": ranks[0]["reference_seconds"], "pairs": {}}
+    for d, dp, engine, seed in FAULT_PAIRS:
+        recs = [r["pairs"][(d, dp, engine, seed)] for r in ranks]
+        if not all(r["ok"] for r in recs):
+            raise AssertionError(f"D = {d} -> {dp} ({engine}): a rebuilt table differs from "
+                                 "the cold cache, or a chain was lost")
+        if any(r["digest"] != ref[(d, dp, engine, seed)] for r in recs):
+            raise AssertionError(f"D = {d} -> {dp} ({engine}): a rank's orphans, drain stream "
+                                 "or table differ from the one-process client's")
+        kernel = "msl_access" if engine == "rounds" else "msl_onepass"
+        per_rank = [r["launches"][kernel] for r in recs]
+        held = max(d, dp)
+        if not all(per_rank[:held]) or any(per_rank[held:]):
+            raise AssertionError(f"D = {d} -> {dp}: {kernel} launches per rank {per_rank}, "
+                                 f"not on exactly the {held} ranks that held rows")
+        out["pairs"][f"{d}->{dp} {engine}"] = {"seed": seed, "calls": recs[0]["calls"],
+                                               "ms_per_call": recs[0]["ms_per_call"],
+                                               f"{kernel}_per_rank": per_rank}
+        log(f"D = {d} -> {dp} ({engine}), seed {seed}: every rank's rebuilt "
+            f"table == a cold cache fed the drain stream, orphans and drain stream == the "
+            f"one-process client's, every chain resident; {recs[0]['calls']} cache calls at "
+            f"{recs[0]['ms_per_call']:.3f} ms (rank 0); {kernel} launches per rank "
+            f"{per_rank}")
+    real = [r["real"] for r in ranks]
+    if not all(all(r["checks"]) for r in real) or any(
+            r["digest"] != ref["real"] for r in real):
+        raise AssertionError("the real-size reshards differ from the one-process client's, "
+                             "or a rebuilt table from the cold cache")
+    r0 = real[0]
+    if not r0["occupancy"][0] > 0.5:
+        raise AssertionError(f"the real-size workload filled only {r0['occupancy'][0]:.3f}")
+
+    def mean(xs):
+        return sum(xs) / max(1, len(xs))
+
+    rec = {"sets": REAL_SETS, "entries": REAL_SETS * 8, "chains_registered": r0["chains"],
+           "occupancy": r0["occupancy"], "orphans": r0["orphans"],
+           "drain_rows": r0["drain_rows"],
+           "ms_per_cache_call": mean(r0["ms"]["access"]),
+           "ms_per_drain_sweep": mean(r0["ms"]["drain"]),
+           "ms_per_reinsert_sweep": mean(r0["ms"]["reinsert"]),
+           "drain_sweeps": len(r0["ms"]["drain"]), "reinsert_sweeps": len(r0["ms"]["reinsert"]),
+           "ms_per_reshard": r0["ms"]["reshard"], "ms_per_mark_degraded": r0["ms"]["degrade"],
+           "ms_per_reshard_slowest_rank": [max(r["ms"]["reshard"][i] for r in real)
+                                           for i in range(2)],
+           "msl_onepass_per_rank": [r["launches"]["msl_onepass"] for r in real],
+           "rank7_mesh_rank_per_step": real[7]["mesh_ranks"]}
+    if not all(rec["msl_onepass_per_rank"]):
+        raise AssertionError(f"msl_onepass launches per rank at the real size "
+                             f"{rec['msl_onepass_per_rank']}")
+    if rec["rank7_mesh_rank_per_step"] != [-1, -1, 7]:
+        raise AssertionError(f"rank 7's place in the cache per step: "
+                             f"{rec['rank7_mesh_rank_per_step']}")
+    out["real"] = rec
+    log(f"real size, {REAL_SETS} sets x 8 ways ({rec['entries']} entries), "
+        f"{rec['chains_registered']} chains registered, occupancy {r0['occupancy'][0]:.4f}: "
+        f"8 -> 7, mark_degraded(3), 7 -> 8 on every rank == the one-process client's "
+        f"(orphans {rec['orphans']}, drain rows {rec['drain_rows']}); "
+        f"{rec['ms_per_cache_call']:.3f} ms per cache call, {rec['ms_per_drain_sweep']:.3f} ms "
+        f"per drain sweep ({rec['drain_sweeps']}), {rec['ms_per_reinsert_sweep']:.3f} ms per "
+        f"re-insert sweep ({rec['reinsert_sweeps']}), ms per reshard "
+        f"{[round(x, 3) for x in rec['ms_per_reshard']]}, per mark_degraded "
+        f"{[round(x, 3) for x in rec['ms_per_mark_degraded']]}; msl_onepass launches per "
+        f"rank {rec['msl_onepass_per_rank']}; {out['pairs_seconds']:.1f} s for the pairs, "
+        f"{out['real_seconds']:.1f} s for the real size, {out['reference_seconds']:.1f} s for "
+        f"the one-process reference")
+    return out
+
+
+def _bounded_serve(argv, phase21_tokens):
+    """Phase 31(b) on one rank: ``serve --processes``'s ranks with phase
+    21's first bounded serve.  Rank 0 builds phi3-mini-3.8b at full width
+    (``serve.build`` on a ``ProcessCacheMesh`` of all ranks) and serves
+    leading the cache (``sharded_serve``), keeps ``serve_record`` and checks
+    any token that differs from phase 21's for a near-tie; the others
+    follow.  Every rank returns its launches, its transport counts and
+    where it ends."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import ProcessCacheMesh
+
+    args = serve.parser().parse_args(argv)
+    mesh = ProcessCacheMesh(args.sharded, args.device)
+    out = {"rank": dist.get_rank()}
+    if out["rank"]:
+        client = serve.cache_client(args, mesh)
+        zero_launches()
+        out["calls"] = client.follow()
+        out["launches"] = read_launches()
+    else:
+        reqs = serve.make_requests(get_config(args.arch, smoke=args.smoke), args)
+        keep = {}
+        eng, rec = sharded_serve(torch, args, reqs, serve.fault_plan(args), mesh=mesh,
+                                 keep=keep)
+        client = eng.prefix_cache.cache
+        got = keep["tokens"]
+        out.update(rec=rec, keep=keep, launches=rec["launches"],
+                   near_ties=near_ties(torch, eng, reqs, got, phase21_tokens))
+        del eng
+        release(torch)
+    out.update(mesh_rank=client.mesh.rank, ndev=client.ndev,
+               stage_s=client.mesh.stage_seconds, wire_s=client.mesh.wire_seconds,
+               exchanges=client.mesh.exchanges)
+    return out
+
+
+def check_bounded_serve(ranks, argv, phase21, kept) -> dict:
+    """Phase 31(b): phase 21's first bounded serve (``BOUNDED``, in-flight,
+    paged, phi3-mini-3.8b at full width and depth) with the cache on
+    SHARDS gloo ranks sharing the card and the engine on rank 0 (``serve
+    --processes``).  Ticks, fault log, finish order, prefill split, every
+    stats and prefix-cache key, the pool and the gathered table equal phase
+    21's (``kept``); tokens equal its or split at a near-tie; rank 7 ends
+    outside the cache's group."""
+    import numpy as np
+
+    want = {k: v for k, v in kept.items() if k != "tokens"}
+    r0 = ranks[0]
+    got = {k: v for k, v in r0["keep"].items() if k != "tokens"}
+    differ = [k for k in want if not (np.array_equal(got[k], want[k]) if k == "table"
+                                      else got[k] == want[k])]
+    if differ:
+        raise AssertionError(f"the serve with its cache across processes differs from phase "
+                             f"21's in {differ}")
+    if ranks[7]["mesh_rank"] != -1 or ranks[0]["ndev"] != 7:
+        raise AssertionError("rank 7 did not end outside a cache of 7 ranks")
+    onepass = [r["launches"]["msl_onepass"] for r in ranks]
+    if not all(onepass[:7]) or onepass[7] >= onepass[0]:
+        raise AssertionError(f"msl_onepass launches per rank {onepass}")
+    ex = sum(r["exchanges"] for r in ranks)
+    rec = r0["rec"]
+    out = {"argv": argv, "phase_seconds": ranks[0]["serve_seconds"], "ticks": rec["ticks"],
+           "fault_log": rec["fault_log"], "equal_phase21": True,
+           "tokens_equal": len(r0["near_ties"]) == 0, "near_ties": r0["near_ties"],
+           "ms_per_decode_tick": rec["ms_per_decode_tick"],
+           "phase21_ms_per_decode_tick": phase21["ms_per_decode_tick"],
+           "host_ms_per_cache_call": rec["host_ms_per_cache_call"],
+           "phase21_host_ms_per_cache_call": phase21["host_ms_per_cache_call"],
+           "placement_ms_per_cache_call": rec["placement_ms_per_cache_call"],
+           "ms_per_applied_fault": rec["ms_per_applied_fault"],
+           "phase21_ms_per_applied_fault": phase21["ms_per_applied_fault"],
+           "cache_calls": rec["cache_calls"], "wall_s": rec["wall_s"],
+           "phase21_wall_s": phase21["wall_s"],
+           "exchanges": ex, "stage_ms_per_exchange": 1e3 * sum(r["stage_s"] for r in ranks) / ex,
+           "wire_ms_per_exchange": 1e3 * sum(r["wire_s"] for r in ranks) / ex,
+           "msl_onepass_per_rank": onepass,
+           "paged_attn_rank0": r0["launches"]["paged_attn"],
+           "follower_calls": [r.get("calls") for r in ranks[1:]],
+           "mesh_rank_at_end": [r["mesh_rank"] for r in ranks]}
+    log(f"bounded serve, cache on {SHARDS} gloo ranks, engine on rank 0: {out['ticks']} ticks, "
+        f"faults {out['fault_log']}; ticks, fault log, finish order, prefill split, stats, "
+        f"prefix-cache counters, pool and table == phase 21's; tokens "
+        f"{'equal' if out['tokens_equal'] else 'equal but near-ties'}; "
+        f"{out['ms_per_decode_tick']:.3f} ms per decode tick (phase 21 "
+        f"{out['phase21_ms_per_decode_tick']:.3f}), {out['host_ms_per_cache_call']:.3f} host ms "
+        f"per cache call (phase 21 {out['phase21_host_ms_per_cache_call']:.3f}); "
+        f"{out['stage_ms_per_exchange']:.4f} ms staging + {out['wire_ms_per_exchange']:.4f} ms "
+        f"gloo per exchange ({ex}); ms per applied fault "
+        f"{[round(x, 2) for x in out['ms_per_applied_fault']]} (phase 21 "
+        f"{[round(x, 2) for x in out['phase21_ms_per_applied_fault']]}); msl_onepass per rank "
+        f"{onepass}, paged_attn on rank 0 {out['paged_attn_rank0']}; ranks at the end "
+        f"{out['mesh_rank_at_end']}; {out['phase_seconds']:.1f} s")
+    return out
+
+
+def run_faults(torch, phase21, kept):
+    """Phase 31: one world of FAULT_WORLD gloo ranks sharing the card runs
+    (a) and then (b) (``fault_rank``); any rank's failure fails the phase.
+    Returns (a)'s and (b)'s records."""
+    from repro_torch.launch.mesh import run_on_ranks
+
+    argv = ["--no-smoke", "--device", DEVICE, "--kv-mode", "paged", *BOUNDED, "--processes"]
+    t = time.perf_counter()
+    ranks = run_on_ranks(fault_rank, FAULT_WORLD, "gloo", DEVICE,
+                         args=(fault_sizes(), argv, kept["tokens"]), timeout=900)
+    wall = time.perf_counter() - t
+    reshards = check_reshards(ranks)
+    phase(f"31(b). phi3-mini-3.8b at full width, phase 21's bounded serve with the cache on "
+          f"{SHARDS} gloo ranks and the engine on rank 0 (run in 31's world, after (a))")
+    bounded = check_bounded_serve([r["serve"] | {"serve_seconds": r["serve_seconds"]}
+                                   for r in ranks], argv, phase21, kept)
+    reshards["phase_seconds"] = wall
+    return reshards, bounded
+
+
 def main() -> int:
     import torch
 
@@ -4170,7 +4804,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
-    log(smi)
+    print(smi, flush=True)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
@@ -4246,36 +4880,41 @@ def main() -> int:
         shapes.append(rec)
         release(torch)
 
-    phase("14. starcoder2-7b at full width and depth, paged: in-flight and megastep")
+    phase(f"14. starcoder2-7b at full width, {FULL_WIDTH_LAYERS['starcoder2-7b']} layers, "
+          "paged: in-flight and megastep")
     serving["starcoder2-7b"], rec = run_full_width(torch, "starcoder2-7b",
                                                   errs["paged_attn"], buckets)
     shapes.append(rec)
     release(torch)
 
-    phase("15. gemma3-1b at full width and depth, paged")
+    phase(f"15. gemma3-1b at full width, {FULL_WIDTH_LAYERS['gemma3-1b']} layers, paged")
     serving["gemma3-1b"], rec = run_full_width(torch, "gemma3-1b", errs["paged_attn"])
     shapes.append(rec)
     release(torch)
 
-    phase("16. olmoe-1b-7b at full width and depth, paged: in-flight and megastep")
+    phase(f"16. olmoe-1b-7b at full width, {FULL_WIDTH_LAYERS['olmoe-1b-7b']} layers, paged: "
+          "in-flight and megastep")
     serving["olmoe-1b-7b"], rec = run_full_width(torch, "olmoe-1b-7b", errs["paged_attn"],
                                                 buckets)
     shapes.append(rec)
     release(torch)
 
-    phase("17. hymba at smoke width and at full width and depth, contiguous")
+    phase(f"17. hymba at smoke width and at full width, {FULL_WIDTH_LAYERS[HYMBA]} layers, "
+          "contiguous")
     serving["hymba-smoke"] = run_contiguous(torch, HYMBA, smoke=True)
     release(torch)
     serving[HYMBA] = run_contiguous(torch, HYMBA, smoke=False)
     release(torch)
 
-    phase("18. xlstm at smoke width and at full width and depth, contiguous")
+    phase(f"18. xlstm at smoke width and at full width, {FULL_WIDTH_LAYERS[XLSTM]} blocks, "
+          "contiguous")
     serving["xlstm-smoke"] = run_contiguous(torch, XLSTM, smoke=True, roundrobin="exact")
     release(torch)
     serving[XLSTM] = run_contiguous(torch, XLSTM, smoke=False, roundrobin="exact")
     release(torch)
 
-    phase("19. whisper at smoke width and at full width and depth, contiguous")
+    phase(f"19. whisper at smoke width and at full width, {FULL_WIDTH_LAYERS[WHISPER]} "
+          "decoder layers, contiguous")
     serving["whisper-smoke"] = run_contiguous(torch, WHISPER, smoke=True, roundrobin=None)
     release(torch)
     serving[WHISPER] = run_contiguous(torch, WHISPER, smoke=False, roundrobin=None)
@@ -4295,7 +4934,8 @@ def main() -> int:
 
     phase(f"21. phi3-mini-3.8b at full width behind {SHARDS} shards: sheds, retries, "
           "split placement, throttling, faults")
-    serving["sharded"] = run_sharded_serving(torch, phase8, buckets)
+    phase21 = {}     # the first bounded serve's record, kept for phase 31(b)
+    serving["sharded"] = run_sharded_serving(torch, phase8, buckets, keep=phase21)
     bounded = serving["sharded"]["bounded"]["launches"]
     records[1]["launches_sharded_serving_path"] = bounded["msl_onepass"]
     records[2]["launches_sharded_serving_path"] = bounded["paged_attn"]
@@ -4378,8 +5018,22 @@ def main() -> int:
         raise AssertionError(f"the sharded step launched kernels: {launches}")
     training["sharded_step"] = sharded
 
+    phase(f"31. faults across processes, {FAULT_WORLD} gloo ranks sharing the card: (a) "
+          "reshard and mark_degraded")
+    summary["reshard_processes"], serving["sharded_processes"] = run_faults(
+        torch, serving["sharded"]["bounded"], phase21)
+    d87 = summary["reshard_processes"]["pairs"]["8->7 rounds"]["msl_access_per_rank"]
+    records[0]["launches_process_reshard_path"] = d87
+    records[1]["launches_process_reshard_path"] = summary["reshard_processes"]["real"][
+        "msl_onepass_per_rank"]
+    records[1]["launches_process_serving_path"] = serving["sharded_processes"][
+        "msl_onepass_per_rank"]
+    records[2]["launches_process_serving_path"] = serving["sharded_processes"][
+        "paged_attn_rank0"]
+    release(torch)
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    log(smi)
+    print(smi, flush=True)
     print(json.dumps({"main_path": summary, "card": smi}))
     print(json.dumps({"serving": serving, "card": smi}))
     print(json.dumps({"training": training, "card": smi}))

@@ -46,11 +46,21 @@ throttling, degraded shards, injected route failures and live resharding.
 Its placement is the JAX package's numpy code, unchanged, so every counter
 and pressure comes out equal to the JAX client's.  Over a
 ``ProcessCacheMesh`` every rank runs the same placement on the same batch,
-feeds its own slab and gathers every slab's results.
+feeds its own slab and gathers every slab's results; a rank outside the
+mesh's group (after a shrink) runs the placement too and receives the
+results, so every rank of the world keeps the same host state.
+``mark_degraded`` wipes the owning rank's rows and hands them to every rank
+for the orphan list; ``reshard`` drains through the current group and
+rebuilds on the first D' ranks (``ProcessCacheMesh.resized``).  Either
+every rank calls the client (SPMD), or world rank 0 drives it inside
+``leading()`` and the others replay its calls in ``follow()``: the
+counterpart of the JAX package's single controller over D devices.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 
 import numpy as np
@@ -98,17 +108,18 @@ def shard_table(table, mesh, axis: str = "cache", dummy: bool = False):
     mesh's device: padded with EMPTY sets to ``ndev * s_local`` rows when
     ``ndev`` does not divide S (the padded sets live on the last shard and
     no key reaches them; host reads slice back to ``[:num_sets]``).  On a
-    ``ProcessCacheMesh`` the rank's own ``s_local`` rows of it.
-    ``dummy=True`` appends the conflict engines' dummy row, for engines
-    built with ``in_place=True``."""
+    ``ProcessCacheMesh`` the rank's own ``s_local`` rows of it (none on a
+    rank outside the mesh's group).  ``dummy=True`` appends the conflict
+    engines' dummy row, for engines built with ``in_place=True``."""
     ndev = mesh.shape[axis]
     table = torch.as_tensor(table)
     s = table.shape[0]
     s_local = sets_per_shard(s, ndev)
     if mesh.rank is not None:
-        table = table[mesh.rank * s_local:(mesh.rank + 1) * s_local].to(
-            mesh.device, torch.int32, copy=True)
-        s, ndev = table.shape[0], 1
+        lo = mesh.rank * s_local if mesh.rank >= 0 else 0
+        hi = lo + s_local if mesh.rank >= 0 else 0
+        table = table[lo:hi].to(mesh.device, torch.int32, copy=True)
+        s, ndev = table.shape[0], int(mesh.rank >= 0)
     table = table.to(mesh.device, torch.int32)
     pad = ndev * s_local - s + (1 if dummy else 0)
     if pad:
@@ -122,7 +133,8 @@ def gather_shards(mesh, x: torch.Tensor) -> torch.Tensor:
     """What every shard holds, concatenated in shard order along dim 0 (a
     rank's table rows give the whole (ndev * s_local, A, C) table): ``x``
     itself on a ``CacheMesh``, every rank's ``x`` on a
-    ``ProcessCacheMesh``."""
+    ``ProcessCacheMesh`` (a rank outside its group passes a tensor of the
+    shape a shard passes, and receives the result)."""
     return x if mesh.rank is None else mesh.all_gather(x)
 
 
@@ -419,6 +431,26 @@ def _host_owners(cfg: MSLRUConfig, keys: np.ndarray, s_local: int) -> np.ndarray
     return sid.numpy() // s_local
 
 
+def _replayed(method):
+    """A client call that world rank 0 hands to the other ranks while it
+    leads (``ShardedCacheClient.leading``), by name and arguments, before
+    it runs the call itself; calls it makes inside another such call go
+    with their caller."""
+    name = method.__name__
+
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        if self._leading and not self._in_call:
+            self.mesh.share_object((name, args, kwargs))
+        outer, self._in_call = self._in_call, True
+        try:
+            return method(self, *args, **kwargs)
+        finally:
+            self._in_call = outer
+
+    return call
+
+
 class ShardedCacheClient:
     """Host-side client exposing the sharded engine with the local
     ``MultiStepLRUCache`` access contract, so ``PrefixCache`` serves a
@@ -451,6 +483,14 @@ class ShardedCacheClient:
     The placement is numpy on the host, the JAX package's code line for
     line; one ``access`` makes one host-to-device copy of the packed slabs
     and one device-to-host copy of the results.
+
+    Over a ``ProcessCacheMesh`` every rank of the world holds a client and
+    makes the same calls: each itself (SPMD), or world rank 0 inside
+    ``leading()`` with the others in ``follow()``.  The calls that touch
+    the table or the host state (``access``, ``note_chain``,
+    ``inject_route_failures``, ``mark_degraded``, ``reshard``,
+    ``gathered_table``, ``occupancy``) then run on every rank in the same
+    order, and every rank ends each with the same results and host state.
     """
 
     batch_multiple = 1  # access() repacks internally; any B works
@@ -490,17 +530,58 @@ class ShardedCacheClient:
         self._chain_registry: dict[tuple, int] = {}
         self._touch = 0
         self.last_drain_stream: list[dict] = []   # reshard()'s re-insert batches
+        self._leading = False   # world rank 0 hands its calls to the others
+        self._in_call = False   # inside a replayed call
 
     @property
     def table(self) -> torch.Tensor:
         """The (ndev * s_local, A, C) sharded table (a view); on a
-        ``ProcessCacheMesh`` this rank's (s_local, A, C) rows."""
+        ``ProcessCacheMesh`` this rank's (s_local, A, C) rows (none outside
+        the mesh's group)."""
         return self._padded[:-1]
 
-    def _one_process(self, what: str) -> None:
-        if self.mesh.rank is not None:
-            raise NotImplementedError(f"{what} across processes needs subgroups of "
-                                      "the mesh; it runs on a one-process CacheMesh")
+    def _rows(self) -> torch.Tensor:
+        """This rank's share of a gather: its rows, or on a rank outside
+        the mesh's group a stand-in of a shard's shape."""
+        if self.mesh.rank is not None and self.mesh.rank < 0:
+            return self._padded.new_zeros((self._s_local, *self._padded.shape[1:]))
+        return self.table
+
+    @_replayed
+    def gathered_table(self) -> np.ndarray:
+        """The whole (num_sets, A, C) table as numpy, on every rank."""
+        whole = gather_shards(self.mesh, self._rows())
+        return whole[: self.cfg.num_sets].cpu().numpy().copy()
+
+    @contextlib.contextmanager
+    def leading(self):
+        """World rank 0 drives the cache of a ``ProcessCacheMesh`` inside the
+        block: each replayed call goes first to the other ranks, which run
+        ``follow()``; on leaving, they are told to stop."""
+        if self.mesh.rank is None:
+            raise ValueError("leading() drives the ranks of a ProcessCacheMesh")
+        import torch.distributed as dist
+
+        if dist.get_rank() != 0:
+            raise ValueError("world rank 0 leads; the other ranks follow()")
+        self._leading = True
+        try:
+            yield self
+        finally:
+            self._leading = False
+            self.mesh.share_object((None, (), {}))
+
+    def follow(self) -> int:
+        """On a rank other than world rank 0: run each call world rank 0
+        makes inside ``leading()``, in order, until it stops.  Returns the
+        number of calls."""
+        calls = 0
+        while True:
+            name, args, kwargs = self.mesh.share_object()
+            if name is None:
+                return calls
+            getattr(self, name)(*args, **kwargs)
+            calls += 1
 
     @property
     def device(self) -> torch.device:
@@ -518,6 +599,7 @@ class ShardedCacheClient:
         # full-cap engine for control-plane sweeps (drain); built lazily
         self._full_run = self._run if self.cap == "full" else None
 
+    @_replayed
     def access(self, keys, vals=None, ops=None, chain_ids=None, costs=None):
         keys = np.asarray(keys, np.int32).reshape(-1)
         n = keys.shape[0]
@@ -623,15 +705,19 @@ class ShardedCacheClient:
         if cst is not None:
             cols.append(cst[:, None])
         x = np.concatenate(cols, axis=1)
-        if self.mesh.rank is not None:
-            x = x[self.mesh.rank * q:(self.mesh.rank + 1) * q]
-        x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-        _, hit, val, served, ev_val, ev_ok = self._run(
-            self._padded, x[:, :1], x[:, 1:1 + v], x[:, 1 + v], x[:, 2 + v],
-            order=x[:, 3 + v], costs=None if cst is None else x[:, 4 + v])
-        ve = val.shape[1]
-        out = torch.cat([hit.to(torch.int32)[:, None], served.to(torch.int32)[:, None],
-                         ev_ok.to(torch.int32)[:, None], val, ev_val], dim=1)
+        ve = max(v, 1)
+        if self.mesh.rank is not None and self.mesh.rank < 0:
+            # outside the mesh's group: no slab, the group's results
+            out = torch.zeros((q, 3 + 2 * ve), dtype=torch.int32)
+        else:
+            if self.mesh.rank is not None:
+                x = x[self.mesh.rank * q:(self.mesh.rank + 1) * q]
+            x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+            _, hit, val, served, ev_val, ev_ok = self._run(
+                self._padded, x[:, :1], x[:, 1:1 + v], x[:, 1 + v], x[:, 2 + v],
+                order=x[:, 3 + v], costs=None if cst is None else x[:, 4 + v])
+            out = torch.cat([hit.to(torch.int32)[:, None], served.to(torch.int32)[:, None],
+                             ev_ok.to(torch.int32)[:, None], val, ev_val], dim=1)
         out = gather_shards(self.mesh, out).cpu().numpy()
         hit_h, served_h, ev_ok_h = out[:, 0] != 0, out[:, 1] != 0, out[:, 2] != 0
         val_h, ev_val_h = out[:, 3:3 + ve], out[:, 3 + ve:]
@@ -898,6 +984,7 @@ class ShardedCacheClient:
 
     # -- elasticity / fault tolerance -------------------------------------
 
+    @_replayed
     def note_chain(self, chain) -> None:
         """Register a chain (chunk hashes) as live; ``reshard`` drains the
         registry in last-touch (LRU-first) order."""
@@ -907,6 +994,7 @@ class ShardedCacheClient:
         self._touch += 1
         self._chain_registry[key] = self._touch
 
+    @_replayed
     def inject_route_failures(self, calls: int = 1, frac: float = 0.5,
                               seed: int = 0) -> None:
         """For the next ``calls`` access() calls each group sheds with
@@ -914,11 +1002,13 @@ class ShardedCacheClient:
         and degraded checks."""
         self._transient_fail = [int(calls), float(frac), np.random.default_rng(seed)]
 
+    @_replayed
     def mark_degraded(self, shard: int) -> list[int]:
         """Treat ``shard`` as lost: wipe its sets and shed every later group
         homing a chunk there (until a ``reshard``).  Returns the orphaned
-        pages (value plane 0 of the shard's entries, each once)."""
-        self._one_process("mark_degraded")
+        pages (value plane 0 of the shard's entries, each once).  On a
+        ``ProcessCacheMesh`` the owning rank wipes its rows after handing
+        them to every rank of the world, which all return the same list."""
         if not 0 <= shard < self.ndev:
             raise ValueError(f"shard {shard} outside [0, {self.ndev})")
         if shard in self.degraded:
@@ -929,7 +1019,12 @@ class ShardedCacheClient:
         kp = self.cfg.key_planes
         lo = shard * self._s_local
         hi = min((shard + 1) * self._s_local, self.cfg.num_sets)
-        seg = self._padded[lo:hi].cpu().numpy()
+        if self.mesh.rank is not None:
+            # the owner's rows (a padded tail is EMPTY), wiped there below
+            seg = self.mesh.broadcast(self._rows(), shard).cpu().numpy()
+            lo, hi = 0, (self._s_local if self.mesh.rank == shard else 0)
+        else:
+            seg = self._padded[lo:hi].cpu().numpy()
         live = seg[:, :, 0] != EMPTY_KEY
         # each page once, first seen first: a caller releases every orphan,
         # and a split-placed chain's fragments may list one page twice
@@ -963,22 +1058,31 @@ class ShardedCacheClient:
             self._run, self.cap = run, cap
             self.degraded, self._transient_fail = degraded, tf
 
+    @_replayed
     def reshard(self, new_ndev: int, drain_batch: int = 256) -> list[int]:
         """Live D -> D' reshard: drain every registered chain with batched
         CHAIN_GET sweeps, rebuild a cold table on ``new_ndev`` shards, and
         re-insert the surviving prefixes with CHAIN_PUT in last-touch
         order.  The rebuilt table is bit-equal to a cold sequential engine
         fed ``last_drain_stream``.  Returns the orphaned pages of entries no
-        registered chain reaches (each once)."""
+        registered chain reaches (each once).
+
+        On a ``ProcessCacheMesh`` the live map comes from the table
+        gathered over the current group, the drain runs through it, and
+        the table is rebuilt on the first ``new_ndev`` ranks of the world
+        (grown or shrunk; past the world's size ``ValueError``)."""
         from repro_torch.launch.mesh import make_cache_mesh
 
-        self._one_process("reshard")
         if new_ndev < 1:
             raise ValueError(f"new_ndev must be >= 1, got {new_ndev}")
+        if self.mesh.rank is not None and new_ndev > self.mesh.world_size:
+            raise ValueError(f"reshard to {new_ndev} shards on a world of "
+                             f"{self.mesh.world_size} ranks: a running cache cannot "
+                             "spawn processes")
         if self.cfg.value_planes < 1:
             raise ValueError("reshard drains (key, page) pairs; needs a value plane")
         kp = self.cfg.key_planes
-        tbl = self.table[: self.cfg.num_sets].cpu().numpy()
+        tbl = self.gathered_table()
         live = tbl[:, :, 0] != EMPTY_KEY
         live_map = {int(k): vv.astype(np.int32)
                     for k, vv in zip(tbl[live][:, 0], tbl[live][:, kp:])}
@@ -1017,7 +1121,8 @@ class ShardedCacheClient:
         orphans = list(dict.fromkeys(
             int(live_map[k][0]) for k in live_map if k not in reached))
         self.degraded.clear()
-        self._bind_mesh(make_cache_mesh(new_ndev, device=self.device))
+        self._bind_mesh(make_cache_mesh(new_ndev, device=self.device) if self.mesh.rank is None
+                        else self.mesh.resized(new_ndev))
         self._padded = shard_table(init_table(self.cfg, self.device), self.mesh,
                                    self._axis, dummy=True)
         self.last_drain_stream = []
@@ -1056,6 +1161,10 @@ class ShardedCacheClient:
     @property
     def occupancy(self) -> float:
         """Share of live ways over the real sets (float64, as numpy's mean)."""
+        return self._occupancy()
+
+    @_replayed
+    def _occupancy(self) -> float:
         live = (self.table[: self.cfg.num_sets, :, 0] != EMPTY_KEY).sum()
         return int(gather_shards(self.mesh, live[None]).sum()) / (self.cfg.num_sets
                                                                  * self.cfg.assoc)

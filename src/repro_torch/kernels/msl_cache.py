@@ -189,7 +189,17 @@ def chain_resolve_plain(rows, qkeys, qvals, ops, sids, lrank, served,
     pos = torch.full((b,), -1, dtype=torch.int32, device=rows.device)
     val = torch.zeros((b, cfg.value_planes), dtype=torch.int32, device=rows.device)
     ev = torch.zeros((b, cfg.planes), dtype=torch.int32, device=rows.device)
-    n_rounds = int(lrank.max()) + 1 if b else 0
+    # a chain with no served query hands its head's row on untouched: only
+    # the chains with one take rounds (the invalid rows of a routed batch,
+    # one long chain on the dummy row, take none)
+    n_rounds = 0
+    if b:
+        head = torch.arange(b, device=rows.device) - lrank.to(torch.int64)
+        chain = torch.cumsum((lrank == 0).to(torch.int64), 0) - 1
+        busy = torch.zeros((int(chain[-1]) + 1,), dtype=torch.int64, device=rows.device)
+        busy = busy.index_add_(0, chain, served.to(torch.int64))[chain] > 0
+        after = torch.where(busy[:, None, None], rows, rows[head])
+        n_rounds = int(lrank[busy].max()) + 1 if bool(busy.any()) else 0
     for r in range(n_rounds):
         new_rows, h, p, v, e = msl_access_plain(cur, qkeys, qvals, ops,
                                                 chain_live, costs, cfg=cfg)

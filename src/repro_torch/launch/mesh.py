@@ -21,9 +21,14 @@ shards as D logical shards in one process on one device (the counterpart of
 the JAX package's fake-device mesh); ``ProcessCacheMesh`` holds one shard per
 rank of a process group.  Both exchange send buffers with ``all_to_all``:
 the transpose of the stacked buffers in one process, ``all_to_all_single``
-across processes.  The backend of a process group is the caller's choice:
-``nccl`` passes device tensors and needs one card per rank (NCCL does not put
-two ranks on one card); ``gloo`` stages every exchange through host buffers
+across processes.  ``ProcessCacheMesh(n)`` is the cache over the first
+``n`` ranks of the default group (a subgroup made once per size): a rank
+past ``n`` holds no shard, takes part in no exchange, and receives what
+the group gathers from its rank 0, so that every rank of the world keeps
+the same host state.  A resized cache is another such mesh.  The backend
+of a process group is the caller's choice: ``nccl`` passes device tensors
+and needs one card per rank (NCCL does not put two ranks on one card);
+``gloo`` stages every exchange through host buffers
 (pinned when CUDA is present), which lets D ranks share one card, and times
 that staging apart from the exchange.  ``run_on_ranks`` spawns the ranks.
 
@@ -198,11 +203,15 @@ def make_cache_mesh(n_devices: int | None = None, device="cuda") -> CacheMesh:
 class _HostStage:
     """Host buffers for a gloo collective of device tensors, one per
     (role, shape, dtype), pinned when CUDA is present; the copies in and out
-    are timed into ``seconds``."""
+    are timed into ``seconds``, the collectives into ``wire_seconds``, and
+    ``exchanges`` counts the ``all_to_all`` calls.  A resized cache mesh
+    keeps its predecessor's stage, so the counts run on across a reshard."""
 
     def __init__(self):
         self._buffers: dict = {}
         self.seconds = 0.0
+        self.wire_seconds = 0.0
+        self.exchanges = 0
 
     def buffer(self, role, shape, dtype) -> torch.Tensor:
         key = (role, tuple(shape), dtype)
@@ -234,30 +243,47 @@ def all_reduce(t: torch.Tensor, op, group=None) -> torch.Tensor:
 
 
 class ProcessCacheMesh:
-    """The ``"cache"`` axis over a process group: rank ``r`` holds shard
-    ``r``, its ``s_local`` table rows and its slab of each batch.
+    """The ``"cache"`` axis over a process group: group rank ``r`` holds
+    shard ``r``, its ``s_local`` table rows and its slab of each batch.
 
     ``shape["cache"]`` is the group's size and ``all_to_all`` the exchange
     of this rank's send stack, as on ``CacheMesh``.  Under gloo the
     exchange goes through host buffers (``stage_seconds`` accumulates the
     copies to and from them, ``wire_seconds`` the collective itself,
-    ``exchanges`` counts the calls)."""
+    ``exchanges`` counts the calls).
 
-    def __init__(self, group=None, device="cuda"):
+    ``ProcessCacheMesh(n)`` is the cache over the first ``n`` ranks of the
+    default group (all of them when ``n`` is None).  Every rank of the
+    world makes it, with the same ``n``: the subgroup of the first ``n``
+    ranks is made once per size (``dist.new_group`` is collective over the
+    world).  ``rank`` is -1 on the ranks past ``n``: they hold no rows and
+    make no exchange, and ``all_gather`` hands them what the group gathered
+    (``outside`` lists them).  Every rank of the world then calls
+    ``all_gather``, ``broadcast`` and ``share_object`` in the same order.
+    Raises ``ValueError`` past the world's size: a running cache cannot
+    spawn processes."""
+
+    def __init__(self, n: int | None = None, device="cuda", *,
+                 stage: _HostStage | None = None):
         import torch.distributed as dist
 
         from repro_torch.core import resolve_device
 
-        self.group = group if group is not None else dist.group.WORLD
+        self.world_size = dist.get_world_size()
+        n = self.world_size if n is None else int(n)
+        if not 1 <= n <= self.world_size:
+            raise ValueError(f"a cache of {n} shards on a world of {self.world_size} ranks")
+        self.group = _first_ranks(n)
         self.rank = dist.get_rank(self.group)
-        self.shape = {"cache": dist.get_world_size(self.group)}
-        self.backend = dist.get_backend(self.group)
+        self.shape = {"cache": n}
+        # a subgroup inherits the default group's backend
+        self.backend = dist.get_backend(self.group if self.rank >= 0 else None)
         self.device = resolve_device(device)
         if self.backend == "nccl" and self.device.type != "cuda":
             raise ValueError("an nccl group exchanges device tensors: pass a CUDA device")
-        self._stage = _HostStage()
-        self.wire_seconds = 0.0
-        self.exchanges = 0
+        # the world ranks past the first n
+        self.outside = range(n, self.world_size)
+        self._stage = stage if stage is not None else _HostStage()
 
     @property
     def ndev(self) -> int:
@@ -266,6 +292,19 @@ class ProcessCacheMesh:
     @property
     def stage_seconds(self) -> float:
         return self._stage.seconds
+
+    @property
+    def wire_seconds(self) -> float:
+        return self._stage.wire_seconds
+
+    @property
+    def exchanges(self) -> int:
+        return self._stage.exchanges
+
+    def resized(self, n: int) -> "ProcessCacheMesh":
+        """The cache over the first ``n`` ranks of the world on this mesh's
+        device, its transport counts carried on."""
+        return ProcessCacheMesh(n, self.device, stage=self._stage)
 
     def all_to_all(self, send: torch.Tensor) -> torch.Tensor:
         """``send`` (D, k, planes): ``send[d]`` goes to rank ``d``.  Returns
@@ -278,38 +317,83 @@ class ProcessCacheMesh:
             raise ValueError(f"send buffers {tuple(send.shape)} on a mesh of "
                              f"{self.ndev} ranks")
         send = send.contiguous()
-        self.exchanges += 1
+        st = self._stage
+        st.exchanges += 1
         if self.backend == "nccl":
             recv = torch.empty_like(send)
             t = time.perf_counter()
             dist.all_to_all_single(recv, send, group=self.group)
-            self.wire_seconds += time.perf_counter() - t
+            st.wire_seconds += time.perf_counter() - t
             return recv
-        st = self._stage
         h_send = st.copy(st.buffer("send", send.shape, send.dtype), send)
         h_recv = st.buffer("recv", send.shape, send.dtype)
         t = time.perf_counter()
         dist.all_to_all_single(h_recv, h_send, group=self.group)
-        self.wire_seconds += time.perf_counter() - t
+        st.wire_seconds += time.perf_counter() - t
         return st.copy(torch.empty_like(send), h_recv)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``x`` (the same shape on each), concatenated along
-        dim 0 in rank order, on this rank's device."""
+        """Every shard's ``x`` (the same shape on each), concatenated along
+        dim 0 in rank order, on this rank's device.  A rank outside the
+        group passes a tensor of that shape and receives the result from
+        group rank 0."""
         import torch.distributed as dist
 
         x = x.contiguous()
-        if self.backend == "nccl":
-            out = [torch.empty_like(x) for _ in range(self.ndev)]
-            dist.all_gather(out, x, group=self.group)
-            return torch.cat(out)
-        out = [torch.empty_like(x, device="cpu") for _ in range(self.ndev)]
-        dist.all_gather(out, x.cpu(), group=self.group)
-        return torch.cat(out).to(x.device)
+        if self.rank < 0:
+            out = x.new_empty((self.ndev * x.shape[0], *x.shape[1:]))
+        elif self.backend == "nccl":
+            parts = [torch.empty_like(x) for _ in range(self.ndev)]
+            dist.all_gather(parts, x, group=self.group)
+            out = torch.cat(parts)
+        else:
+            parts = [torch.empty_like(x, device="cpu") for _ in range(self.ndev)]
+            dist.all_gather(parts, x.cpu(), group=self.group)
+            out = torch.cat(parts).to(x.device)
+        return self.broadcast(out, 0) if self.outside else out
+
+    def broadcast(self, x: torch.Tensor, shard: int) -> torch.Tensor:
+        """``x`` of shard ``shard`` (world rank ``shard``) on every rank of
+        the world; the others pass a tensor of its shape.  Device tensors
+        under NCCL, host tensors under gloo; returned on ``x``'s device."""
+        import torch.distributed as dist
+
+        buf = x.to(self.device if self.backend == "nccl" else "cpu", copy=True)
+        dist.broadcast(buf, shard)
+        return buf.to(x.device)
+
+    def share_object(self, obj=None):
+        """``obj`` of world rank 0 (pickled), returned on every rank of the
+        world: how a driving rank hands its calls to the others."""
+        import torch.distributed as dist
+
+        box = [obj]
+        dist.broadcast_object_list(box, 0)
+        return box[0]
 
     def __repr__(self) -> str:
         return (f"ProcessCacheMesh(cache={self.ndev}, rank={self.rank}, "
                 f"backend={self.backend}, device={self.device})")
+
+
+# the default group's subgroups of its first n ranks, made once per size:
+# ``dist.new_group`` is collective over the world, so every rank makes the
+# same ones in the same order
+_FIRST_RANKS: dict = {"world": None, "groups": {}}
+
+
+def _first_ranks(n: int):
+    """The group of the default group's first ``n`` ranks (the default
+    group itself when ``n`` is its size)."""
+    import torch.distributed as dist
+
+    if _FIRST_RANKS["world"] is not dist.group.WORLD:
+        _FIRST_RANKS["world"], _FIRST_RANKS["groups"] = dist.group.WORLD, {}
+    groups = _FIRST_RANKS["groups"]
+    if n not in groups:
+        groups[n] = (dist.group.WORLD if n == dist.get_world_size()
+                     else dist.new_group(ranks=list(range(n))))
+    return groups[n]
 
 
 class HostStagedCollectives:

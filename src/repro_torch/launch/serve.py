@@ -37,6 +37,17 @@ value_planes=1)`` as there.  ``--cap`` bounds its per-peer buffers (0:
 ``--throttle-threshold`` turns on the engine's owner-aware admission
 throttling.  ``--chaos-seed`` serves under ``FaultPlan.seeded(seed,
 ticks=--requests, ndev=D, n_events=--chaos-events)`` (``fault_plan(args)``).
+
+``--processes`` (with ``--sharded D``) puts the D shards in D processes
+instead, one shard each, as the JAX launcher puts them on D devices:
+``run_on_ranks`` spawns D ranks over gloo (``--cache-backend nccl``: one
+card per rank), rank 0 builds the engine on ``--device`` and its client on
+a ``ProcessCacheMesh`` of all D ranks, and serves inside the client's
+``leading()``; every other rank holds the same client and replays rank
+0's calls (``ShardedCacheClient.follow``).  A resize to D' < D leaves
+ranks D'..D-1 outside the cache's group, still replaying; a later grow
+takes them back.  The report adds the host-staging and gloo ms per
+exchange.
 """
 
 from __future__ import annotations
@@ -52,7 +63,7 @@ from repro_torch.core import MSLRUConfig, resolve_device
 from repro_torch.core.sharded import ShardedCacheClient
 from repro_torch.data.ycsb import zipfian
 from repro_torch.launch.elastic import FaultPlan
-from repro_torch.launch.mesh import make_cache_mesh
+from repro_torch.launch.mesh import ProcessCacheMesh, make_cache_mesh, run_on_ranks
 from repro_torch.models.model import make_model
 from repro_torch.serving.engine import Request, ServeEngine
 from repro_torch.serving.kv_cache import PagedKVPool
@@ -112,11 +123,27 @@ def parser() -> argparse.ArgumentParser:
                          "faults apply at tick boundaries")
     ap.add_argument("--chaos-events", type=int, default=3,
                     help="events in the seeded FaultPlan")
+    ap.add_argument("--processes", action="store_true",
+                    help="the --sharded D shards in D spawned processes, one "
+                         "each; rank 0 serves, the others replay its cache calls")
+    ap.add_argument("--cache-backend", choices=["gloo", "nccl"], default="gloo",
+                    help="the process group of --processes: gloo through host "
+                         "memory (ranks may share a card), nccl (one card per rank)")
     return ap
 
 
-def build(args) -> ServeEngine:
-    """The engine the arguments describe, weights made on ``args.device``."""
+def cache_client(args, mesh) -> ShardedCacheClient:
+    """The sharded prefix-cache backend of ``--sharded`` on ``mesh``."""
+    return ShardedCacheClient(MSLRUConfig(num_sets=256, m=2, p=4, value_planes=1), mesh,
+                              cap=args.cap if args.cap > 0 else "full",
+                              placement=args.placement)
+
+
+def build(args, mesh=None, cfg=None) -> ServeEngine:
+    """The engine the arguments describe, weights made on ``args.device``;
+    with ``mesh`` (a ``ProcessCacheMesh``) the sharded backend on it in
+    place of ``--sharded`` logical shards on the device; with ``cfg`` that
+    architecture in place of ``--arch``'s (its depth cut, say)."""
     if args.kv_mode == "paged" and args.no_prefix_cache:
         raise ValueError("--kv-mode paged requires the prefix cache (the pool "
                          "is the resident prefix store)")
@@ -125,9 +152,12 @@ def build(args) -> ServeEngine:
                          "from the sharded backend's load mirror)")
     if args.chaos_seed >= 0 and not args.sharded:
         raise ValueError("--chaos-seed needs --sharded (the faults' targets)")
+    if args.processes and mesh is None:
+        raise ValueError("--processes builds on each rank with its ProcessCacheMesh "
+                         "(serve_rank)")
     fault_plan(args)    # refuses a plan the mesh cannot apply
     device = resolve_device(args.device)
-    model = make_model(get_config(args.arch, smoke=args.smoke))
+    model = make_model(cfg or get_config(args.arch, smoke=args.smoke))
     params = model.init(torch.Generator(device=device).manual_seed(args.seed))
     cfg = model.cfg
     pool = pc = None
@@ -136,10 +166,8 @@ def build(args) -> ServeEngine:
                            device=device)
         backend = None
         if args.sharded:
-            backend = ShardedCacheClient(
-                MSLRUConfig(num_sets=256, m=2, p=4, value_planes=1),
-                make_cache_mesh(args.sharded, device=device),
-                cap=args.cap if args.cap > 0 else "full", placement=args.placement)
+            backend = cache_client(args, mesh if mesh is not None
+                                   else make_cache_mesh(args.sharded, device=device))
         pc = PrefixCache(num_sets=256, m=2, p=4, chunk_tokens=args.chunk_tokens,
                          device=device, backend=backend)
     return ServeEngine(model, params, slots=4, max_len=256, prefix_cache=pc,
@@ -197,12 +225,10 @@ def make_requests(cfg, args) -> list[Request]:
     return reqs
 
 
-def main(argv=None):
-    args = parser().parse_args(argv)
-    eng = build(args)
-    plan = fault_plan(args)
-    if plan is not None:
-        print(f"[serve] fault plan: {plan.events}")
+def serve(eng, args, plan) -> tuple[list[str], dict]:
+    """Serve the launcher's requests through ``eng`` under ``plan``: the
+    report's lines and its record (ticks, fault log, finish order, prefill
+    split, stats)."""
     t0 = time.time()
     for req in make_requests(eng.cfg, args):
         eng.submit(req)
@@ -210,38 +236,97 @@ def main(argv=None):
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
     dt = time.time() - t0
+    lines = []
     if plan is not None:
-        print(f"[serve] faults applied: {eng.fault_log}, fallbacks={eng.fallbacks}")
+        lines.append(f"[serve] faults applied: {eng.fault_log}, fallbacks={eng.fallbacks}")
 
     skipped = sum(r.prefill_skipped for r in eng.finished)
     computed = sum(r.prefill_computed for r in eng.finished)
-    print(f"[serve] {len(eng.finished)} requests in {ticks} ticks, {dt:.1f}s "
-          f"on {eng.device}")
-    print(f"[serve] prefill tokens: computed={computed} skipped={skipped} "
-          f"({skipped / (skipped + computed):.1%} saved)")
+    lines.append(f"[serve] {len(eng.finished)} requests in {ticks} ticks, {dt:.1f}s "
+                 f"on {eng.device}")
+    lines.append(f"[serve] prefill tokens: computed={computed} skipped={skipped} "
+                 f"({skipped / (skipped + computed):.1%} saved)")
     st = eng.stats()
-    print(f"[serve] decode: {st['decode_launches']} launches, "
-          f"{st['decode_tokens']} tokens, "
-          f"{st['launches_per_token']:.3f} rows/token, host_syncs="
-          f"{st['host_syncs']}, admit wait p50/p99 "
-          f"{st['service_ticks_p50']:.0f}/{st['service_ticks_p99']:.0f} ticks")
+    lines.append(f"[serve] decode: {st['decode_launches']} launches, "
+                 f"{st['decode_tokens']} tokens, "
+                 f"{st['launches_per_token']:.3f} rows/token, host_syncs="
+                 f"{st['host_syncs']}, admit wait p50/p99 "
+                 f"{st['service_ticks_p50']:.0f}/{st['service_ticks_p99']:.0f} ticks")
     if args.decode_mode == "megastep":
-        print(f"[serve] megastep: {st['megastep_windows']} windows "
-              f"(mean {st['mean_window']:.1f} ticks, cap {st['max_window']}), "
-              f"host_syncs={st['host_syncs']} ({st['host_syncs_per_token']:.3f}/token), "
-              f"drain rows/token={st['drain_launches_per_token']:.3f}")
-    print(f"[serve] kv: mode={st['kv_mode']} gather_calls={st['gather_calls']} "
-          f"resident_kv_peak={st['resident_kv_tokens_peak']} tok "
-          f"({st['resident_kv_bytes_peak'] / 2**20:.1f} MiB)")
+        lines.append(f"[serve] megastep: {st['megastep_windows']} windows "
+                     f"(mean {st['mean_window']:.1f} ticks, cap {st['max_window']}), "
+                     f"host_syncs={st['host_syncs']} ({st['host_syncs_per_token']:.3f}/token), "
+                     f"drain rows/token={st['drain_launches_per_token']:.3f}")
+    lines.append(f"[serve] kv: mode={st['kv_mode']} gather_calls={st['gather_calls']} "
+                 f"resident_kv_peak={st['resident_kv_tokens_peak']} tok "
+                 f"({st['resident_kv_bytes_peak'] / 2**20:.1f} MiB)")
     if args.sharded:
-        print(f"[serve] sharded: D={args.sharded} placement="
-              f"{eng.prefix_cache.cache.placement} split_chains={st['split_chains']} "
-              f"partial_sheds={st['partial_sheds']} partial_served={st['partial_served']} "
-              f"slab_occupancy_peak={st['slab_occupancy_peak']:.2f} "
-              f"throttled={st['throttled_admissions']} "
-              f"fallback_rate={st['fallback_rate']:.3f}")
+        lines.append(f"[serve] sharded: D={args.sharded} placement="
+                     f"{eng.prefix_cache.cache.placement} split_chains={st['split_chains']} "
+                     f"partial_sheds={st['partial_sheds']} "
+                     f"partial_served={st['partial_served']} "
+                     f"slab_occupancy_peak={st['slab_occupancy_peak']:.2f} "
+                     f"throttled={st['throttled_admissions']} "
+                     f"fallback_rate={st['fallback_rate']:.3f}")
+    pc = None
     if eng.prefix_cache is not None:
-        print(f"[serve] prefix cache: {eng.prefix_cache.stats()}")
+        pc = eng.prefix_cache.stats()
+        lines.append(f"[serve] prefix cache: {pc}")
+    record = {"ticks": ticks, "fault_log": list(eng.fault_log),
+              "order": [r.rid for r in eng.finished],
+              "prefill": [(r.rid, r.prefill_skipped, r.prefill_computed)
+                          for r in eng.finished],
+              "stats": st, "prefix_cache": pc}
+    return lines, record
+
+
+def serve_rank(args) -> dict:
+    """One rank of ``--processes`` (spawned by ``run_on_ranks``): rank 0
+    builds the engine and serves, leading the cache; the others follow.
+    Rank 0 returns the report and its record; every rank its transport
+    counts and its client calls."""
+    import torch.distributed as dist
+
+    mesh = ProcessCacheMesh(args.sharded, args.device)
+    out = {}
+    if dist.get_rank() == 0:
+        eng = build(args, mesh=mesh)
+        client = eng.prefix_cache.cache
+        with client.leading():
+            out["lines"], out["record"] = serve(eng, args, fault_plan(args))
+    else:
+        client = cache_client(args, mesh)
+        out["calls"] = client.follow()
+    out.update(stage_s=client.mesh.stage_seconds, wire_s=client.mesh.wire_seconds,
+               exchanges=client.mesh.exchanges, ndev=client.ndev, rank=client.mesh.rank)
+    return out
+
+
+def main(argv=None) -> dict:
+    """Run the launcher; prints the report and returns its record."""
+    args = parser().parse_args(argv)
+    plan = fault_plan(args)
+    if args.processes and not args.sharded:
+        raise ValueError("--processes needs --sharded (one process per shard)")
+    if plan is not None:
+        print(f"[serve] fault plan: {plan.events}")
+    if args.processes:
+        ranks = run_on_ranks(serve_rank, args.sharded, args.cache_backend, args.device,
+                             args=(args,))
+        lines, record = ranks[0]["lines"], ranks[0]["record"]
+        ex = sum(r["exchanges"] for r in ranks)
+        lines.append(f"[serve] processes: {args.sharded} ranks ({args.cache_backend}), "
+                     f"{ex} exchanges, "
+                     f"{1e3 * sum(r['stage_s'] for r in ranks) / max(1, ex):.4f} ms host "
+                     f"staging + {1e3 * sum(r['wire_s'] for r in ranks) / max(1, ex):.4f} "
+                     f"ms {args.cache_backend} per exchange; cache on "
+                     f"{ranks[0]['ndev']} ranks at the end")
+        record["ranks"] = ranks
+    else:
+        lines, record = serve(build(args), args, plan)
+    for line in lines:
+        print(line)
+    return record
 
 
 if __name__ == "__main__":

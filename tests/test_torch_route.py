@@ -14,7 +14,8 @@ an ``all_to_all`` there and back (and the chain probe's pair).
   (``run_on_ranks``), the engine, the stream runner and the client (every
   rank placing the same batch, feeding its slab, gathering the results)
   give the one-process engine's records, on every rank; ``mark_degraded``
-  and ``reshard`` raise there.
+  and ``reshard`` work there as on one process, and a reshard past the
+  world's size is refused.
 * A JAX child with D = 2 fake devices runs the bounded engine (per-peer
   depths 3 and 16 against slabs of 32: which rows shed, and that the
   overflow column clobbers no admitted row) and the client; the D = 2
@@ -36,7 +37,8 @@ import torch_sharded_cases as cases
 from repro_torch.core import sharded
 from repro_torch.launch.mesh import make_cache_mesh, run_on_ranks
 from test_torch_sharded import ENGINE_CASES, Q, _engine_batches
-from torch_rank_fns import fail_on_rank, route_rank, run_client, run_engine, run_stream
+from torch_rank_fns import (fail_on_rank, fault_calls, route_rank, run_client, run_engine,
+                            run_stream)
 
 ROOT = Path(__file__).resolve().parent.parent
 SEED = 5
@@ -109,7 +111,8 @@ def _one_process(ndev, engine_cases, stream_cases, client_cases):
     mesh = make_cache_mesh(ndev, "cpu")
     return {"engine": [run_engine(mesh, *c) for c in engine_cases],
             "stream": [run_stream(mesh, *c) for c in stream_cases],
-            "client": [run_client(mesh, *c) for c in client_cases]}
+            "client": [run_client(mesh, *c) for c in client_cases],
+            "faults": fault_calls(mesh)}
 
 
 class _JaxChild:
@@ -231,14 +234,18 @@ def test_process_stream_and_client_match_one_process(process_runs, ndev):
 
 @pytest.mark.parametrize("ndev", [2, 4])
 def test_every_rank_holds_the_same_record_and_refuses_subgroup_work(process_runs, ndev):
-    """Every rank gathers the same records; a process mesh raises for
-    ``mark_degraded`` and ``reshard``; every call exchanged."""
-    ranks, _ = process_runs(ndev)
+    """Every rank gathers the same records; ``mark_degraded`` and a
+    reshard to one rank (a subgroup of the world) give every rank the
+    one-process client's orphans, table and state; a reshard past the
+    world's size is refused with a ``ValueError``; every call exchanged."""
+    ranks, want = process_runs(ndev)
     for r, rec in enumerate(ranks):
         assert rec["rank"] == r and rec["exchanges"] > 0
-        assert len(rec["refused"]) == 2 and all("subgroups" in m for m in rec["refused"])
-        for key in ("engine", "stream", "client"):
+        assert "cannot spawn processes" in rec["refused"]
+        for key in ("engine", "stream", "client", "faults"):
             cases.assert_records_equal(rec[key], ranks[0][key], f"rank {r} {key}")
+    cases.assert_records_equal(ranks[0]["faults"], want["faults"])
+    assert ranks[0]["faults"]["degrade"] and ranks[0]["faults"]["state"]["ndev"] == 1
 
 
 def test_process_mesh_matches_jax_d2(process_runs, jax_child):
@@ -269,5 +276,5 @@ def test_process_mesh_d8_matches_one_process():
     engine, stream, client = _process_cases(8)
     ranks = run_on_ranks(route_rank, 8, "gloo", "cpu", args=(engine, stream, client))
     want = _one_process(8, engine, stream, client)
-    for key in ("engine", "stream", "client"):
+    for key in ("engine", "stream", "client", "faults"):
         cases.assert_records_equal(ranks[0][key], want[key], key)

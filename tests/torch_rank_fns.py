@@ -10,6 +10,8 @@ its one-process reference with the same code.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -69,23 +71,36 @@ def run_stream(mesh, cfg_kw, cap, batch, engine, stream) -> dict:
 def run_client(mesh, cap, placement, steps) -> dict:
     """``ShardedCacheClient`` through ``steps`` (``cases.drive_client``)."""
     cl = ShardedCacheClient(MSLRUConfig(**cases.CFG), mesh, cap=cap, placement=placement)
-    return cases.drive_client(cl, steps, lambda c: _gathered(c.mesh, c.table))
+    return cases.drive_client(cl, steps, lambda c: c.gathered_table())
+
+
+def fault_calls(mesh) -> dict:
+    """A client on ``mesh`` serves one chain tick of ``cases.client_steps``,
+    then loses shard 0 and reshards to one shard: the orphans of each, the
+    rebuilt table and the client's state."""
+    cl = ShardedCacheClient(MSLRUConfig(**cases.CFG), mesh)
+    _, chains, staged = next(s for s in cases.client_steps(0, mesh.ndev) if s[0] == "chains")
+    keys, vals, ops, cids = cases.chain_batch(chains, staged)
+    cl.access(keys, vals, ops=ops, chain_ids=cids)
+    for c in chains:
+        cl.note_chain(c)
+    return {"degrade": cl.mark_degraded(0), "reshard": cl.reshard(1),
+            "table": cl.gathered_table(), "state": cases.client_state(cl)}
 
 
 def route_rank(engine_cases, stream_cases, client_cases) -> dict:
-    """One rank of the process mesh: every case, what a process mesh
-    refuses, and the mesh's exchange count."""
+    """One rank of the process mesh: every case, ``fault_calls``, a
+    reshard past the world's size (refused), and the mesh's exchange
+    count."""
     mesh = ProcessCacheMesh(None, "cpu")
     rec = {"engine": [run_engine(mesh, *c) for c in engine_cases],
            "stream": [run_stream(mesh, *c) for c in stream_cases],
-           "client": [run_client(mesh, *c) for c in client_cases]}
-    cl = ShardedCacheClient(MSLRUConfig(**cases.CFG), mesh)
-    rec["refused"] = []
-    for call in (lambda: cl.mark_degraded(0), lambda: cl.reshard(1)):
-        try:
-            call()
-        except NotImplementedError as e:
-            rec["refused"].append(str(e))
+           "client": [run_client(mesh, *c) for c in client_cases],
+           "faults": fault_calls(mesh)}
+    try:
+        ShardedCacheClient(MSLRUConfig(**cases.CFG), mesh).reshard(mesh.world_size + 1)
+    except ValueError as e:
+        rec["refused"] = str(e)
     rec["exchanges"] = mesh.exchanges
     rec["rank"] = mesh.rank
     return rec
@@ -493,3 +508,83 @@ def sharded_step_rank(cases, one_device_dir=None, sharded_dir=None) -> dict:
     if one_device_dir is not None:
         out["ckpt"] = checkpoint_rank(one_device_dir, sharded_dir)
     return out
+
+
+# ---------------------------------------------------------------------------
+# faults across processes: resharding, the client under faults, serving
+# ---------------------------------------------------------------------------
+
+def reshard_rank(pairs, seeds, engine: str = "onepass") -> dict:
+    """One rank of a world that runs every (D, D') pair in turn, each from
+    a client on the first D ranks: ``cases.drive_reshard`` per seed, with
+    the client's ``s_local``, mesh rank and state after it; then a reshard
+    past the world's size (refused)."""
+    rec = {}
+    for d, dp in pairs:
+        for seed in seeds:
+            cl = ShardedCacheClient(MSLRUConfig(**cases.RESHARD_CFG),
+                                    ProcessCacheMesh(d, "cpu"), engine=engine)
+            r = cases.drive_reshard(cl, seed, dp, lambda c: c.gathered_table())
+            r.update(s_local=cl._s_local, mesh_rank=cl.mesh.rank,
+                     state=cases.client_state(cl))
+            rec[(d, dp, seed)] = r
+    try:
+        ShardedCacheClient(MSLRUConfig(**cases.RESHARD_CFG), ProcessCacheMesh(None, "cpu")
+                           ).reshard(dist.get_world_size() + 1)
+    except ValueError as e:
+        rec["refused"] = str(e)
+    return rec
+
+
+def faults_rank(client_cases, lead: bool = False) -> list:
+    """``cases.drive_client`` of each (cap, placement, steps) case on a
+    client over every rank of the world: each rank driving its own client
+    (SPMD), or with ``lead`` rank 0 driving inside ``leading()`` while the
+    others ``follow()``.  Each case's record (a follower: its call count)
+    and the client's state."""
+    mesh = ProcessCacheMesh(None, "cpu")
+    out = []
+    for cap, placement, steps in client_cases:
+        cl = ShardedCacheClient(MSLRUConfig(**cases.CFG), mesh, cap=cap, placement=placement)
+        if lead and dist.get_rank():
+            out.append({"calls": cl.follow()})
+        else:
+            with cl.leading() if lead else contextlib.nullcontext():
+                out.append({"record": cases.drive_client(cl, steps,
+                                                         lambda c: c.gathered_table())})
+        out[-1]["state"] = cases.client_state(cl)
+    return out
+
+
+def serve_case_rank(case, params_np) -> dict:
+    """One of ``cases.SERVE_CASES`` with the cache over every rank of the
+    world: rank 0 serves phi3-mini-smoke (``params_np``, the JAX
+    parameters as numpy) leading the client, the others follow.  Rank 0
+    returns ``cases.summary``; every rank its client's state."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import params_from_numpy
+    from repro_torch.launch import elastic
+    from repro_torch.models.model import make_model
+    from repro_torch.serving.engine import Request, ServeEngine
+    from repro_torch.serving.kv_cache import PagedKVPool
+    from repro_torch.serving.prefix_cache import PrefixCache
+
+    eng_kw, be_kw, plan = case
+    be = ShardedCacheClient(MSLRUConfig(**cases.BACKEND_CFG), ProcessCacheMesh(None, "cpu"),
+                            **be_kw)
+    if dist.get_rank():
+        return {"calls": be.follow(), "state": cases.client_state(be)}
+    cfg = get_config(cases.ARCH, smoke=True)
+    params = params_from_numpy(params_np, cfg, device="cpu")
+    pc = PrefixCache(chunk_tokens=16, backend=be)
+    pool = PagedKVPool(cfg, n_pages=cases.N_PAGES, page_tokens=16, device="cpu")
+    eng = ServeEngine(make_model(cfg), params, prefix_cache=pc, pool=pool, **cases.ENGINE,
+                      **eng_kw)
+    for i, p in enumerate(cases.prompts(cfg)):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=cases.MAX_NEW))
+    with be.leading():
+        eng.run_until_done(fault_plan=cases.fault_plan(elastic.FaultEvent, elastic.FaultPlan,
+                                                       plan))
+        summary = cases.summary(eng, be.gathered_table())
+    summary["rest"]["finished"] = len(eng.finished)
+    return {"summary": summary, "state": cases.client_state(be)}

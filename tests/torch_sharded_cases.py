@@ -17,6 +17,10 @@ the port's through the same functions, and the two records must be equal.
 * ``SERVE_CASES`` / ``prompts`` / ``fault_plan`` / ``summary`` — serving
   runs of phi3-mini-smoke behind a D = 2 client: engine and backend
   arguments, fault plans, the request trace, and what a served run reports.
+* ``reshard_calls`` / ``drive_reshard`` — ``tests/test_reshard.py``'s
+  workload (180 chain accesses under eviction pressure, then a reshard)
+  and everything the reshard reports; ``client_state`` — the host state
+  every rank of a process mesh must share.
 """
 
 from __future__ import annotations
@@ -243,3 +247,66 @@ def summary(eng, table):
                      "stats": eng.stats(), "cache": eng.prefix_cache.stats(),
                      "pool": (pool.refcount.tolist(), pool.free_pages, len(pool._reserved)),
                      "pending": len(eng._pending_inserts), "table": table[:32].tolist()}}
+
+
+# ---------------------------------------------------------------------------
+# resharding under eviction pressure (tests/test_reshard.py's workload)
+# ---------------------------------------------------------------------------
+
+RESHARD_CFG = dict(num_sets=64, m=2, p=2, value_planes=1)
+
+
+def reshard_calls(seed: int, n: int = 180):
+    """``tests/test_reshard.py``'s chain accesses: about 360 distinct
+    chunks against 256 entry slots, every third chain a Zipf(1.5) pick.
+    Yields (keys, vals, ops, chain_ids, chain) per access."""
+    rng = np.random.default_rng(seed)
+    pool = [[int(h) | 1 for h in rng.integers(1, 2**30, int(L))]
+            for L in rng.integers(1, 6, 120)]
+    page = 1
+    for i in range(n):
+        c = pool[i % len(pool)] if i % 3 else pool[int(rng.zipf(1.5)) % len(pool)]
+        L = len(c)
+        vals = np.zeros((2 * L, 1), np.int32)
+        vals[L:, 0] = np.arange(page, page + L)
+        page += L
+        yield (np.array(c + c, np.int32), vals,
+               np.array([OP_CHAIN_GET] * L + [OP_CHAIN_PUT] * L, np.int32),
+               np.zeros(2 * L, np.int32), c)
+
+
+def drive_reshard(client, seed: int, new_ndev: int, table_fn) -> dict:
+    """``reshard_calls(seed)`` through ``client`` (either package's), then
+    ``reshard(new_ndev)``: the occupancy before and after, the orphans, the
+    drain stream, the rebuilt table (``table_fn(client)``, numpy) and
+    whether every re-inserted chain is resident (a LOOKUP sweep)."""
+    for keys, vals, ops, cids, chain in reshard_calls(seed):
+        client.access(keys, vals, ops, cids)
+        client.note_chain(chain)
+    occ_before = client.occupancy
+    orphans = client.reshard(new_ndev)
+    rec = {"orphans": orphans, "occ_before": occ_before, "ndev": client.ndev,
+           "drain": [{k: (None if v is None else np.asarray(v).copy()) for k, v in b.items()}
+                     for b in client.last_drain_stream],
+           "table": np.asarray(table_fn(client))[: client.cfg.num_sets]}
+    rec["occ_after"] = client.occupancy
+    rec["resident"] = all(bool(np.asarray(client.access(
+        b["keys"], ops=np.full(b["keys"].size, OP_LOOKUP, np.int32)).hit).all())
+        for b in client.last_drain_stream)
+    return rec
+
+
+def client_state(client) -> dict:
+    """The host state of a ``ShardedCacheClient`` that every rank of a
+    process mesh holds alike."""
+    tf = client._transient_fail
+    return {"registry": dict(client._chain_registry), "touch": client._touch,
+            "degraded": sorted(client.degraded),
+            "pressure": np.asarray(client.slab_pressure).copy(),
+            "counters": tuple(getattr(client, c) for c in COUNTERS),
+            "last_shed": None if client.last_shed is None else client.last_shed.copy(),
+            "route_shape": client.route_shape, "ndev": client.ndev,
+            "s_local": client._s_local,
+            "transient": None if tf is None else (tf[0], tf[1], tf[2].bit_generator.state),
+            "drain": [{k: (None if v is None else np.asarray(v).copy()) for k, v in b.items()}
+                      for b in client.last_drain_stream]}
