@@ -162,19 +162,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    norm, master, m and v within ADAMW_ULPS f32 ulps, the new parameters
    equal); then, without experts, 2 microbatches against 1 on the card,
    within the step's bounds;
-23. phi3-mini-3.8b at full width: (a) 2 of its 32 layers (0.42 B
-   parameters), 1 x 256, one step and its AdamW update on the card against
-   the CPU as in 22;
+23. phi3-mini-3.8b at full width: (a) CUT_LAYERS (1) of its 32 layers
+   (0.31 B parameters), 1 x 256, one step and its AdamW update on the card
+   against the CPU as in 22;
    (b) all 32 layers, ``remat="full"``, 1024 x 2, one microbatch,
    FULL_STEPS steps with finite losses: ms per step, tokens/s, the step's
    FLOPs (``train_flops``) over the bf16 peak, peak device memory against
    the training state; one more step under the profiler (busy share, GEMM
    ms, kernels) and AdamW alone;
-24. ``examples/train_smoke.py``'s run on the card (``build_train_smoke``,
-   its 300 steps cut to 150: 2 microbatches, checkpoints at step 100 and at
-   the end in a temporary directory): the loss falls by more than 0.3; a
-   fresh trainer restored from step 100 replays steps 101-150 with the
-   same losses, bit for bit.
+24. ``examples/torch_train_smoke.py``'s ``main`` on the card (the train_smoke
+   example's run, its 300 steps cut to 150: 2 microbatches, checkpoints at
+   step 100 and at the end in a temporary directory): the loss falls by
+   more than 0.3; a fresh trainer restored from step 100 replays steps
+   101-150 with the same logged losses, bit for bit.
    Phases 22-24 launch none of the three kernels (counted from 0 before 22);
 25. the port's Python oracle (``core/policies.py`` ``MultiStepLRUOracle``)
    against ``MultiStepLRUCache`` on the card through both engines, so both
@@ -221,7 +221,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    D, host-staging and gloo ms per exchange;
 29. int8 gradient compression: ``quantize_int8``/``dequantize_int8`` on the
    card bit-equal to the CPU on seeded gradients shaped like phi3-mini's
-   2-layer cut; ``compress_tree`` over 4 gloo ranks on the card, two rounds
+   1-layer cut; ``compress_tree`` over 4 gloo ranks on the card, two rounds
    carrying the residuals, bit-equal to the formula on the CPU (the int32
    sum of every rank's int8 values times the largest scale; residuals).
    Any rank's failure fails the run;
@@ -231,18 +231,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``build`` on a (1, 1) mesh in a process group of one NCCL rank: losses
    within LOSS_RTOL, parameters within GRAD_ULPS bf16 ulps, ms per step and
    peak memory beside phase 23(b)'s (what DTensor dispatch costs the
-   host-bound step); (b) phi3-mini at full width, 2 of 32 layers, 256 x 4:
+   host-bound step); (b) phi3-mini at full width, 1 of 32 layers, 256 x 4:
    one train step, the prefill and CUT_DECODE serve steps on one device,
-   then on meshes (2, 1) and (1, 2) of 2 gloo ranks and (2, 2) of 4 sharing
-   the card, DTensor's collectives through host memory
+   then on meshes (2, 1), (1, 2) (each twice over) and (2, 2) of one world
+   of 4 gloo ranks sharing the card, DTensor's collectives through host memory
    (``HostStagedCollectives``, which counts them), each held against one
    device (metrics, parameters and the gradients that reached AdamW within
    the CPU tests' bounds, every rank's parameters, master, m and v those of
    the one-device update of its shards bit for bit, logits within phase 9's
    LOGIT_ULPS, greedy tokens equal but at ties), with ms per step per rank
    and the first step's collectives by kind; (c) ``launch/dryrun.py --mesh
-   pod1|pod2`` for phi3-mini's cells,
-   run on the host beside (a) and (b): every record's activations,
+   pod1|pod2`` for phi3-mini's cells, xlstm-1.3b's decode_32k and
+   olmoe-1b-7b's and hymba-1.5b's prefill_32k (MESH_DRYRUN), run on the
+   host beside (a) and (b): every record's activations,
    collectives, terms, dominant term and roofline fraction counted.
    Phase 30 launches none of the three kernels;
 31. faults across processes, one world of FAULT_WORLD gloo ranks sharing
@@ -266,11 +267,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    tokens equal or split at a near-tie; ms per decode tick and host ms per
    cache call beside phase 21's, staging and gloo ms per exchange, ms per
    applied fault, ``msl_onepass`` launches per rank and ``paged_attn``
-   launches on rank 0.
+   launches on rank 0;
+32. the port's examples, in this process on the card
+   (``examples/torch_quickstart.py``, ``torch_distributed_cache.py``,
+   ``torch_serve_prefix_cache.py``; the distributed cache in a thread
+   started with phase 31, whose ranks drive the card meanwhile, since its
+   oracle is a minute of host work): value integrity "OK" and the final
+   table "YES"; hits, occupancy, evictions, served queries and requests,
+   tokens, prefill computed and skipped and the prefix cache's stats equal
+   to the CPU's (EXAMPLE_RESULTS); ``msl_onepass`` launched by each,
+   ``paged_attn`` by the serve.
 
 Then the JSON lines: the main path (phase 20 under ``sharded``, 28 under
 ``route``, 31(a) under ``reshard_processes``), the serving path (phases 8,
-9, 11-19, 21 under ``sharded``, 31(b) under ``sharded_processes``),
+9, 11-19, 21 under ``sharded``, 31(b) under ``sharded_processes``, 32 under
+``examples``),
 training (phases 22-24, 29 under ``compression``, 30(a) and 30(b) under
 ``sharded_step``), the oracle, the figures and the dry run (phases 25-27,
 30(c) under ``dryrun``'s ``mesh_cells``) and every kernel's record (the paged
@@ -2588,10 +2599,11 @@ GRAD_ULPS = 16              # m = 0.1 x the clipped gradient: bf16 ulps of a lea
 NORM_SUM_RTOL = 2 ** -16
 ADAMW_ULPS = 1              # master, m and v, given the same norm (both sqrt IEEE)
 PHI3 = "phi3-mini-3.8b"
+CUT_LAYERS = 1              # phases 23(a), 29, 30(b): phi3-mini cut to this depth
 FULL_STEPS = 6              # phase 23(b): steps at full width and depth
 SMOKE_STEPS = 150           # phase 24: the train_smoke example's run, cut from 300
 SMOKE_RESUME = 100          # ... resumed from this step's checkpoint
-SMOKE_LOG_EVERY = 10
+SMOKE_LOG_EVERY = 20         # the example's
 
 
 def train_args(*extra):
@@ -2800,7 +2812,7 @@ def train_flops(cfg, b, s, remat):
 
 
 def run_phi3_training(torch):
-    """Phase 23: phi3-mini-3.8b at full width.  (a) Depth cut to 2 layers,
+    """Phase 23: phi3-mini-3.8b at full width.  (a) Depth cut to CUT_LAYERS,
     B = 1, S = 256: one step on the card against the same step on the CPU.
     (b) Full depth, ``remat="full"``, 1024 x 2, one microbatch:
     FULL_STEPS steps with finite losses; ms per step, tokens/s, peak memory
@@ -2814,7 +2826,7 @@ def run_phi3_training(torch):
 
     full = get_config(PHI3)
     out = {}
-    cut = dataclasses.replace(full, n_layers=2)
+    cut = dataclasses.replace(full, n_layers=CUT_LAYERS)
     args = train_args("--arch", PHI3, "--seq-len", "256", "--global-batch", "1",
                       "--steps", "1")
     card, data = train.build(args, cut)
@@ -2824,14 +2836,15 @@ def run_phi3_training(torch):
     with recorded_update(torch) as rec:
         want = step_once(torch, cpu, data)
     got = step_once(torch, card, data)
-    out["depth_2"] = {"params": cut.param_count(), "loss_cpu": want[0]["loss"],
+    what = f"phi3-mini-3.8b, {CUT_LAYERS} layer(s)"
+    out["depth_cut"] = {"params": cut.param_count(), "loss_cpu": want[0]["loss"],
                       "loss_card": got[0]["loss"], "cpu_step_ms": want[2],
                       "card_step_ms": got[2],
-                      **compare_steps(torch, want, got, "phi3-mini-3.8b, 2 layers"),
-                      **card_update(torch, rec, "phi3-mini-3.8b, 2 layers, AdamW")}
+                      **compare_steps(torch, want, got, what),
+                      **card_update(torch, rec, f"{what}, AdamW")}
     del rec
-    r = out["depth_2"]
-    log(f"phi3-mini-3.8b at 2 layers ({r['params']:,} parameters), 1 x 256: loss "
+    r = out["depth_cut"]
+    log(f"{what} ({r['params']:,} parameters), 1 x 256: loss "
         f"{r['loss_card']:.6f} on the card, {r['loss_cpu']:.6f} on the CPU (gap "
         f"{r['loss_rel']:.2e}), grad norm gap {r['grad_norm_rel']:.2e}, widest gradient "
         f"gap {r['grad_ulps']:.2f} bf16 ulps ({r['grad_ulps_leaf']}); step {r['cpu_step_ms']:.0f} "
@@ -2902,39 +2915,51 @@ def run_phi3_training(torch):
     return out
 
 
+def example(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                  ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def run_train_smoke(torch):
-    """Phase 24: the train_smoke example's run on the card (its config, 128 x
-    8, lr 3e-3, warm-up 20, 2 microbatches, cosine to SMOKE_STEPS steps,
-    checkpoints every 100 steps and at the end in a temporary directory):
-    the loss drops by more than 0.3 from the first logged step to the
-    last; a fresh trainer restored
-    from step SMOKE_RESUME replays the rest with the first run's losses bit
-    for bit."""
+    """Phase 24: ``examples/torch_train_smoke.py``'s ``main`` on the card
+    (its config, 128 x 8, lr 3e-3, warm-up 20, 2 microbatches, logged every
+    20 steps) for SMOKE_STEPS steps, cosine to SMOKE_STEPS, checkpoints at
+    step 100 and at the end in a temporary directory: the loss drops by
+    more than 0.3 from the first logged step to the last; a fresh trainer
+    (``build_train_smoke``) restored from step SMOKE_RESUME replays the rest
+    with the first run's logged losses bit for bit."""
     import tempfile
 
     from repro_torch.launch import train
     from repro_torch.train import checkpoint as ckpt
 
     with tempfile.TemporaryDirectory() as tmp:
-        tr, data = train.build_train_smoke(SMOKE_STEPS, ckpt_dir=tmp, device=DEVICE)
-        tr.init_state(resume=False)
         t = time.perf_counter()
-        hist = tr.run(data, SMOKE_STEPS, log_every=SMOKE_LOG_EVERY)
+        run = example("torch_train_smoke").main(["--steps", str(SMOKE_STEPS), "--ckpt-dir",
+                                                 tmp, "--device", DEVICE])
         wall = time.perf_counter() - t
+        hist = run["history"]
         replay, data = train.build_train_smoke(SMOKE_STEPS, device=DEVICE)
         replay.init_state(resume=False)
         _, replay.step = ckpt.restore(tmp, {"params": replay.params, "opt": replay.opt_state},
                                       step=SMOKE_RESUME)
         again = replay.run(data, SMOKE_STEPS - SMOKE_RESUME, log_every=SMOKE_LOG_EVERY)
     first, last = hist[0]["loss"], hist[-1]["loss"]
-    if not last < first - 0.3:
-        raise AssertionError(f"train_smoke: loss {first} -> {last}, no clear learning")
+    if run["state"] != "fresh" or not run["learned"] or not last < first - 0.3:
+        raise AssertionError(f"train_smoke: {run['state']} run, loss {first} -> {last}, no "
+                             f"clear learning")
     want = [(h["step"], h["loss"]) for h in hist if h["step"] > SMOKE_RESUME]
     got = [(h["step"], h["loss"]) for h in again]
-    if got != want:
+    if not got or got != want:
         raise AssertionError(f"train_smoke: the replay from step {SMOKE_RESUME} gave {got}, "
                              f"the first run {want}")
-    out = {"params": tr.model.cfg.param_count(), "steps": SMOKE_STEPS,
+    out = {"params": run["params"], "steps": SMOKE_STEPS,
            "loss_first": first, "loss_last": last, "wall_s": wall,
            "ms_per_step": wall / SMOKE_STEPS * 1e3, "replayed_steps": [s for s, _ in got],
            "replay_bit_equal": True}
@@ -3833,7 +3858,8 @@ def compress_card_rank(workdir, rounds, leaves, device):
 def run_compression(torch):
     """Phase 29.  (a) ``quantize_int8``/``dequantize_int8`` on the card
     against the CPU, bit for bit, on seeded gradients shaped like every
-    leaf of phi3-mini-3.8b cut to 2 of its 32 layers (phase 23(a)'s cut).
+    leaf of phi3-mini-3.8b cut to CUT_LAYERS of its 32 layers (phase 23(a)'s
+    cut).
     (b) ``compress_tree`` over COMPRESS_RANKS gloo ranks on the card,
     COMPRESS_ROUNDS rounds carrying the residuals, against the formula on
     the CPU (every rank's int8 values summed as int32 times the largest
@@ -3847,7 +3873,7 @@ def run_compression(torch):
     from repro_torch.models.model import make_model
     from repro_torch.train.compression import _residual, dequantize_int8, quantize_int8
 
-    cut = dataclasses.replace(get_config(PHI3), n_layers=2)
+    cut = dataclasses.replace(get_config(PHI3), n_layers=CUT_LAYERS)
     leaves = dict(abstract_params(make_model(cut)).named_parameters())
     gen = torch.Generator().manual_seed(SEED)
     n = 0
@@ -3864,7 +3890,8 @@ def run_compression(torch):
     out = {"quantize": {"leaves": len(leaves), "elements": n, "equal": True,
                         "seconds": time.perf_counter() - t}}
     log(f"quantize_int8 / dequantize_int8: {len(leaves)} seeded gradient leaves of "
-        f"phi3-mini-3.8b at 2 layers ({n:,} elements) bit-equal on the card and the CPU")
+        f"phi3-mini-3.8b at {CUT_LAYERS} layer(s) ({n:,} elements) bit-equal on the card and "
+        f"the CPU")
 
     full = {k: v for k, v in leaves.items() if k.startswith("blocks.0.")}
     shapes = {k: tuple(full[f"blocks.0.{k}"].shape) for k in COMPRESS_LEAVES}
@@ -3919,10 +3946,13 @@ def run_compression(torch):
 # ---------------------------------------------------------------------------
 
 MESH_STEPS = 3                  # 30(a): phase 23(b)'s run on a (1, 1) mesh
-CUT_LAYERS = 2                  # 30(b): phase 23(a)'s depth cut ...
+# 30(b): phase 23(a)'s depth cut (CUT_LAYERS) ...
 CUT_SEQ, CUT_ROWS = 256, 4      # ... at 256 tokens x 4 rows (a data axis of 2)
 CUT_PROMPT, CUT_DECODE = 128, 3
-RANK_MESHES = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}   # (data, model) by ranks
+# (data, model) meshes by the size of the world of gloo ranks that runs them:
+# one world, a mesh smaller than it replicated over a "replica" axis (no
+# rule names it, so every tensor is whole over it)
+RANK_MESHES = {4: ((2, 1), (1, 2), (2, 2))}
 
 
 def _bf16_ulps(torch, want, got) -> float:
@@ -3993,7 +4023,7 @@ def redo_update(torch, opt_mod, start, grads, norm, params, opt) -> dict:
 
 
 def cut_steps(torch, workdir, mesh=None, ref=None, staged=None):
-    """30(b)'s steps of phi3-mini at full width, 2 layers, on ``mesh`` (None:
+    """30(b)'s steps of phi3-mini at full width, CUT_LAYERS, on ``mesh`` (None:
     one device): one train step from the seeded weights (the collectives it
     issues read from ``staged``, the ``HostStagedCollectives`` they go
     through), then one more timed; the prefill of the prompts from the
@@ -4099,16 +4129,21 @@ def cut_steps(torch, workdir, mesh=None, ref=None, staged=None):
 
 
 def mesh_step_rank(workdir, shapes):
-    """One rank of phase 30(b): ``cut_steps`` on each (data, model) mesh,
+    """One rank of phase 30(b): ``cut_steps`` on each (data, model) mesh
+    (one smaller than the world replicated over a "replica" axis),
     DTensor's collectives through host memory (``HostStagedCollectives``:
     they crash over gloo on CUDA tensors otherwise), which counts them."""
     import torch
+    import torch.distributed as dist
 
     from repro_torch.launch.mesh import HostStagedCollectives, make_debug_mesh
 
     out = {}
     for shape in shapes:
-        mesh = make_debug_mesh(shape, device_type="cuda")
+        replicas = dist.get_world_size() // math.prod(shape)
+        mesh = (make_debug_mesh(shape, device_type="cuda") if replicas == 1 else
+                make_debug_mesh((replicas, *shape), ("replica", "data", "model"),
+                                device_type="cuda"))
         with HostStagedCollectives() as staged:
             out[shape] = cut_steps(torch, workdir, mesh, Path(workdir) / "state.pt", staged)
         out[shape]["staged_seconds"] = staged.seconds
@@ -4207,9 +4242,10 @@ def _logits_close(want, got, what) -> int:
 
 
 def run_rank_meshes(torch):
-    """Phase 30(b): phi3-mini at full width, 2 of 32 layers, 256 x 4: the
-    one-device steps on the card (``cut_steps``), then D = 2 gloo ranks on
-    meshes (2, 1) and (1, 2) and D = 4 on (2, 2), sharing the card: each
+    """Phase 30(b): phi3-mini at full width, CUT_LAYERS of 32, 256 x 4: the
+    one-device steps on the card (``cut_steps``), then one world of 4 gloo
+    ranks sharing the card on meshes (2, 1) and (1, 2) (each replicated
+    twice, ``mesh_step_rank``) and (2, 2): each
     mesh's train step (metrics within LOSS_RTOL / NORM_RTOL, parameters and
     the gradients that reached AdamW within GRAD_ULPS bf16 ulps: the CPU
     tests' bounds; every rank's parameters, master, m and v those of the
@@ -4240,7 +4276,8 @@ def run_rank_meshes(torch):
             for shape in shapes:
                 recs = [r[shape] for r in ranks]
                 got = recs[0]
-                what = f"phi3-mini-3.8b, 2 layers, mesh {shape} over {world} gloo ranks"
+                what = (f"phi3-mini-3.8b, {CUT_LAYERS} layer(s), mesh {shape} in a world of "
+                        f"{world} gloo ranks")
                 for k, v in got["metrics"].items():
                     rtol = NORM_RTOL if k == "grad_norm" else LOSS_RTOL
                     if abs(v - ref["metrics"][k]) > rtol * abs(ref["metrics"][k]):
@@ -4285,19 +4322,35 @@ def run_rank_meshes(torch):
     return out
 
 
+# 30(c): (arch, shapes) traced on both production meshes.  Beside
+# phi3-mini's cells, one cell of each fault the grid found: xLSTM's decode
+# (4 heads over a 'model' axis of 16: rows_local), olmoe's prefill (torch
+# 2.11 has no DTensor rule for the MoE dispatch's index_put_) and hymba's
+# prefill (2.11's DTensor cannot plan the causal conv's pad: pad_local).
+# command-r-35b's pod2 train_4k (16 microbatches of 16 rows, 8 rows a rank)
+# traces for 2 min on the host, longer than 30(b): the grid run
+# (dryrun_grid.sh) and tests/test_torch_dryrun.py carry it
+MESH_DRYRUN = ((PHI3, None), ("xlstm-1.3b", ("decode_32k",)),
+               ("olmoe-1b-7b", ("prefill_32k",)), ("hymba-1.5b", ("prefill_32k",)))
+
+
 def start_mesh_dryrun(workdir):
-    """Phase 30(c), started first: ``launch/dryrun.py --mesh`` for phi3-mini's
-    cells on pod1 and pod2, one process each on the host (meta tensors, a
-    process group that moves nothing), while 30(a) and 30(b) run."""
+    """Phase 30(c), started first: ``launch/dryrun.py --mesh`` for each of
+    MESH_DRYRUN's cells on pod1 and pod2, one process per (arch, mesh) on
+    the host (meta tensors, a process group that moves nothing), while 30(a)
+    and 30(b) run."""
     env = {**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")}
     procs = []
-    for mesh in ("pod1", "pod2"):
-        out = open(Path(workdir) / f"{mesh}.log", "w")
-        procs.append(subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun",
-                                       "--arch", PHI3, "--mesh", mesh, "--out", str(workdir),
-                                       "--force"], cwd=ROOT, env=env, stdout=out,
-                                      stderr=subprocess.STDOUT))
-        out.close()
+    for arch, shapes in MESH_DRYRUN:
+        for mesh in ("pod1", "pod2"):
+            out = open(Path(workdir) / f"{arch}_{mesh}.log", "w")
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--mesh",
+                   mesh, "--out", str(workdir), "--force"]
+            for shape in shapes or ():
+                cmd += ["--shape", shape]
+            procs.append(((arch, mesh), subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
+                                                         stderr=subprocess.STDOUT)))
+            out.close()
     return procs
 
 
@@ -4307,14 +4360,14 @@ def finish_mesh_dryrun(procs, workdir):
     from repro_torch.configs import SHAPES
     from repro_torch.launch import dryrun
 
-    for p, mesh in zip(procs, ("pod1", "pod2")):
+    for (arch, mesh), p in procs:
         if p.wait(timeout=900) != 0:
-            text = (Path(workdir) / f"{mesh}.log").read_text()
+            text = (Path(workdir) / f"{arch}_{mesh}.log").read_text()
             raise AssertionError(f"the mesh dry run failed:\n{text[-4000:]}")
     out = {}
-    for mesh in ("pod1", "pod2"):
-        for shape in SHAPES:
-            rec = json.loads((Path(workdir) / f"{dryrun.cell_id(PHI3, shape, mesh)}.json")
+    for arch, shapes in MESH_DRYRUN:
+        for mesh, shape in ((m, sh) for m in ("pod1", "pod2") for sh in shapes or SHAPES):
+            rec = json.loads((Path(workdir) / f"{dryrun.cell_id(arch, shape, mesh)}.json")
                              .read_text())
             out[rec["cell"]] = rec
             log(f"dry run {rec['cell']}: " + ("skipped" if rec["skipped"]
@@ -4784,6 +4837,99 @@ def run_faults(torch, phase21, kept):
     return reshards, bounded
 
 
+# ---------------------------------------------------------------------------
+# The port's examples on the card (phase 32)
+# ---------------------------------------------------------------------------
+
+# the examples' results on the CPU, which the card's runs must give:
+# tests/test_torch_examples.py holds them to the JAX examples
+# (examples/quickstart.py, distributed_cache.py, serve_prefix_cache.py)
+EXAMPLE_RESULTS = {
+    "quickstart": {"capacity": 4096, "queries": 200_000, "hits": 144_807, "occupancy": 1.0,
+                   "value_integrity": True, "reaccess_hits": 7, "evictions": 51_097},
+    "distributed_cache": {"capacity": 32768, "shards": 8, "queries": 65536, "hits": 48_417,
+                          "served": 65536, "oracle_hits": 48_417, "table_identical": True},
+    "serve_prefix_cache": {
+        "requests": 24, "served": 24, "served_without": 24, "tokens": 144,
+        "tokens_without": 144, "prefill_computed": 463, "prefill_skipped": 1280,
+        "prefill_computed_without": 1743,
+        "cache_stats": {"hits": 72, "misses": 6, "hit_ratio": 72 / 78, "evictions": 0,
+                        "occupancy": 0.0078125, "device_calls": 6, "shed": 0,
+                        "partial_served": 0, "retried": 0, "fallbacks": 0,
+                        "service_ticks_p50": 15.0, "service_ticks_p99": 25.0,
+                        "reprefill_flops": 5120, "evicted_cost": 0}},
+}
+# the kernels each example's run must launch
+EXAMPLE_KERNELS = {"quickstart": ("msl_onepass",), "distributed_cache": ("msl_onepass",),
+                   "serve_prefix_cache": ("msl_onepass", "paged_attn")}
+
+
+# examples started early (start_example) in a thread of this process: the
+# distributed cache's sequential oracle is a minute of host work, which
+# phase 31 (its ranks, not this process, drive the card) hides
+EARLY_EXAMPLES = ("distributed_cache",)
+
+
+def start_example(torch, name):
+    """``examples/torch_<name>.py``'s ``main`` on the card in a thread of
+    this process, its launches counted from 0 (no other work of this process
+    launches a kernel until ``run_examples`` joins it)."""
+    import threading
+
+    box = {}
+
+    def run():
+        t = time.perf_counter()
+        try:
+            box["got"] = example(f"torch_{name}").main(["--device", DEVICE])
+            torch.cuda.synchronize()
+        except BaseException as e:  # noqa: BLE001 - raised again by run_examples
+            box["error"] = e
+        box["wall_s"] = time.perf_counter() - t
+
+    zero_launches()
+    thread = threading.Thread(target=run, name=f"example {name}", daemon=True)
+    thread.start()
+    return thread, box
+
+
+def run_examples(torch, early):
+    """Phase 32: ``examples/torch_quickstart.py``, ``torch_distributed_cache.py``
+    and ``torch_serve_prefix_cache.py`` in this process on the card
+    (``main(["--device", DEVICE])``; ``early``: those ``start_example``
+    started, joined here first): their own checks (value integrity "OK",
+    final table "YES"), every number of EXAMPLE_RESULTS equal, and each
+    example's kernels launched (counted from 0 for each run)."""
+    out = {}
+    for name in [*early, *(n for n in EXAMPLE_RESULTS if n not in early)]:
+        want = EXAMPLE_RESULTS[name]
+        if name in early:
+            thread, box = early[name]
+            thread.join(timeout=900)
+            if thread.is_alive() or "error" in box:
+                raise AssertionError(f"examples/torch_{name}.py on the card did not finish: "
+                                     f"{box.get('error')!r}") from box.get("error")
+            got, wall = box["got"], box["wall_s"]
+        else:
+            zero_launches()
+            t = time.perf_counter()
+            got = example(f"torch_{name}").main(["--device", DEVICE])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        launches = {k: v for k, v in read_launches().items() if v}
+        wrong = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+        if wrong:
+            raise AssertionError(f"examples/torch_{name}.py on the card: (card, CPU) {wrong}")
+        missing = [k for k in EXAMPLE_KERNELS[name] if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"examples/torch_{name}.py launched no {missing}: {launches}")
+        out[name] = {"results": {k: got[k] for k in want}, "launches": launches,
+                     "wall_s": wall}
+        log(f"examples/torch_{name}.py on the card: every result equal to the CPU's; "
+            f"launches {launches}; {wall:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4950,7 +5096,8 @@ def main() -> int:
         training["families"][arch] = run_family_training(torch, arch)
         release(torch)
 
-    phase("23. phi3-mini-3.8b training at full width: 2 layers against the CPU, then "
+    phase(f"23. phi3-mini-3.8b training at full width: {CUT_LAYERS} layer(s) against the "
+          "CPU, then "
           "full depth")
     training[PHI3] = run_phi3_training(torch)
 
@@ -5003,7 +5150,8 @@ def main() -> int:
                   "NCCL rank")
             sharded = {"one_rank_mesh": run_mesh_training(torch, training[PHI3])}
             release(torch)
-            phase("30(b). phi3-mini-3.8b, 2 layers, on meshes (2, 1), (1, 2), (2, 2) of gloo "
+            phase(f"30(b). phi3-mini-3.8b, {CUT_LAYERS} layer(s), on meshes (2, 1), (1, 2), "
+                  "(2, 2) in one world of gloo "
                   "ranks sharing the card")
             sharded["rank_meshes"] = run_rank_meshes(torch)
             release(torch)
@@ -5011,7 +5159,7 @@ def main() -> int:
                   "the sharded step")
             claims["dryrun"]["mesh_cells"] = finish_mesh_dryrun(dry, dry_dir)
         finally:
-            for p in dry:
+            for _, p in dry:
                 p.kill()
     launches = read_launches()
     if any(launches.values()):
@@ -5020,6 +5168,7 @@ def main() -> int:
 
     phase(f"31. faults across processes, {FAULT_WORLD} gloo ranks sharing the card: (a) "
           "reshard and mark_degraded")
+    early = {name: start_example(torch, name) for name in EARLY_EXAMPLES}
     summary["reshard_processes"], serving["sharded_processes"] = run_faults(
         torch, serving["sharded"]["bounded"], phase21)
     d87 = summary["reshard_processes"]["pairs"]["8->7 rounds"]["msl_access_per_rank"]
@@ -5030,6 +5179,14 @@ def main() -> int:
         "msl_onepass_per_rank"]
     records[2]["launches_process_serving_path"] = serving["sharded_processes"][
         "paged_attn_rank0"]
+    release(torch)
+
+    phase("32. the port's examples on the card: quickstart, distributed cache, prefix-cached "
+          "serving")
+    serving["examples"] = run_examples(torch, early)
+    for r in records:
+        r["launches_examples_path"] = sum(x["launches"].get(r["name"], 0)
+                                          for x in serving["examples"].values())
     release(torch)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -164,6 +164,33 @@ def mesh_state_cell(cfg: ArchConfig, shape: ShapeSpec, mesh_name) -> dict:
             "params": cfg.param_count(), "active_params": cfg.active_param_count()}
 
 
+def gathered_over_model(cfg: ArchConfig, shape: ShapeSpec, mesh_name) -> list:
+    """The regions of the cell's step that run on each rank's rows with a
+    dim whole that 'model' shards (``layers.rows_local``,
+    ``attention.per_head``), so gather over 'model' what GSPMD could leave
+    sharded or pad: where there is one, the record's collective term is an
+    upper bound."""
+    tp = axis_sizes(_mesh_shape(mesh_name)).get("model", 1)
+    if tp == 1:
+        return []
+    out = []
+    if cfg.mixer == "xlstm":
+        out.append("xLSTM's mLSTM and sLSTM run on each rank's rows (layers.rows_local): "
+                   f"their inputs are gathered over 'model' ({cfg.n_heads} heads over {tp})")
+    if cfg.mixer == "hymba" and shape.kind != "decode":
+        out.append("the Mamba scan runs on each rank's rows (layers.rows_local): its inputs "
+                   "are gathered over 'model'")
+    if cfg.ffn == "moe" and shape.kind != "decode" and not shd.moe_experts_replicated(cfg):
+        out.append("the MoE combine runs on each rank's rows (layers.rows_local): the "
+                   "expert outputs are gathered over 'model'")
+    if cfg.mixer != "xlstm" and (cfg.n_heads % tp or cfg.n_kv_heads % tp):
+        out.append("attention.per_head gathers q, k and v over 'model' (heads "
+                   f"{cfg.n_heads}/{cfg.n_kv_heads} over {tp})"
+                   + ("; the decode cache is split over the sequence" if shape.kind == "decode"
+                      else ""))
+    return out
+
+
 def mesh_cell(cfg: ArchConfig, shape: ShapeSpec, mesh_name, *,
               microbatches: int | None = None) -> dict:
     """One cell on the production mesh ``mesh_name`` (or a ``MeshShape``):
@@ -193,6 +220,9 @@ def mesh_cell(cfg: ArchConfig, shape: ShapeSpec, mesh_name, *,
                                       "useful_flop_ratio", "roofline_fraction", "memory")})
     rec.update({"fits": counts["memory"]["fits"], "trace_s": time.perf_counter() - t0,
                 "ops": counts["ops"], "remat": cfg.remat, "microbatches": microbatches})
+    upper = gathered_over_model(cfg, shape, mesh_name)
+    if upper:
+        rec["collective_upper_bound"] = upper
     return rec
 
 

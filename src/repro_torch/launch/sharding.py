@@ -26,9 +26,10 @@ from repro_torch.launch.mesh import AXIS_DATA, AXIS_MODEL, axis_names, axis_size
 
 __all__ = ["COL_NAMES", "EMBED_NAMES", "MOE_REPLICATE_BYTES", "REPLICATED_NAMES",
            "ROW_NAMES", "batch_shardings", "cache_shardings", "distribute_params",
-           "distribute_tree", "gather_fsdp", "hint_spec", "kv_cache_spec", "local_batch", "local_shard",
-           "logits_sharding", "make_hints", "moe_experts_replicated", "param_placements",
-           "param_spec", "placements", "tree_key_paths"]
+           "distribute_tree", "gather_fsdp", "hint_spec", "kv_cache_spec", "local_batch",
+           "local_shard", "logits_sharding", "make_hints", "microbatch_axes",
+           "moe_experts_replicated", "param_placements", "param_spec", "placements",
+           "tree_key_paths"]
 
 COL_NAMES = {"wq", "wk", "wv", "w_gate", "w_up", "w_in", "w_dt", "w_gates",
              "w_if", "w_bc"}
@@ -110,10 +111,12 @@ def param_spec(cfg: ArchConfig, mesh, path, leaf) -> tuple:
     return ()
 
 
-def batch_shardings(cfg: ArchConfig, mesh, batch_specs: dict, batch_size: int) -> dict:
+def batch_shardings(cfg: ArchConfig, mesh, batch_specs: dict, batch_size: int,
+                    rows: tuple | None = None) -> dict:
     """The spec of each leaf of a train or prefill batch: batch over the
-    batch axes when they divide it."""
-    ba = _if_div(mesh, batch_axes(mesh), batch_size)
+    batch axes when they divide it (``rows``: over those axes instead, as
+    ``microbatch_axes`` gives them)."""
+    ba = _if_div(mesh, batch_axes(mesh) if rows is None else rows, batch_size)
     return {k: _spec(ba, *([None] * (len(v.shape) - 1))) for k, v in batch_specs.items()}
 
 
@@ -171,9 +174,22 @@ def logits_sharding(cfg: ArchConfig, mesh, batch_size: int) -> tuple:
     return _spec(ba, _if_div(mesh, tp, cfg.vocab_size))
 
 
-def hint_spec(cfg: ArchConfig, mesh, tag: str, shape) -> tuple | None:
+def microbatch_axes(mesh, rows: int) -> tuple:
+    """The batch axes a microbatch of ``rows`` rows is laid over when a
+    rank's block of the batch is not a multiple of the microbatch count:
+    the longest tail of the batch axes whose size divides ``rows`` (so
+    'pod', the outer axis, is dropped first); the rows are replicated over
+    the axes left out.  Every rank of those axes then holds as many rows of
+    the microbatch."""
+    ba = batch_axes(mesh)
+    return next(ba[k:] for k in range(len(ba) + 1) if rows % _axis_size(mesh, ba[k:]) == 0)
+
+
+def hint_spec(cfg: ArchConfig, mesh, tag: str, shape, rows: tuple | None = None) -> tuple | None:
     """The spec ``make_hints`` lays an activation of ``shape`` out by, or
-    None where the tag pins nothing.  JAX's tags:
+    None where the tag pins nothing; the batch dim goes over the batch axes
+    where they divide it (``rows``: over those axes instead, a microbatch's
+    ``microbatch_axes``).  JAX's tags:
 
       act          — (B, S, D) residual stream: batch over the batch axes
                      where they divide it, the rest replicated;
@@ -190,7 +206,7 @@ def hint_spec(cfg: ArchConfig, mesh, tag: str, shape) -> tuple | None:
       loss_logits  — the cross-entropy's logits chunk: batch-sharded with
                      whole vocab rows (its gather and logsumexp read a
                      row)."""
-    ba = batch_axes(mesh)
+    ba = batch_axes(mesh) if rows is None else rows
     tp = AXIS_MODEL if AXIS_MODEL in axis_sizes(mesh) else None
     nd = len(shape)
     if tag == "act" and nd >= 2:
@@ -234,13 +250,14 @@ def _pin():
     return Pin
 
 
-def make_hints(cfg: ArchConfig, mesh):
+def make_hints(cfg: ArchConfig, mesh, rows: tuple | None = None):
     """The activation hint of a step on the ``DeviceMesh`` ``mesh``
     (registered with ``models.layers.set_sharding_hints``): a DTensor and
     its gradient are redistributed to its tag's ``hint_spec`` (a pending
-    sum is reduced there); a plain tensor, or a tag with no spec, is left as
-    it is.  The rules read the activation's own leading dim, so JAX's
-    ``batch_size`` argument, which its rules never read, is dropped."""
+    sum is reduced there; ``rows`` as there); a plain tensor, or a tag with
+    no spec, is left as it is.  The rules read the activation's own leading
+    dim, so JAX's ``batch_size`` argument, which its rules never read, is
+    dropped."""
     from torch.distributed.tensor import DTensor
 
     pin = _pin()
@@ -248,7 +265,7 @@ def make_hints(cfg: ArchConfig, mesh):
     def hint(x, tag):
         if not isinstance(x, DTensor):
             return x
-        spec = hint_spec(cfg, mesh, tag, tuple(x.shape))
+        spec = hint_spec(cfg, mesh, tag, tuple(x.shape), rows)
         if spec is None:
             return x
         want = placements(spec, mesh)
@@ -392,12 +409,12 @@ def distribute_tree(mesh, tree, specs):
     return from_local(local_shard(tree, mesh, pl), mesh, pl, tree.shape, tree.stride())
 
 
-def local_batch(mesh, batch: dict, batch_size: int) -> dict:
+def local_batch(mesh, batch: dict, batch_size: int, rows: tuple | None = None) -> dict:
     """This rank's rows of a global batch (a dict of arrays or tensors with
-    ``batch_size`` rows), per ``batch_shardings``: the block of the batch
-    axes' coordinate (pod major) when those axes divide the batch, else
-    every row."""
-    ba = _if_div(mesh, batch_axes(mesh), batch_size)
+    ``batch_size`` rows), per ``batch_shardings`` (``rows`` as there): the
+    block of the batch axes' coordinate (pod major) when those axes divide
+    the batch, else every row."""
+    ba = _if_div(mesh, batch_axes(mesh) if rows is None else rows, batch_size)
     if ba is None:
         return dict(batch)
     coord = dict(zip(axis_names(mesh), mesh.get_coordinate()))

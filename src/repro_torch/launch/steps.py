@@ -24,9 +24,17 @@ become DTensor placements:
   row's math is one device's, and each gradient comes back reduce-scattered;
 * the batch comes as this rank's rows (``launch.sharding.local_batch``:
   the block of the batch axes per ``batch_shardings``); the step makes the
-  global DTensor of it.  Microbatch i is local rows ``i::A`` on every rank,
-  so every microbatch stays sharded on the batch and is the global rows
-  ``i::A`` (each rank's block holds a multiple of A rows);
+  global DTensor of it.  Microbatch i is the global rows ``i::A``: local
+  rows ``i::A`` on every rank where each rank's block holds a multiple of A
+  rows, so every microbatch stays sharded as the batch.  Where a block is
+  not a multiple of A rows (pod2's train_4k: 8 rows a rank, 16
+  microbatches), the step
+  gathers the batch (token ids: a few MB) and lays each microbatch over
+  ``launch.sharding.microbatch_axes`` ('data' for 16 rows on pod2),
+  replicated over the other batch axes, with the hints laid out the same
+  way; the ranks that hold the same rows compute the same partial
+  gradients, and DTensor sums the distinct ones into the full-batch
+  gradient;
 * the model runs on DTensors with ``make_hints`` registered for the call
   only (``models.layers.sharding_hints``) and plain tensors taken as
   replicated (``implicit_replication``: positions, masks, constants);
@@ -106,12 +114,13 @@ def _on_mesh(cfg: ArchConfig, mesh):
         yield
 
 
-def _global(cfg: ArchConfig, mesh, batch: dict, batch_size: int) -> dict:
+def _global(cfg: ArchConfig, mesh, batch: dict, batch_size: int, rows=None) -> dict:
     """This rank's rows of a batch as the global DTensors (``batch_size``
-    rows, per ``batch_shardings``); a batch on one device as it is."""
+    rows, per ``batch_shardings``; ``rows`` as there); a batch on one device
+    as it is."""
     if mesh is None:
         return batch
-    specs = shd.batch_shardings(cfg, mesh, batch, batch_size)
+    specs = shd.batch_shardings(cfg, mesh, batch, batch_size, rows)
     out = {}
     for k, v in batch.items():
         shape = (batch_size, *v.shape[1:]) if specs[k] and specs[k][0] else tuple(v.shape)
@@ -166,12 +175,23 @@ def build_train_step(model: Model, shape: ShapeSpec, *, mesh=None, lr: float = 3
     cfg, b = model.cfg, shape.global_batch
     if b % microbatches:
         raise ValueError(f"batch {b} is not a multiple of {microbatches} microbatches")
-    ba = shd._if_div(mesh, shd.batch_axes(mesh), b) if mesh is not None else None
-    if ba and (b // shd._axis_size(mesh, ba)) % microbatches:
-        raise ValueError(f"a rank's {b // shd._axis_size(mesh, ba)} rows are not a multiple "
-                         f"of {microbatches} microbatches")
-    lr_fn = opt_mod.cosine_schedule(lr, warmup, total_steps)
     a = microbatches
+    ba = shd._if_div(mesh, shd.batch_axes(mesh), b) if mesh is not None else None
+    # a rank's block of the batch is not a multiple of A rows: each
+    # microbatch is laid over the batch axes that divide it
+    spread = shd.microbatch_axes(mesh, b // a) if ba and (
+        b // shd._axis_size(mesh, ba)) % a else None
+    lr_fn = opt_mod.cosine_schedule(lr, warmup, total_steps)
+
+    def microbatch(batch_in, i):
+        """Microbatch i (global rows ``i::A``) and the hints to run it with."""
+        if spread is None:
+            return (_global(cfg, mesh, {k: v[i::a] for k, v in batch_in.items()}, b // a),
+                    contextlib.nullcontext())
+        rows = {k: v[i::a] for k, v in batch_in.items()}
+        return (_global(cfg, mesh, shd.local_batch(mesh, rows, b // a, spread), b // a,
+                        spread),
+                layers_mod.sharding_hints(shd.make_hints(cfg, mesh, spread)))
 
     def grad_of(p):
         """``p.grad`` laid out as ``p`` (a DTensor's may come back Partial)."""
@@ -194,10 +214,14 @@ def build_train_step(model: Model, shape: ShapeSpec, *, mesh=None, lr: float = 3
                 device = next(iter(named.values())).device
                 loss = torch.zeros((), dtype=torch.float32, device=device)
                 metrics = dict.fromkeys(METRIC_KEYS, loss)
+                if spread is not None:      # every row of the batch, on every rank
+                    batch_in = {k: v.full_tensor()
+                                for k, v in _global(cfg, mesh, batch_in, b).items()}
                 for i in range(a):
-                    mb = _global(cfg, mesh, {k: v[i::a] for k, v in batch_in.items()}, b // a)
-                    l_i, m_i = model.loss(_read(mesh, params), mb)
-                    l_i.backward()
+                    mb, hints = microbatch(batch_in, i)
+                    with hints:
+                        l_i, m_i = model.loss(_read(mesh, params), mb)
+                        l_i.backward()
                     for n, p in named.items():
                         grads[n] += grad_of(p).float() / a
                         p.grad = None

@@ -81,19 +81,66 @@ def from_local(x: torch.Tensor, mesh, placements, shape=None, stride=None):
                               stride=stride)
 
 
-def elementwise(fn, x: torch.Tensor) -> torch.Tensor:
-    """``fn(x)`` for an elementwise ``fn``.  A DTensor takes ``fn`` shard by
-    shard and keeps its placements (a pending sum is reduced first): for
-    ops DTensor has no sharding rule for, such as ``logsigmoid``'s
-    backward."""
+def pad_local(x: torch.Tensor, pad, value: float = 0.0) -> torch.Tensor:
+    """``F.pad(x, pad, value=value)`` for pads of dims no mesh axis shards: a
+    DTensor pads its shard and keeps its placements (a pending sum is
+    reduced first).  torch 2.11's DTensor fails to plan ``pad``'s
+    redistribution (an IndexError in its transform planner)."""
     if not is_dtensor(x):
-        return fn(x)
+        return torch.nn.functional.pad(x, pad, value=value)
     from torch.distributed.tensor import Replicate
 
     pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
     if pl != tuple(x.placements):
         x = x.redistribute(x.device_mesh, pl)
-    return from_local(fn(x.to_local()), x.device_mesh, pl, x.shape, x.stride())
+    shape = list(x.shape)
+    for i in range(len(pad) // 2):
+        dim = x.dim() - 1 - i
+        if any(p.is_shard(dim) for p in pl) and (pad[2 * i] or pad[2 * i + 1]):
+            raise ValueError(f"pad_local: dim {dim} is sharded ({pl})")
+        shape[dim] += pad[2 * i] + pad[2 * i + 1]
+    return from_local(torch.nn.functional.pad(x.to_local(), pad, value=value), x.device_mesh,
+                      pl, shape)
+
+
+def rows_local(fn, *xs, whole=()):
+    """``fn(*xs, *whole)`` for math independent per row: dim 0 of every
+    tensor in ``xs`` and of every output is the batch; ``whole`` holds
+    tensors every row reads (parameters).  On DTensors each rank runs ``fn``
+    on its rows with every other dim whole: the rows keep the batch
+    sharding of the first DTensor of ``xs`` (where it divides them), every
+    other dim is gathered (a pending sum reduced first); a plain tensor
+    holds every row.  A gradient of a ``whole`` tensor is a pending sum
+    over the axes the rows shard.  The outputs (a tensor, or nested tuples,
+    lists and dicts of them) come back as DTensors laid out as the rows.
+    Regions whose heads a mesh axis does not divide (xLSTM's 4 heads over
+    16 ranks) run here.  A plain call on one device."""
+    first = next((x for x in xs if is_dtensor(x)), None)
+    if first is None:
+        return fn(*xs, *whole)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.utils._pytree import tree_map
+
+    mesh = first.device_mesh
+    rows = [Replicate()] * mesh.ndim
+    n = 1
+    for i, p in enumerate(first.placements):
+        if p == Shard(0) and first.shape[0] % (n * mesh.size(i)) == 0:
+            rows[i], n = p, n * mesh.size(i)
+    rows = tuple(rows)
+    everywhere = (Replicate(),) * mesh.ndim
+    summed = tuple(Partial() if p.is_shard() else Replicate() for p in rows)
+
+    def block(x, pl, grad_pl=None):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if not is_dtensor(x):
+            x = from_local(x, mesh, everywhere)
+        return x.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+
+    out = fn(*(block(x, rows) for x in xs), *(block(w, everywhere, summed) for w in whole))
+    return tree_map(lambda y: from_local(y.contiguous(), mesh, rows,
+                                         (y.shape[0] * n, *y.shape[1:])), out)
 
 
 class _ContiguousGrad(torch.autograd.Function):

@@ -22,10 +22,12 @@ the JAX package does (no sparse gather of the top-k experts' weights).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.models.layers import (COMPUTE_DTYPE, _normal, contiguous_grad,
-                                       dense_init, hint)
+                                       dense_init, hint, rows_local)
 
 
 def moe_init(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int) -> dict:
@@ -59,6 +61,28 @@ def _experts(params, buf: torch.Tensor) -> torch.Tensor:
     return h @ params["w_down"]
 
 
+def _dispatch(ef, slot, keep, x, *, e: int, cap: int, k: int):
+    """The rows' expert buffers (B, E, C, D): each kept choice's token in its
+    (expert, slot) cell; a dropped one adds zero to its expert's last slot,
+    as in JAX (no boolean indexing: that would sync with the host)."""
+    b, _, d = x.shape
+    rows = torch.arange(b, device=x.device)[:, None].expand_as(ef)
+    xf = x.repeat_interleave(k, dim=1)                          # (B, S*k, D)
+    buf = x.new_zeros((e, b, cap, d))
+    buf.index_put_((ef, rows, slot), torch.where(keep[..., None], xf, 0).to(x.dtype),
+                   accumulate=True)
+    return buf.transpose(0, 1)
+
+
+def _combine(ef, slot, gate, out, *, k: int):
+    """Each choice's expert output (out (B, E, C, D)), gated, summed over
+    its token's k choices: (B, S, D)."""
+    b, sk = ef.shape
+    rows = torch.arange(b, device=out.device)[:, None].expand_as(ef)
+    yf = out[rows, ef, slot] * gate[..., None]                  # (B, S*k, D)
+    return yf.reshape(b, sk // k, k, -1).sum(dim=2)
+
+
 def moe_apply(params, x: torch.Tensor, *, n_experts: int, top_k: int,
               capacity_factor: float = 1.25):
     """x (B, S, D) -> (y (B, S, D), aux) with aux = {lb_loss, z_loss,
@@ -82,24 +106,16 @@ def moe_apply(params, x: torch.Tensor, *, n_experts: int, top_k: int,
     my_pos = ((onehot.cumsum(dim=1) - 1) * onehot).sum(-1)      # (B, S*k)
     keep = my_pos < cap
     slot = torch.where(keep, my_pos, cap - 1)
-    rows = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
-    xf = x.repeat_interleave(k, dim=1)                          # (B, S*k, D)
-    buf = x.new_zeros((e, b, cap, d))
-    # kept choices own distinct (expert, row, slot) cells; a dropped one adds
-    # zero to its expert's last slot, as in JAX (no boolean indexing: that
-    # would sync with the host)
-    buf.index_put_((ef, rows, slot), torch.where(keep[..., None], xf, 0).to(x.dtype),
-                   accumulate=True)
     # the hints take JAX's (groups, E, C, D) layout: expert-shard here ...
     # (contiguous: a no-op on one device; a DTensor's shard may come back
     # transposed, which its reshape cannot view)
-    buf = hint(buf.transpose(0, 1), "moe_dispatch").transpose(0, 1).contiguous()
+    buf = rows_local(functools.partial(_dispatch, e=e, cap=cap, k=k), ef, slot, keep, x)
+    buf = hint(buf, "moe_dispatch").transpose(0, 1).contiguous()
     out = contiguous_grad(_experts(params, buf.reshape(e, b * cap, d)).reshape(e, b, cap, d))
-    out = hint(out.transpose(0, 1), "moe_return").transpose(0, 1)   # ... back to rows
+    out = hint(out.transpose(0, 1), "moe_return")                # ... back to rows
 
     gate = torch.where(keep, gf, 0.0).to(out.dtype)
-    yf = out[ef, rows, slot] * gate[..., None]                  # (B, S*k, D)
-    y = yf.reshape(b, s, k, d).sum(dim=2)
+    y = rows_local(functools.partial(_combine, k=k), ef, slot, gate, out)
     aux = {"lb_loss": lb_loss, "z_loss": z_loss,
            "drop_frac": (~keep).sum().float() / (b * s * k)}
     return y, aux

@@ -31,10 +31,13 @@ Python loop over positions.  Both keep f32 wherever the JAX code does.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import COMPUTE_DTYPE, _normal, dense_init, elementwise
+from repro_torch.models.layers import (COMPUTE_DTYPE, _normal, dense_init, pad_local,
+                                       rows_local)
 
 
 def mamba_init(gen: torch.Generator, d_model: int, d_inner: int, d_state: int,
@@ -70,7 +73,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor | None = 
     (out (B, S, D), the last K-1 positions of the padded input)."""
     k, s = w.shape[0], x.shape[1]
     if state is None:
-        xp = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
+        xp = pad_local(x, (0, 0, k - 1, 0))
     else:
         xp = torch.cat([state.to(x.dtype), x], dim=1)
     out = xp[:, 0:s] * w[0]
@@ -109,25 +112,17 @@ def _out(params, y: torch.Tensor, xi: torch.Tensor, z: torch.Tensor) -> torch.Te
     return (y.to(COMPUTE_DTYPE) * _silu_bf16(z)) @ params["w_out"]
 
 
-def mamba_apply(params, x: torch.Tensor, *, d_state: int, chunk: int = 256,
-                return_state: bool = False):
-    """Training and prefill.  x (B, S, Dm) -> (B, S, Dm) [, the decode
-    state after x]."""
-    b, s, _ = x.shape
-    xz = x @ params["w_in"]
-    d_inner = xz.shape[-1] // 2
-    xi_raw, z = xz[..., :d_inner], xz[..., d_inner:]
-    xi, conv_state = _causal_conv(xi_raw, params["conv_w"])
-    xi = _silu_bf16(xi)
-    b_t, c_t, dt, a = _project(params, xi, d_state)
-
+def _mamba_scan(xi, dt, b_t, c_t, a, *, chunk: int):
+    """The recurrence of ``mamba_apply`` (rows independent): y (B, S, D) f32
+    and h after the sequence (B, D, N)."""
+    b, s, d_inner = xi.shape
     nc = -(-s // chunk)
     pad = nc * chunk - s
     xf = xi.float()
     if pad:
         xf, dt, b_t, c_t = (torch.nn.functional.pad(t, (0, 0, 0, pad))
                             for t in (xf, dt, b_t, c_t))
-    h = torch.zeros((b, d_inner, d_state), dtype=torch.float32, device=x.device)
+    h = torch.zeros((b, d_inner, a.shape[-1]), dtype=torch.float32, device=xi.device)
     ys = []
     for c in range(nc):
         sl = slice(c * chunk, (c + 1) * chunk)
@@ -136,7 +131,23 @@ def mamba_apply(params, x: torch.Tensor, *, d_state: int, chunk: int = 256,
         dbx = (dc * xf[:, sl])[..., None] * b_t[:, sl, None, :]
         hs, h = _sel_scan_chunk(da, dbx, h)
         ys.append(torch.einsum("bldn,bln->bld", hs, c_t[:, sl]))
-    y = torch.cat(ys, dim=1)[:, :s]
+    return torch.cat(ys, dim=1)[:, :s], h
+
+
+def mamba_apply(params, x: torch.Tensor, *, d_state: int, chunk: int = 256,
+                return_state: bool = False):
+    """Training and prefill.  x (B, S, Dm) -> (B, S, Dm) [, the decode
+    state after x].  The recurrence runs on each rank's rows with every
+    channel whole (``layers.rows_local``)."""
+    xz = x @ params["w_in"]
+    d_inner = xz.shape[-1] // 2
+    xi_raw, z = xz[..., :d_inner], xz[..., d_inner:]
+    xi, conv_state = _causal_conv(xi_raw, params["conv_w"])
+    xi = _silu_bf16(xi)
+    b_t, c_t, dt, a = _project(params, xi, d_state)
+
+    y, h = rows_local(functools.partial(_mamba_scan, chunk=chunk), xi, dt, b_t, c_t,
+                      whole=(a,))
     out = _out(params, y, xi, z)
     if return_state:
         return out, {"h": h, "conv": conv_state.to(COMPUTE_DTYPE)}
@@ -218,21 +229,25 @@ def _mlstm_chunk(q, k, v, lf, li, state):
     return h, (c_out, n_out, m_out)
 
 
-def _mlstm_in(params, xi: torch.Tensor, xc: torch.Tensor, n_heads: int):
-    """q, k, v (B, H, S, Dh) f32 (k scaled by Dh^-0.5) and the log input
-    gate and the forget gate's pre-activation (B, S, H) f32, from the conv
-    input ``xi`` and the conv output ``xc`` (B, S, D_inner) bf16."""
-    b, s, d_inner = xi.shape
+def _mlstm_proj(params, xi: torch.Tensor, xc: torch.Tensor):
+    """The q, k, v projections (B, S, D_inner) bf16 and the gates'
+    pre-activations (B, S, 2H) f32, from the conv input ``xi`` and the conv
+    output ``xc`` (B, S, D_inner) bf16."""
+    return (xc @ params["wq"], xc @ params["wk"], xi @ params["wv"],
+            (xc @ params["w_if"]).float() + params["if_bias"])
+
+
+def _mlstm_heads(qp, kp, vp, gif, n_heads: int):
+    """``_mlstm_proj``'s outputs as q, k, v (B, H, S, Dh) f32 (k scaled by
+    Dh^-0.5), the log input gate and the forget gate's pre-activation
+    (B, S, H) f32."""
+    b, s, d_inner = qp.shape
     dh = d_inner // n_heads
 
     def heads(t):
         return t.reshape(b, s, n_heads, dh).transpose(1, 2).float()
 
-    q = heads(xc @ params["wq"])
-    k = heads(xc @ params["wk"]) * (dh ** -0.5)
-    v = heads(xi @ params["wv"])
-    gif = (xc @ params["w_if"]).float() + params["if_bias"]
-    return q, k, v, gif[..., :n_heads], gif[..., n_heads:]
+    return heads(qp), heads(kp) * (dh ** -0.5), heads(vp), gif[..., :n_heads], gif[..., n_heads:]
 
 
 def _mlstm_out(params, h: torch.Tensor, xc: torch.Tensor, z: torch.Tensor):
@@ -242,20 +257,14 @@ def _mlstm_out(params, h: torch.Tensor, xc: torch.Tensor, z: torch.Tensor):
     return (h * _silu_bf16(z)) @ params["w_down"]
 
 
-def mlstm_apply(params, x: torch.Tensor, *, n_heads: int, chunk: int = 256,
-                return_state: bool = False):
-    """Training and prefill.  x (B, S, Dm) -> (B, S, Dm) [, the decode
-    state after x]."""
-    b, s, _ = x.shape
-    xz = x @ params["w_up"]
-    d_inner = xz.shape[-1] // 2
-    xi, z = xz[..., :d_inner], xz[..., d_inner:]
-    xc, conv_state = _causal_conv(xi, params["conv_w"])
-    xc = _silu_bf16(xc)
+def _mlstm_scan(qp, kp, vp, gif, *, n_heads: int, chunk: int):
+    """The per-head part of ``mlstm_apply`` (rows independent): h (B, S,
+    D_inner) f32 and the state (C, n, m) after the sequence."""
+    b, s, d_inner = qp.shape
     dh = d_inner // n_heads
-    q, k, v, li, lf_pre = _mlstm_in(params, xi, xc, n_heads)
+    q, k, v, li, lf_pre = _mlstm_heads(qp, kp, vp, gif, n_heads)
     li = li.transpose(1, 2)                                  # (B, H, S)
-    lf = elementwise(F.logsigmoid, lf_pre.transpose(1, 2))
+    lf = F.logsigmoid(lf_pre.transpose(1, 2))
 
     nc = -(-s // chunk)
     pad = nc * chunk - s
@@ -263,49 +272,73 @@ def mlstm_apply(params, x: torch.Tensor, *, n_heads: int, chunk: int = 256,
         q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
         lf = F.pad(lf, (0, pad))
         li = F.pad(li, (0, pad), value=-1e30)   # padded steps contribute nothing
-    state = (torch.zeros((b, n_heads, dh, dh), dtype=torch.float32, device=x.device),
-             torch.zeros((b, n_heads, dh), dtype=torch.float32, device=x.device),
-             torch.zeros((b, n_heads), dtype=torch.float32, device=x.device))
+    state = (torch.zeros((b, n_heads, dh, dh), dtype=torch.float32, device=qp.device),
+             torch.zeros((b, n_heads, dh), dtype=torch.float32, device=qp.device),
+             torch.zeros((b, n_heads), dtype=torch.float32, device=qp.device))
     hs = []
     for c in range(nc):
         sl = slice(c * chunk, (c + 1) * chunk)
         h, state = _mlstm_chunk(q[:, :, sl], k[:, :, sl], v[:, :, sl], lf[..., sl],
                                 li[..., sl], state)
         hs.append(h)
-    h = torch.cat(hs, dim=2)[:, :, :s].transpose(1, 2).reshape(b, s, d_inner)
+    return torch.cat(hs, dim=2)[:, :, :s].transpose(1, 2).reshape(b, s, d_inner), state
+
+
+def mlstm_apply(params, x: torch.Tensor, *, n_heads: int, chunk: int = 256,
+                return_state: bool = False):
+    """Training and prefill.  x (B, S, Dm) -> (B, S, Dm) [, the decode
+    state after x].  The per-head part runs on each rank's rows with the
+    heads whole (``layers.rows_local``): the projections are sharded over
+    'model' by their columns, which need not split the heads evenly."""
+    xz = x @ params["w_up"]
+    d_inner = xz.shape[-1] // 2
+    xi, z = xz[..., :d_inner], xz[..., d_inner:]
+    xc, conv_state = _causal_conv(xi, params["conv_w"])
+    xc = _silu_bf16(xc)
+    h, (c_f, n_f, m_f) = rows_local(functools.partial(_mlstm_scan, n_heads=n_heads,
+                                                      chunk=chunk),
+                                    *_mlstm_proj(params, xi, xc))
     out = _mlstm_out(params, h, xc, z)
     if return_state:
-        c_f, n_f, m_f = state
         return out, {"c": c_f, "n": n_f, "m": m_f, "conv": conv_state.to(COMPUTE_DTYPE)}
     return out
+
+
+def _mlstm_step(qp, kp, vp, gif, c_in, n_in, m_in, *, n_heads: int):
+    """The per-head part of ``mlstm_decode`` (rows independent): h (B, 1,
+    D_inner) f32 and the new (C, n, m)."""
+    b, _, d_inner = qp.shape
+    q, k, v, li, lf_pre = _mlstm_heads(qp, kp, vp, gif, n_heads)
+    q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]              # (B, H, Dh)
+    li, lf = li[:, 0], F.logsigmoid(lf_pre[:, 0])             # (B, H)
+
+    m_new = torch.maximum(lf + m_in, li)
+    f_w = torch.exp(lf + m_in - m_new)
+    i_w = torch.exp(li - m_new)
+    c = (c_in * f_w[..., None, None]).addcmul_((i_w[..., None] * k)[..., :, None],
+                                               v[..., None, :])
+    n = f_w[..., None] * n_in + i_w[..., None] * k
+    num = (q[..., None, :] @ c)[..., 0, :]
+    den = torch.abs((q * n).sum(-1))
+    h = num / torch.maximum(den, torch.exp(-m_new))[..., None]
+    return h.reshape(b, 1, d_inner), c, n, m_new
 
 
 def mlstm_decode(params, x: torch.Tensor, state: dict, *, n_heads: int):
     """One token per row.  x (B, 1, Dm); state {"c": (B, H, Dh, Dh), "n":
     (B, H, Dh), "m": (B, H), "conv": (B, 3, D_inner)}.  Returns (out (B, 1,
     Dm), the new state).  The memory update ``f C + i k v^T`` is one scale
-    and one in-place ``addcmul_`` over C."""
-    b = x.shape[0]
+    and one in-place ``addcmul_`` over C; the per-head part runs on each
+    rank's rows, as ``mlstm_apply``'s."""
     xz = x @ params["w_up"]
     d_inner = xz.shape[-1] // 2
     xi, z = xz[..., :d_inner], xz[..., d_inner:]
     xc, conv_state = _causal_conv(xi, params["conv_w"], state["conv"])
     xc = _silu_bf16(xc)
-    q, k, v, li, lf_pre = _mlstm_in(params, xi, xc, n_heads)
-    q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]              # (B, H, Dh)
-    li, lf = li[:, 0], elementwise(F.logsigmoid, lf_pre[:, 0])             # (B, H)
-
-    m_new = torch.maximum(lf + state["m"], li)
-    f_w = torch.exp(lf + state["m"] - m_new)
-    i_w = torch.exp(li - m_new)
-    c = (state["c"] * f_w[..., None, None]).addcmul_((i_w[..., None] * k)[..., :, None],
-                                                     v[..., None, :])
-    n = f_w[..., None] * state["n"] + i_w[..., None] * k
-    num = (q[..., None, :] @ c)[..., 0, :]
-    den = torch.abs((q * n).sum(-1))
-    h = num / torch.maximum(den, torch.exp(-m_new))[..., None]
-    out = _mlstm_out(params, h.reshape(b, 1, d_inner), xc, z)
-    return out, {"c": c, "n": n, "m": m_new, "conv": conv_state}
+    h, c, n, m = rows_local(functools.partial(_mlstm_step, n_heads=n_heads),
+                            *_mlstm_proj(params, xi, xc), state["c"], state["n"], state["m"])
+    out = _mlstm_out(params, h, xc, z)
+    return out, {"c": c, "n": n, "m": m, "conv": conv_state}
 
 
 # ---------------------------------------------------------------------------
@@ -326,23 +359,19 @@ def slstm_init(gen: torch.Generator, d_model: int, n_heads: int) -> dict:
     }
 
 
-def slstm_apply(params, x: torch.Tensor, *, n_heads: int, state: dict | None = None):
-    """x (B, S, D), one position after another from ``state`` ({"c", "n",
-    "h", "m"} each (B, D) f32; None: the cold state).  Returns (y (B, S, D)
-    bf16, the state after x); decode calls it with S = 1."""
-    b, s, d = x.shape
+def _slstm_scan(wx, c, n, h, m, r_gates, gate_bias, *, n_heads: int):
+    """The sLSTM's recurrence over wx (B, S, 4D) (rows independent): y (B,
+    S, D) bf16 and the state {"c", "n", "h", "m"} after it."""
+    b, s, d4 = wx.shape
+    d = d4 // 4
     dh = d // n_heads
-    wx = (x @ params["w_gates"]).float()
-    if state is None:
-        zeros = torch.zeros((b, d), dtype=torch.float32, device=x.device)
-        state = {"c": zeros, "n": zeros + 1e-6, "h": zeros, "m": zeros}
-    r = params["r_gates"].float()
-    c, n, h, m = state["c"], state["n"], state["h"], state["m"]
+    wx = wx.float()
+    r = r_gates.float()
     hs = []
     for t in range(s):
         rec = torch.einsum("bhd,hde->bhe", h.reshape(b, n_heads, dh), r).reshape(b, 4 * d)
-        zp, ip, fp, op = (wx[:, t] + rec + params["gate_bias"]).split(d, dim=-1)
-        lf = elementwise(F.logsigmoid, fp)
+        zp, ip, fp, op = (wx[:, t] + rec + gate_bias).split(d, dim=-1)
+        lf = F.logsigmoid(fp)
         m_new = torch.maximum(lf + m, ip)
         i_w = torch.exp(ip - m_new)
         f_w = torch.exp(lf + m - m_new)
@@ -352,3 +381,19 @@ def slstm_apply(params, x: torch.Tensor, *, n_heads: int, state: dict | None = N
         m = m_new
         hs.append(h)
     return torch.stack(hs, dim=1).to(COMPUTE_DTYPE), {"c": c, "n": n, "h": h, "m": m}
+
+
+def slstm_apply(params, x: torch.Tensor, *, n_heads: int, state: dict | None = None):
+    """x (B, S, D), one position after another from ``state`` ({"c", "n",
+    "h", "m"} each (B, D) f32; None: the cold state).  Returns (y (B, S, D)
+    bf16, the state after x); decode calls it with S = 1.  The recurrence
+    runs on each rank's rows with D whole (``layers.rows_local``): its
+    block-diagonal heads mix the gate projection's columns."""
+    b, _, d = x.shape
+    wx = x @ params["w_gates"]
+    if state is None:
+        zeros = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        state = {"c": zeros, "n": zeros + 1e-6, "h": zeros, "m": zeros}
+    return rows_local(functools.partial(_slstm_scan, n_heads=n_heads), wx, state["c"],
+                      state["n"], state["h"], state["m"],
+                      whole=(params["r_gates"], params["gate_bias"]))

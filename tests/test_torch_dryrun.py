@@ -24,6 +24,11 @@
   full) on meta without allocating its 61 GB of state, and counts
   ``chip_smoke.train_flops`` less the recompute that checkpointing stops
   early.
+* The production-mesh grid at full width: every arch's state per device
+  against JAX's specs on both meshes; xlstm-1.3b's decode_32k on pod1 (4
+  heads over 16); 16 microbatches of 16 rows on pod2, whose per-device
+  FLOPs equal pod1's (command-r-35b cut to 1 layer); under ``slow``,
+  command-r-35b's pod2 train_4k at full depth and all 80 cells.
 """
 
 import dataclasses
@@ -224,11 +229,15 @@ def test_mesh_dry_run_splits_the_step_on_a_fake_2x2_group(kind):
 
 
 @pytest.mark.parametrize("mesh_name", ["pod1", "pod2"])
-def test_mesh_state_equals_sum_over_jax_specs(mesh_name, monkeypatch):
-    """phi3-mini-3.8b at full width on the production meshes: each cell's
+@pytest.mark.parametrize("arch", list_archs())
+def test_mesh_state_equals_sum_over_jax_specs(arch, mesh_name, monkeypatch):
+    """Every arch at full width on the production meshes: each cell's
     per-device parameter, optimizer, batch and cache bytes equal the sum,
     over JAX's leaves of the same state, of each leaf's bytes divided by
-    the mesh axes its ``PartitionSpec`` names."""
+    the mesh axes its ``PartitionSpec`` names (``long_500k`` where JAX's
+    ``applicable`` runs it)."""
+    from repro.launch.dryrun import applicable as jax_applicable
+
     import numpy as np
 
     from repro.configs import specs as jax_specs
@@ -253,7 +262,7 @@ def test_mesh_state_equals_sum_over_jax_specs(mesh_name, monkeypatch):
         sp = jax.tree_util.tree_leaves(specs, is_leaf=lambda x: isinstance(x, tuple))
         return sum(per_device(x, s) for x, s in zip(flat, sp, strict=True))
 
-    jcfg = jax_get_config("phi3-mini-3.8b")
+    jcfg = jax_get_config(arch)
     jmodel = jax_make_model(jcfg)
     params = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0))
     flat = jax.tree_util.tree_flatten_with_path(params)[0]
@@ -261,7 +270,10 @@ def test_mesh_state_equals_sum_over_jax_specs(mesh_name, monkeypatch):
     param_bytes = sum(per_device(x, s) for (_, x), s in zip(flat, pspecs))
     param_elems = sum(per_device(x, s) // np.dtype(x.dtype).itemsize
                       for (_, x), s in zip(flat, pspecs))
-    for name in ("train_4k", "prefill_32k", "decode_32k"):
+    for name in JAX_SHAPES:
+        assert jax_applicable(jcfg, name) == dryrun.applicable(get_config(arch), name)
+        if not jax_applicable(jcfg, name):
+            continue
         sh = JAX_SHAPES[name]
         b = sh.global_batch
         want = {"param_bytes": param_bytes, "optimizer_bytes": 0, "batch_bytes": 0,
@@ -284,7 +296,7 @@ def test_mesh_state_equals_sum_over_jax_specs(mesh_name, monkeypatch):
             cs = jax.tree.map(tuple, jshd.cache_shardings(jcfg, FakeMesh, cache, b),
                               is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
             want["cache_bytes"] = tree_bytes(cache, cs)
-        got = dryrun.mesh_state_cell(get_config("phi3-mini-3.8b"), SHAPES[name], mesh_name)
+        got = dryrun.mesh_state_cell(get_config(arch), SHAPES[name], mesh_name)
         for k, v in want.items():
             assert got["per_device"][k] == v, (name, k)
         assert got["state_fits"] == (sum(want.values()) <= analysis.HBM_BYTES)
@@ -316,3 +328,83 @@ def test_full_width_train_cell_traces_on_meta_without_allocating():
     assert abs(counted / flops["total"] - 1) < chip_smoke.DRYRUN_FLOPS_GAP
     assert rec["useful_flop_ratio"] == pytest.approx(
         analysis.model_flops_for(cfg, ShapeSpec("cut", s, b, "train")) / counted)
+
+
+# ---------------------------------------------------------------------------
+# The production-mesh grid at full width: the cells the port could not trace
+# before (xLSTM's 4 heads over a 'model' axis of 16; pod2's train_4k of the
+# archs with 16 microbatches, 8 rows a rank), and the whole grid under slow
+# ---------------------------------------------------------------------------
+
+def _assert_mesh_record(rec: dict):
+    """A traced mesh record: every count and term present and consistent."""
+    dev = rec["per_device"]
+    assert dev["flops"] > 0 and dev["bytes"] > 0 and dev["activation_bytes"] > 0
+    assert dev["collective_bytes"] == sum(v for k, v in rec["collectives"].items()
+                                          if not k.startswith("_")) > 0
+    t = rec["terms_seconds"]
+    assert t["compute"] == dev["flops"] / analysis.BF16_PEAK
+    assert t["collective"] == dev["collective_bytes"] / analysis.LINK_BW
+    assert rec["dominant"] == max(t, key=t.get)
+    assert 0 < rec["roofline_fraction"] <= 1
+
+
+def test_xlstm_decode_traces_on_pod1():
+    """xlstm-1.3b's decode_32k on pod1: the mLSTM and sLSTM run each rank's
+    rows with the 4 heads whole, and the record says its collective term
+    is an upper bound (the regions gather over 'model')."""
+    cfg = get_config("xlstm-1.3b")
+    rec = dryrun.mesh_cell(cfg, SHAPES["decode_32k"], "pod1")
+    _assert_mesh_record(rec)
+    assert rec["chips"] == 256 and rec["microbatches"] is None
+    assert rec["collective_upper_bound"] and "rows_local" in rec["collective_upper_bound"][0]
+    assert rec["per_device"]["cache_bytes"] == dryrun.mesh_state_cell(
+        cfg, SHAPES["decode_32k"], "pod1")["per_device"]["cache_bytes"]
+
+
+def test_sixteen_microbatches_of_16_rows_on_pod2():
+    """command-r-35b at full width cut to 1 layer, train_4k's 256 rows at
+    512 tokens with its 16 microbatches: on pod2 a rank holds 8 rows, so
+    each 16-row microbatch goes over 'data' and is replicated over 'pod';
+    per device it then runs the FLOPs pod1's step runs (16 rows a rank
+    there: local microbatches), within FLOPS_SPLIT_RTOL."""
+    cfg = dataclasses.replace(get_config("command-r-35b"), n_layers=1)
+    shape = ShapeSpec("train_4k_cut", 512, SHAPES["train_4k"].global_batch, "train")
+    assert dryrun.default_microbatches(get_config("command-r-35b")) == 16
+    recs = {m: dryrun.mesh_cell(cfg, shape, m, microbatches=16) for m in ("pod1", "pod2")}
+    for rec in recs.values():
+        _assert_mesh_record(rec)
+        assert rec["microbatches"] == 16
+    assert recs["pod2"]["per_device"]["flops"] == pytest.approx(
+        recs["pod1"]["per_device"]["flops"], rel=FLOPS_SPLIT_RTOL)
+
+
+@pytest.mark.slow
+def test_command_r_train_traces_on_pod2():
+    """command-r-35b's train_4k on pod2 at full width and depth (16
+    microbatches, 8 rows a rank): about 140 s."""
+    rec = dryrun.mesh_cell(get_config("command-r-35b"), SHAPES["train_4k"], "pod2")
+    _assert_mesh_record(rec)
+    assert rec["microbatches"] == 16 and rec["chips"] == 512
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("arch", list_archs())
+@pytest.mark.parametrize("mesh_name", ["pod1", "pod2"])
+def test_production_mesh_grid(mesh_name, arch, shape, tmp_path):
+    """The port's form of JAX's default dry run: every (arch x shape) cell
+    on both production meshes (80 records).  A cell JAX's ``applicable``
+    skips is skipped with JAX's reason; every other one traces.  Minutes
+    to tens of minutes a cell on a CPU (xlstm-1.3b's train_4k about 20)."""
+    from repro.launch.dryrun import applicable as jax_applicable
+
+    rec = dryrun.run_cell(arch, shape, tmp_path, mesh=mesh_name)
+    jcfg = jax_get_config(arch)
+    assert rec["skipped"] == (not jax_applicable(jcfg, shape))
+    if rec["skipped"]:
+        assert rec["reason"] == jcfg.long_skip_reason
+        return
+    _assert_mesh_record(rec)
+    path = tmp_path / f"{rec['cell']}.json"
+    assert reanalyze.reanalyze_cell(path) == json.loads(path.read_text())

@@ -1,6 +1,6 @@
-"""The port stands alone: no module under src/repro_torch/, and neither
-chip_smoke.py nor kernel_ab.py, imports JAX or anything of the JAX package
-``repro``."""
+"""The port stands alone: no module under src/repro_torch/, none of the
+port's examples (examples/torch_*.py), and neither chip_smoke.py nor
+kernel_ab.py, imports JAX or anything of the JAX package ``repro``."""
 
 import ast
 import os
@@ -13,7 +13,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(p for p in (ROOT / "src" / "repro_torch").rglob("*.py")
                     if "_build" not in p.parts) + [ROOT / "chip_smoke.py",
-                                                   ROOT / "kernel_ab.py"]
+                                                   ROOT / "kernel_ab.py"] + sorted(
+    (ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 

@@ -329,30 +329,33 @@ def _full_tree(t):
 
 
 def run_steps(arch: str, values: dict, mesh_shape=None, impose=None, feed=None,
-              staged: bool = False) -> dict:
+              staged: bool = False, train_rows=None, axes=None, serve: bool = True) -> dict:
     """``_run_steps``; with ``staged``, its collectives through
     ``HostStagedCollectives`` (on the CPU here: the transport gloo ranks on
     one card use), which also counts them."""
     if not staged:
-        return _run_steps(arch, values, mesh_shape, impose, feed)
+        return _run_steps(arch, values, mesh_shape, impose, feed, train_rows, axes, serve)
     from repro_torch.launch.mesh import HostStagedCollectives
 
     with HostStagedCollectives("CPU") as st:
-        rec = _run_steps(arch, values, mesh_shape, impose, feed)
+        rec = _run_steps(arch, values, mesh_shape, impose, feed, train_rows, axes, serve)
     rec["staged_calls"] = st.calls
     return rec
 
 
-def _run_steps(arch: str, values: dict, mesh_shape=None, impose=None, feed=None) -> dict:
+def _run_steps(arch: str, values: dict, mesh_shape=None, impose=None, feed=None,
+               train_rows=None, axes=None, serve: bool = True) -> dict:
     """``arch``'s smoke config with the parameters ``values``
-    (``params_numpy``) on a (data, model) ``DeviceMesh`` of ``mesh_shape``
-    (None: one device, no mesh): one train step at each of TRAIN_ROWS's
-    microbatch counts (metrics, the f32 gradients that reached AdamW, the
+    (``params_numpy``) on a ``DeviceMesh`` of ``mesh_shape`` over ``axes``
+    (default (data, model); None: one device, no mesh): one train step at
+    each microbatch count of ``train_rows`` (microbatches: rows; default
+    TRAIN_ROWS) (metrics, the f32 gradients that reached AdamW, the
     updated parameters, master, m and v, all in full), ``prefill_step`` over
     ``prompt_batch`` (logits), then DECODE_STEPS serve steps (logits bundle
     and greedy bundle on twin caches) fed ``feed``'s tokens (None: the
     prompt's greedy token, then each step's; the record's ``fed``).
-    ``impose``: MoE routing choices by call (``_Routing``).
+    ``impose``: MoE routing choices by call (``_Routing``); ``serve``
+    False stops after the train steps.
     On a mesh the record adds, per train step, the leaves whose local shard
     is not the shape ``param_placements`` gives, and this rank's own copies
     of the replicated leaves (parameter, master, m and v)."""
@@ -367,7 +370,8 @@ def _run_steps(arch: str, values: dict, mesh_shape=None, impose=None, feed=None)
 
     cfg = get_config(arch, smoke=True)
     model = make_model(cfg)
-    mesh = None if mesh_shape is None else make_debug_mesh(mesh_shape, device_type="cpu")
+    mesh = None if mesh_shape is None else make_debug_mesh(
+        mesh_shape, axes or ("data", "model"), device_type="cpu")
 
     def placed():
         p = params_of(model, values)
@@ -380,7 +384,7 @@ def _run_steps(arch: str, values: dict, mesh_shape=None, impose=None, feed=None)
     rec = {"train": {}, "routing": {}}
     with _Routing(None if impose is None else impose.get("train")) as routing, \
             _UpdateInputs() as seen:
-        for a, b in TRAIN_ROWS.items():
+        for a, b in (train_rows or TRAIN_ROWS).items():
             bundle = build_train_step(model, ShapeSpec("s", STEP_S, b, "train"), mesh=mesh,
                                       microbatches=a)
             params = placed()
@@ -401,6 +405,8 @@ def _run_steps(arch: str, values: dict, mesh_shape=None, impose=None, feed=None)
             rec["train"][a] = r
     rec["routing"]["train"] = routing.log
 
+    if not serve:                       # the train steps only
+        return rec
     pshape = ShapeSpec("p", PROMPT, STEP_B, "prefill")
     dshape = ShapeSpec("d", MAX_LEN, STEP_B, "decode")
     params = placed()
