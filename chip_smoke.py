@@ -32,16 +32,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    batches, the longest chain's members and the transitions the kernel ran
    on it (the rest it resolved as runs).  Then the one-pass engine against
    the rounds engine (the access kernel) on four batches past the stream,
-   and against ``access_seq`` on a 4096-query prefix of a small
-   configuration;
+   and against ``access_seq`` (one ``msl_seq`` launch, counted from 0) on a
+   4096-query prefix of a small configuration; the sequential kernel
+   against its plain version on CPU copies of that prefix and of mixed-op
+   streams with chain ops and a cost plane (A = 32, two key planes,
+   set_lru; A = 8, multistep);
 6. the msl_cache kernels' records: launches on the path that runs each
    (the one-pass stream for the one-pass kernel, the rounds cross-check
-   for the access kernel), time per launch, plain version's time, bound;
-   for the access kernel also its rows per warp, its registers and its
-   time at B = 1 and at an A = 32 geometry; for the one-pass kernel also
+   for the access kernel, ``access_seq`` for the sequential kernel), time
+   per launch, plain version's time, bound; for the access kernel also its
+   rows per warp, its registers and its time at B = 1 and at an A = 32
+   geometry; for the one-pass kernel also
    ns per dependent transition on a chain with no two neighbours equal, ns
    per member of a one-key run, and the longest chain walked member by
    member at that rate (``chain_path_ms``, a critical path, not a bound);
+   for the sequential kernel its record at phase 5's check and, on fig07's
+   zipfian stream (1M keys, 2M queries, capacity 262144, m = 2, p = 4),
+   ``access_seq`` in one launch against the one-pass kernel in batches of
+   8192: hits, positions, evictions and the final table bit-equal,
+   queries/s and ns per query of each;
 7. the paged-attention kernel against its plain version at the serving
    path's shapes and at GQA rep 2 and 4, Dh 64 and 128, with windows and
    softcaps, a row with no prefix and a row whose tail is one token
@@ -269,14 +278,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    applied fault, ``msl_onepass`` launches per rank and ``paged_attn``
    launches on rank 0;
 32. the port's examples, in this process on the card
-   (``examples/torch_quickstart.py``, ``torch_distributed_cache.py``,
-   ``torch_serve_prefix_cache.py``; the distributed cache in a thread
-   started with phase 31, whose ranks drive the card meanwhile, since its
-   oracle is a minute of host work): value integrity "OK" and the final
-   table "YES"; hits, occupancy, evictions, served queries and requests,
-   tokens, prefill computed and skipped and the prefix cache's stats equal
-   to the CPU's (EXAMPLE_RESULTS); ``msl_onepass`` launched by each,
-   ``paged_attn`` by the serve.
+   (``examples/torch_quickstart.py``, ``torch_distributed_cache.py``, whose
+   sequential oracle runs on the card, ``torch_serve_prefix_cache.py``):
+   value integrity "OK" and the final table "YES"; hits, occupancy,
+   evictions, served queries and requests, tokens, prefill computed and
+   skipped and the prefix cache's stats equal to the CPU's
+   (EXAMPLE_RESULTS); ``msl_onepass`` launched by each, ``msl_seq`` by the
+   distributed cache, ``paged_attn`` by the serve.
 
 Then the JSON lines: the main path (phase 20 under ``sharded``, 28 under
 ``route``, 31(a) under ``reshard_processes``), the serving path (phases 8,
@@ -391,6 +399,21 @@ def time_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def launches_ms(torch, launch, states):
+    """Mean device ms of ``launch(s)`` over ``states[1:]``, prepared before
+    the timed span: CUDA events around back-to-back launches, behind one
+    untimed launch on ``states[0]`` so that the host's enqueueing stays
+    ahead of the device (the kernel alone, without the profiler)."""
+    launch(states[0])
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for s in states[1:]:
+        launch(s)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (len(states) - 1)
 
 
 def cuda_kernels(torch, prof):
@@ -655,10 +678,11 @@ def read_launches():
 
 
 def run_main_path(torch, cfg, keys, vals):
-    """Phase 5.  Returns the summary dict and the table after the stream.  Launches are counted on two
+    """Phase 5.  Returns the summary dict and the table after the stream.  Launches are counted on three
     paths, each from zero just before it to just after it: the one-pass
-    stream (the main path) and the rounds engine's cross-check, the path
-    that runs the access kernel."""
+    stream (the main path), the rounds engine's cross-check, the path that
+    runs the access kernel, and ``access_seq`` on the prefix, the path that
+    runs the sequential kernel."""
     from repro_torch.core import MSLRUConfig, MultiStepLRUCache
 
     n_batches = keys.numel() // BATCH - CHECK_BATCHES
@@ -715,22 +739,29 @@ def run_main_path(torch, cfg, keys, vals):
         f"results and table bit-equal; values of {onepass_hits} hits intact")
     del rounds
 
-    # one-pass against the sequential oracle on a small configuration
-    small = MSLRUConfig(num_sets=256, m=2, p=4, value_planes=2)
+    # one-pass against the sequential oracle (the msl_seq kernel: one launch
+    # walks the prefix) on a small configuration; the sequential kernel
+    # against its plain version on CPU copies of the same inputs
+    small = MSLRUConfig(**SEQ_CFG)
     seq = MultiStepLRUCache(small, device=DEVICE)
     one = MultiStepLRUCache(small, device=DEVICE)
-    prefix_k, prefix_v = keys[:4096], vals[:4096]
+    prefix_k, prefix_v = keys[:SEQ_PREFIX], vals[:SEQ_PREFIX]
+    zero_launches()
     want = seq.access_seq(prefix_k, prefix_v)
+    seq_launches = read_launches()
+    if seq_launches["msl_seq"] != 1:
+        raise AssertionError(f"access_seq launched msl_seq {seq_launches['msl_seq']} times")
     got = [one.access(prefix_k[i:i + 1024], prefix_v[i:i + 1024])
-           for i in range(0, 4096, 1024)]
+           for i in range(0, SEQ_PREFIX, 1024)]
     for f in ("hit", "pos", "evicted_key", "evicted_val", "evicted_valid"):
         if not torch.equal(torch.cat([getattr(r, f) for r in got]), getattr(want, f)):
             raise AssertionError(f"one-pass != access_seq: {f}")
     if not torch.equal(one.table, seq.table):
         raise AssertionError("one-pass and sequential tables differ")
-    log(f"one-pass == access_seq on a 4096-query prefix ({small.num_sets} sets): "
-        f"{int(want.hit.sum())} hits, {int(want.evicted_valid.sum())} evictions, "
-        "tables bit-equal")
+    log(f"one-pass == access_seq (one msl_seq launch) on a {SEQ_PREFIX}-query prefix "
+        f"({small.num_sets} sets): {int(want.hit.sum())} hits, "
+        f"{int(want.evicted_valid.sum())} evictions, tables bit-equal")
+    seq_check = check_seq_kernel(torch, small, prefix_k, prefix_v, want, seq.table)
 
     chains = max_chain_per_batch(torch, cfg, keys[half * BATCH:n_batches * BATCH])
     seconds = t2 - t1
@@ -754,6 +785,8 @@ def run_main_path(torch, cfg, keys, vals):
         "longest_chain_transitions": longest,
         "launches_stream": stream_launches,
         "launches_rounds_check": rounds_launches,
+        "launches_seq_check": seq_launches,
+        "seq_check": seq_check,
         "device": breakdown,
     }
     if not 0.0 < summary["hit_ratio"] < 1.0 or not 0.0 < occupancy <= 1.0:
@@ -764,6 +797,77 @@ def run_main_path(torch, cfg, keys, vals):
         raise AssertionError("msl_access was not launched by the rounds engine")
     del cache
     return summary, stream_table
+
+
+# the sequential engine (the msl_seq kernel)
+SEQ_CFG = dict(num_sets=256, m=2, p=4, value_planes=2)   # phase 5's access_seq check
+SEQ_PREFIX = 4096           # ... on this many queries of the main stream
+# phase 5(i): (m, p, key planes, cost planes, policy) of the mixed-op
+# streams, 16 sets, 2 value planes; SEQ_CALLS calls of SEQ_ROWS rows each
+SEQ_GEOMS = [(8, 4, 2, 1, "set_lru"), (2, 4, 1, 1, "multistep")]
+SEQ_CALLS = 2
+SEQ_ROWS = 2048
+SEQ_SCALE_CAP = 262144      # phase 6: fig07's largest capacity (m = 2, p = 4)
+
+
+def _seq_equal(torch, want, got, what):
+    """Two (table, SeqOutputs) pairs bit-equal, wherever each lies."""
+    (wt, wo), (gt, go) = want, got
+    for f in wo._fields:
+        if not torch.equal(getattr(wo, f).cpu(), getattr(go, f).cpu()):
+            raise AssertionError(f"msl_seq != plain: {f}, {what}")
+    if not torch.equal(wt.cpu(), gt.cpu()):
+        raise AssertionError(f"msl_seq != plain: the table, {what}")
+
+
+def check_seq_kernel(torch, small, prefix_k, prefix_v, want, table):
+    """Phase 5(i): the sequential kernel against ``msl_seq_plain`` on CPU
+    copies of the same inputs, through ``make_sequential_engine``: (a) the
+    main stream's prefix just run by ``access_seq`` on the card (``want``,
+    ``table``); (b) SEQ_GEOMS' mixed-op streams
+    (``tests/torch_oracle_cases.py``: ACCESS, GET, DELETE, LOOKUP,
+    prefix-cache chains with chain ids, costs; among them A = 32, two key
+    planes, a cost plane and set_lru), SEQ_CALLS calls of SEQ_ROWS rows
+    each, one launch per call on the card: every output and the table
+    bit-equal.  Returns the rows compared and their hits and evictions."""
+    import numpy as np
+
+    from repro_torch.core import MSLRUConfig, init_table, make_sequential_engine
+
+    run = make_sequential_engine(small)
+    _seq_equal(torch, run(init_table(small, "cpu"), prefix_k[:, None].cpu(), prefix_v.cpu()),
+               (table, want), "the main stream's prefix")
+    out = {"rows": prefix_k.numel(), "hits": 0, "evictions": 0, "chain_rows": 0}
+    oc = oracle_cases()
+    for m, p, kp, cp, policy in SEQ_GEOMS:
+        cfg = MSLRUConfig(num_sets=16, m=m, p=p, key_planes=kp, value_planes=2,
+                          cost_planes=cp, policy=policy)
+        run = make_sequential_engine(cfg, with_ops=True)
+        rng = np.random.default_rng(SEED + 7 * m + p)
+        tables = {DEVICE: init_table(cfg, DEVICE), "cpu": init_table(cfg, "cpu")}
+        for i in range(SEQ_CALLS):
+            batch = oc.mixed_batch(rng, cfg, SEQ_ROWS, 3 * cfg.capacity)
+            res = {}
+            for dev in (DEVICE, "cpu"):
+                args = [torch.from_numpy(batch[k]).to(dev)
+                        for k in ("keys", "vals", "ops", "chain_ids", "costs")]
+                before = read_launches()["msl_seq"]
+                tables[dev], res[dev] = run(tables[dev], *args[:4], costs=args[4])
+                if dev == DEVICE and read_launches()["msl_seq"] != before + 1:
+                    raise AssertionError("make_sequential_engine did not launch msl_seq once")
+            _seq_equal(torch, (tables["cpu"], res["cpu"]), (tables[DEVICE], res[DEVICE]),
+                       f"{cfg}, call {i}")
+            out["rows"] += SEQ_ROWS
+            out["hits"] += int(res["cpu"].hit.sum())
+            out["evictions"] += int(res["cpu"].evicted_valid.sum())
+            out["chain_rows"] += int((batch["chain_ids"] > 0).sum())
+        log(f"msl_seq == plain (CPU copies): m={m} p={p} (A = {m * p}), key planes {kp}, "
+            f"cost planes {cp}, {policy}: {SEQ_CALLS} mixed-op calls of {SEQ_ROWS} rows")
+    if not out["evictions"]:
+        raise AssertionError("the sequential checks evicted nothing")
+    log(f"msl_seq == plain on {out['rows']} rows ({out['chain_rows']} in chains): "
+        f"{out['hits']} hits, {out['evictions']} evictions, tables bit-equal")
+    return out
 
 
 def device_breakdown(torch, cache, keys, vals, first, wall_ms_per_batch, n=16):
@@ -988,6 +1092,156 @@ def kernel_records(torch, cfg, keys, vals, onepass_inputs, access_inputs, errs,
         f"{run_ns:.3f} ns per member of a one-key run; longest chain {max_chain}, "
         f"its path walked member by member {onepass['chain_path_ms']:.5f} ms")
     return [access, onepass]
+
+
+def seq_bytes_ops(cfg, sids, ops=None, live=None, costs=None):
+    """(bytes, int32 operations) the sequential engine needs for a stream
+    over set ids ``sids``: each distinct set's row read and written once;
+    each query's set id, key and value planes read, its opcode, chain mask
+    and cost only where the stream carries them (``ops``, ``live``, and
+    ``costs`` with a cost plane); its hit, pos, value planes and evicted
+    key and value planes written once; one transition's probe, empty scan
+    and rotate selects per query."""
+    import torch
+
+    n, a, c = sids.numel(), cfg.assoc, cfg.planes
+    kp, v = cfg.key_planes, cfg.value_planes
+    rows = torch.unique(sids).numel()
+    carried = (ops is not None) + (live is not None) + (costs is not None and cfg.cost_planes > 0)
+    words_in = 1 + kp + v + carried
+    words_out = 2 + v + kp + v
+    nbytes = 4 * (2 * rows * a * c + n * (words_in + words_out))
+    return nbytes, n * a * (kp + 1 + 3 * c)
+
+
+def seq_at_fig07_scale(torch, step_ns, smi):
+    """Phase 6: fig07's zipfian trace (FIG_KEYS keys, FIG_QUERIES queries,
+    Zipf 0.99, seed 7) at SEQ_SCALE_CAP items, m = 2, p = 4, no values,
+    from a cold table: ``access_seq`` (one msl_seq launch over the whole
+    stream) against the one-pass kernel in BATCH-query batches; every hit,
+    pos, evicted key and valid bit and the final table bit-equal.  Queries/s
+    and ns per query of each (host clock around each whole stream,
+    synchronized), the sequential kernel's device ms per stream
+    (``launches_ms``: two launches behind one), its byte bound and a
+    latency estimate (one dependent transition per query at phase 6's
+    ``chain_step_ns``)."""
+    import numpy as np
+
+    from repro_torch.core import MultiStepLRUCache, init_table, set_index_for
+    from repro_torch.data.ycsb import make_workload
+    from repro_torch.kernels.msl_cache import msl_seq_kernel_call
+
+    cfg = fig_cfg(SEQ_SCALE_CAP)
+    trace = torch.from_numpy(np.ascontiguousarray(
+        make_workload("zipfian", FIG_KEYS, FIG_QUERIES, ZIPF_ALPHA, seed=7), np.int32)).to(DEVICE)
+    n = trace.numel()
+    fields = ("hit", "pos", "evicted_key", "evicted_valid")
+    one = MultiStepLRUCache(cfg, device=DEVICE)
+    got = {f: [] for f in fields}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(0, n, BATCH):
+        res = one.access(trace[i:i + BATCH])
+        for f in fields:
+            got[f].append(getattr(res, f))
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t
+
+    seq = MultiStepLRUCache(cfg, device=DEVICE)
+    before = read_launches()["msl_seq"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = seq.access_seq(trace)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t
+    if read_launches()["msl_seq"] != before + 1:
+        raise AssertionError("access_seq over the stream did not launch msl_seq once")
+    for f in fields:
+        if not torch.equal(torch.cat(got[f]), getattr(want, f)):
+            raise AssertionError(f"fig07's stream: msl_seq != msl_onepass: {f}")
+    if not torch.equal(one.table, seq.table):
+        raise AssertionError("fig07's stream: the sequential and one-pass tables differ")
+
+    qk = trace[:, None].contiguous()
+    sids = set_index_for(cfg, qk)
+    nvals = torch.zeros((n, 0), dtype=torch.int32, device=DEVICE)
+    cold = init_table(cfg, DEVICE)
+    # all ACCESS, no chains, no cost plane: ops, chain mask and costs stay
+    # None, as access_seq passes them
+    device_ms = launches_ms(torch, lambda t: msl_seq_kernel_call(t, sids, qk, nvals, cfg=cfg),
+                            [cold.clone() for _ in range(3)])
+    nbytes, ops = seq_bytes_ops(cfg, sids)
+    out = {"capacity": cfg.capacity, "m": cfg.m, "p": cfg.p, "queries": n,
+           "hits": int(want.hit.sum()), "evictions": int(want.evicted_valid.sum()),
+           "seq_wall_s": seq_s, "seq_qps": n / seq_s, "seq_ns_per_query": 1e9 * seq_s / n,
+           "seq_device_ms": device_ms, "seq_device_ns_per_query": 1e6 * device_ms / n,
+           "onepass_wall_s": one_s, "onepass_qps": n / one_s,
+           "onepass_ns_per_query": 1e9 * one_s / n, "onepass_batches": math.ceil(n / BATCH),
+           "bound_ms": 1e3 * max(nbytes / HBM_BW, ops / INT32_OPS_PER_S),
+           "bound_by": "bytes" if nbytes / HBM_BW >= ops / INT32_OPS_PER_S else "operations",
+           "latency_estimate_ms": n * step_ns * 1e-6, "card": smi}
+    log(f"fig07's zipfian stream ({n} queries, capacity {cfg.capacity}, m=2 p=4) on {smi}: "
+        f"msl_seq == msl_onepass (hits, pos, evictions, table); sequential "
+        f"{out['seq_qps']:.4g} queries/s, {out['seq_ns_per_query']:.1f} ns per query "
+        f"({device_ms:.2f} device ms, {out['seq_device_ns_per_query']:.1f} ns per query); "
+        f"one-pass {out['onepass_qps']:.4g} queries/s, {out['onepass_ns_per_query']:.1f} ns "
+        f"per query; bound {out['bound_ms']:.4f} ms ({out['bound_by']}), latency estimate "
+        f"{out['latency_estimate_ms']:.1f} ms")
+    return out
+
+
+def seq_record(torch, keys, vals, summary, step_ns, smi):
+    """Phase 6: the sequential kernel's record at the shape of phase 5's
+    ``access_seq`` check (SEQ_CFG from a cold table, SEQ_PREFIX queries of
+    the main stream): device ms per launch (``launches_ms``: 20 launches
+    behind one), ms per wrapper call on a clone of the table, the plain
+    version's ms on the card (one call), the bound; then its run at fig07's
+    scale."""
+    from repro_torch.core import MSLRUConfig, init_table, set_index_for
+    from repro_torch.kernels.msl_cache import msl_seq_kernel_call, msl_seq_plain
+
+    cfg = MSLRUConfig(**SEQ_CFG)
+    qk = keys[:SEQ_PREFIX, None].contiguous()
+    qv = vals[:SEQ_PREFIX].contiguous()
+    n = SEQ_PREFIX
+    args = (set_index_for(cfg, qk), qk, qv)   # all ACCESS: as access_seq passes them
+    cold = init_table(cfg, DEVICE)
+    ms = launches_ms(torch, lambda t: msl_seq_kernel_call(t, *args, cfg=cfg),
+                     [cold.clone() for _ in range(21)])
+    call_ms = time_ms(torch, lambda: msl_seq_kernel_call(cold.clone(), *args, cfg=cfg), 20)
+    got = msl_seq_kernel_call(cold.clone(), *args, cfg=cfg)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = msl_seq_plain(cold.clone(), *args, cfg=cfg)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t)
+    err = max_abs_err(torch, want, got)
+    if err:
+        raise AssertionError(f"msl_seq: max |err| {err}")
+    nbytes, ops = seq_bytes_ops(cfg, args[0])
+    rec = {
+        "name": "msl_seq",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": "none: the JAX package's jitted lax.scan, src/repro/core/engine.py:290",
+        "launches": summary["launches_seq_check"]["msl_seq"],
+        "launches_path": f"access_seq on {SEQ_PREFIX} queries of the main stream",
+        "max_abs_err": err,
+        "ms": ms,
+        "ms_by": "CUDA events around 20 back-to-back launches",
+        "call_ms": call_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": 1e3 * max(nbytes / HBM_BW, ops / INT32_OPS_PER_S),
+        "bound_by": "bytes" if nbytes / HBM_BW >= ops / INT32_OPS_PER_S else "operations",
+        "library_ms": None,
+        "shape": {"N": n, "S": cfg.num_sets, "A": cfg.assoc, "C": cfg.planes},
+        "latency_estimate_ms": n * step_ns * 1e-6,
+        "fig07_stream": seq_at_fig07_scale(torch, step_ns, smi),
+    }
+    log(f"msl_seq: {ms:.4f} ms per {n}-query launch (plain {plain_ms:.1f} ms), bound "
+        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}), latency estimate "
+        f"{rec['latency_estimate_ms']:.4f} ms")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1769,7 +2023,8 @@ def release(torch):
 
 def log_record(r):
     log(f"{r['name']} ({r.get('shape', {}).get('arch', '')}): {r['ms']:.5f} ms/launch on "
-        f"the device (profiler, L2 flushed), {r['call_ms']:.5f} ms per wrapper call "
+        f"the device ({r.get('ms_by', 'profiler, L2 flushed')}), {r['call_ms']:.5f} ms per "
+        f"wrapper call "
         f"(plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms by {r['bound_by']}, "
         f"library {r['library_ms']} ms), {r['launches']} launches on the "
         f"{r['launches_path']}")
@@ -4860,62 +5115,24 @@ EXAMPLE_RESULTS = {
                         "reprefill_flops": 5120, "evicted_cost": 0}},
 }
 # the kernels each example's run must launch
-EXAMPLE_KERNELS = {"quickstart": ("msl_onepass",), "distributed_cache": ("msl_onepass",),
+EXAMPLE_KERNELS = {"quickstart": ("msl_onepass",),
+                   "distributed_cache": ("msl_onepass", "msl_seq"),
                    "serve_prefix_cache": ("msl_onepass", "paged_attn")}
 
 
-# examples started early (start_example) in a thread of this process: the
-# distributed cache's sequential oracle is a minute of host work, which
-# phase 31 (its ranks, not this process, drive the card) hides
-EARLY_EXAMPLES = ("distributed_cache",)
-
-
-def start_example(torch, name):
-    """``examples/torch_<name>.py``'s ``main`` on the card in a thread of
-    this process, its launches counted from 0 (no other work of this process
-    launches a kernel until ``run_examples`` joins it)."""
-    import threading
-
-    box = {}
-
-    def run():
-        t = time.perf_counter()
-        try:
-            box["got"] = example(f"torch_{name}").main(["--device", DEVICE])
-            torch.cuda.synchronize()
-        except BaseException as e:  # noqa: BLE001 - raised again by run_examples
-            box["error"] = e
-        box["wall_s"] = time.perf_counter() - t
-
-    zero_launches()
-    thread = threading.Thread(target=run, name=f"example {name}", daemon=True)
-    thread.start()
-    return thread, box
-
-
-def run_examples(torch, early):
+def run_examples(torch):
     """Phase 32: ``examples/torch_quickstart.py``, ``torch_distributed_cache.py``
     and ``torch_serve_prefix_cache.py`` in this process on the card
-    (``main(["--device", DEVICE])``; ``early``: those ``start_example``
-    started, joined here first): their own checks (value integrity "OK",
-    final table "YES"), every number of EXAMPLE_RESULTS equal, and each
+    (``main(["--device", DEVICE])``): their own checks (value integrity
+    "OK", final table "YES"), every number of EXAMPLE_RESULTS equal, and each
     example's kernels launched (counted from 0 for each run)."""
     out = {}
-    for name in [*early, *(n for n in EXAMPLE_RESULTS if n not in early)]:
-        want = EXAMPLE_RESULTS[name]
-        if name in early:
-            thread, box = early[name]
-            thread.join(timeout=900)
-            if thread.is_alive() or "error" in box:
-                raise AssertionError(f"examples/torch_{name}.py on the card did not finish: "
-                                     f"{box.get('error')!r}") from box.get("error")
-            got, wall = box["got"], box["wall_s"]
-        else:
-            zero_launches()
-            t = time.perf_counter()
-            got = example(f"torch_{name}").main(["--device", DEVICE])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
+    for name, want in EXAMPLE_RESULTS.items():
+        zero_launches()
+        t = time.perf_counter()
+        got = example(f"torch_{name}").main(["--device", DEVICE])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
         launches = {k: v for k, v in read_launches().items() if v}
         wrong = {k: (got[k], v) for k, v in want.items() if got[k] != v}
         if wrong:
@@ -4984,6 +5201,7 @@ def main() -> int:
     phase("6. msl_cache kernels")
     records = kernel_records(torch, cfg, keys, vals, onepass_inputs,
                              access_inputs, errs, summary)
+    seq_rec = seq_record(torch, keys, vals, summary, records[1]["chain_step_ns"], smi)
     # phase 20 reads the stream and its table again: they wait on the host,
     # so no phase in between counts them in its device memory
     host_stream = [x.cpu() for x in (keys, vals, stream_table)]
@@ -5001,6 +5219,7 @@ def main() -> int:
     phase("10. kernels")
     records[1]["launches_serving_path"] = serving["launches"]["msl_onepass"]
     records.append(paged_record(torch, eng, snapshot, serving, errs["paged_attn"]))
+    records.append(seq_rec)
     log(f"paged_attn: clusters of {records[2]['splits']} blocks per (row, KV head), "
         f"grid ({records[2]['shape']['KVH']}, {records[2]['shape']['B']}, "
         f"{records[2]['splits']}), for {records[2]['shape']['positions']} positions")
@@ -5168,7 +5387,6 @@ def main() -> int:
 
     phase(f"31. faults across processes, {FAULT_WORLD} gloo ranks sharing the card: (a) "
           "reshard and mark_degraded")
-    early = {name: start_example(torch, name) for name in EARLY_EXAMPLES}
     summary["reshard_processes"], serving["sharded_processes"] = run_faults(
         torch, serving["sharded"]["bounded"], phase21)
     d87 = summary["reshard_processes"]["pairs"]["8->7 rounds"]["msl_access_per_rank"]
@@ -5183,7 +5401,7 @@ def main() -> int:
 
     phase("32. the port's examples on the card: quickstart, distributed cache, prefix-cached "
           "serving")
-    serving["examples"] = run_examples(torch, early)
+    serving["examples"] = run_examples(torch)
     for r in records:
         r["launches_examples_path"] = sum(x["launches"].get(r["name"], 0)
                                           for x in serving["examples"].values())

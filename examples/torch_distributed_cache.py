@@ -9,8 +9,9 @@ over 8 devices with an all_to_all route; here the 8 are logical shards on
 one device (``launch.mesh.CacheMesh``), whose engine places each query as
 the route would (sheds included) and runs one update, on the card through
 the ``msl_onepass`` CUDA kernel.  The sequential oracle (``access_seq``,
-one query at a time) runs on the host: on the card each query would be a
-hundred-odd kernel launches.  ``main`` returns the numbers it prints.
+one query at a time, in order) runs on the same device: on the card one
+launch of the ``msl_seq`` kernel walks the whole trace.  ``main`` returns
+the numbers it prints.
 """
 
 import argparse
@@ -58,11 +59,11 @@ def main(argv=None) -> dict:
     print(f"sharded: hits={hits} served={served}/{len(trace)} "
           f"(overflow={(1 - served / len(trace)):.2%})")
 
-    ref = MultiStepLRUCache(cfg, device="cpu")
+    ref = MultiStepLRUCache(cfg, device=device)
     out = ref.access_seq(trace, vals=vals)
     oracle_hits = int(out.hit.sum())
     print(f"single-device oracle hits: {oracle_hits}")
-    same = bool(torch.equal(table[:cfg.num_sets].cpu(), ref.table))
+    same = bool(torch.equal(table[:cfg.num_sets], ref.table))
     print(f"final table state identical: {'YES' if same else 'NO'}")
     return {"capacity": cfg.capacity, "shards": mesh.shape["cache"], "queries": len(trace),
             "hits": hits, "served": served, "oracle_hits": oracle_hits,

@@ -3,7 +3,9 @@
 Port of ``repro.core.engine``.  Two execution models, both built on the row
 ops in multistep.py and bit-exact with each other and with the JAX package:
 
-* ``sequential`` — a plain loop, one query at a time: the oracle.
+* ``sequential`` — one query at a time, in order: the oracle.  One CUDA
+  kernel launch walks the whole stream for a table on the card, a plain
+  loop for a table on the CPU.
 * ``batched`` — B queries per call.  Queries to different sets commute;
   queries that collide on a set are serialized in batch order by one of
   two conflict schemes:
@@ -43,7 +45,6 @@ from repro_torch.core.multistep import (  # noqa: F401  (OP_* re-exported)
     OP_DELETE,
     OP_GET,
     OP_LOOKUP,
-    row_apply,
     row_lookup,
     set_index_for,
 )
@@ -96,44 +97,34 @@ def make_sequential_engine(cfg: MSLRUConfig, with_ops: bool = False):
     of the paper's single-threaded loop and the oracle of every batched
     engine.  ``with_ops=True`` adds the opcode argument; the chain execute
     mask of ``chain_ids`` is computed against the start table, matching the
-    batch-start probe of the batched engines.
+    batch-start probe of the batched engines.  The set ids are hashed once
+    for the whole stream; then ``kernels.msl_cache.msl_seq_kernel_call``
+    runs it on a clone of the table: one CUDA kernel launch for a table on
+    the card (the counterpart of the JAX package's jitted ``lax.scan``),
+    the plain loop of ``row_apply_ev`` for a table on the CPU.
     """
 
-    def scan(table, qkeys, qvals, opcodes, live, costs):
-        table = table.clone()
-        n, dev = qkeys.shape[0], table.device
-
-        def empty(*shape):
-            return torch.empty((n,) + shape, dtype=torch.int32, device=dev)
-
-        out = SeqOutputs(empty().bool(), empty(), empty(cfg.value_planes),
-                         empty(cfg.key_planes), empty(cfg.value_planes),
-                         empty().bool())
-        for i, s in enumerate(set_index_for(cfg, qkeys).tolist()):
-            q = slice(i, i + 1)
-            new_rows, res = row_apply(cfg, table[s:s + 1], qkeys[q], qvals[q],
-                                      opcodes[q], chain_live=live[q],
-                                      costs=costs[q])
-            table[s:s + 1] = new_rows
-            for dst, src in zip(out, (res.hit, res.pos, res.value, res.evicted_key,
-                                      res.evicted_val, res.evicted_valid)):
-                dst[q] = src
-        return table, out
+    kp, v = cfg.key_planes, cfg.value_planes
 
     def run(table, qkeys, qvals, opcodes=None, chain_ids=None, costs=None):
+        from repro_torch.kernels.msl_cache import msl_seq_kernel_call  # kernels -> core
+
         dev = table.device
-        n = qkeys.shape[0]
-        if opcodes is None or not with_ops:
-            opcodes = torch.full((n,), OP_ACCESS, dtype=torch.int32, device=dev)
-        opcodes = as_i32(opcodes, dev)
-        costs = (torch.zeros((n,), dtype=torch.int32, device=dev)
-                 if costs is None else as_i32(costs, dev))
-        if with_ops and chain_ids is not None:
-            live = chain_live_mask(cfg, table, qkeys, opcodes,
-                                   as_i32(chain_ids, dev))
-        else:
-            live = torch.ones((n,), dtype=torch.bool, device=dev)
-        return scan(table, qkeys, qvals, opcodes, live, costs)
+        qkeys, qvals = as_i32(qkeys, dev).contiguous(), as_i32(qvals, dev).contiguous()
+        # an operand the stream does not carry stays None (all OP_ACCESS,
+        # every chain row live, cost 0): the kernel then never reads it
+        opcodes = as_i32(opcodes, dev) if with_ops else None
+        live = None
+        if opcodes is not None and chain_ids is not None:
+            live = chain_live_mask(cfg, table, qkeys, opcodes, as_i32(chain_ids, dev))
+        opcodes, live, costs = (None if x is None else as_i32(x, dev).contiguous()
+                                for x in (opcodes, live, costs))
+        table, hit, pos, val, ev = msl_seq_kernel_call(
+            table.clone(), set_index_for(cfg, qkeys), qkeys, qvals, opcodes, live, costs,
+            cfg=cfg)
+        return table, SeqOutputs(hit=hit != 0, pos=pos, value=val,
+                                 evicted_key=ev[:, :kp], evicted_val=ev[:, kp:kp + v],
+                                 evicted_valid=ev[:, 0] != EMPTY_KEY)
 
     return run
 

@@ -8,6 +8,9 @@
 //       _chain_body): queries sorted by set id; each same-set chain is applied
 //       in rank order, the updated row handed from one member to the next.
 //
+// and adds a third, msl_seq_kernel, the sequential engine (its note is
+// below the one-pass kernel's).
+//
 // Layout.  A group of W lanes holds one set row: lane a < A of the group
 // keeps way a's C int32 planes in registers.  The probe and the empty-slot
 // search are ballots, the cost victim a minimum plus a ballot, and
@@ -16,8 +19,9 @@
 // starts (a find-last-set), not by a shuffle.  Lanes >= A are masked out of
 // every ballot and of the minimum, so A <= 32.  The one-pass kernel takes
 // W = 32, one row per warp; the access kernel the power of two at or above
-// A.  The plane counts C and KP are template parameters (C <= 8), so every
-// per-plane loop unrolls into straight-line code.
+// A; the sequential kernel W = 32.  The plane counts C and KP are template
+// parameters (C <= 8), so every per-plane loop unrolls into straight-line
+// code.
 //
 // msl_access: what bounds it.  It moves B*(2*A*C + KP + V + C + 2) int32
 // words, 232 bytes a row at the main geometry (A = 8, C = 3), but one row
@@ -75,6 +79,33 @@
 // run in no order, so here a warp finds its own chain: a position whose set
 // id equals its predecessor's is not a head and exits; a head walks its
 // whole chain, however long, and no chain is ever split.
+//
+// msl_seq_kernel replaces no Pallas kernel.  It is the counterpart of the
+// JAX package's sequential engine (src/repro/core/engine.py:290-351,
+// make_sequential_engine), one jitted lax.scan over the whole query stream:
+// one device program, here one launch of one warp that walks the stream in
+// order, as the paper's single SIMD unit does.  It is the oracle the batched
+// engines are held against, so it shares transition() with them but none of
+// their conflict handling.
+//
+// msl_seq: what bounds it.  Every query reads its set's row and the next
+// query may need the row it wrote, so the stream is one chain of N dependent
+// transitions, each behind a row load and ahead of a row store: latency, not
+// bandwidth (fig07's 2M-query stream needs some 42 MB moved, 13 us at HBM
+// rate).  The design keeps the dependent path to the transition itself:
+//
+//  * The row stays in registers while consecutive queries hit its set, and
+//    is stored only when the stream moves to another set.
+//  * Operands come in windows: lane t loads query base + t's set id and
+//    operands (one coalesced load per plane for 32 queries), and the next
+//    window's loads are in flight while this one is walked; a query's
+//    operands then cost C + 3 shuffles, not a load.
+//  * The next query's row is loaded while this query's transition runs,
+//    whenever its set differs from the one held.  That is safe: every other
+//    set's latest row has already been stored, by the same lane that now
+//    loads it (lane a holds way a of every row), so no fence is needed.
+//  * Outputs are kept by lane t for query base + t and stored 32 wide once
+//    per window.
 //
 // Plain C interface, loaded with ctypes: every launcher returns
 // cudaGetLastError() of its launch (cudaErrorInvalidValue, without
@@ -381,14 +412,22 @@ __device__ __forceinline__ Window<C> load_window(const Geometry& g, const Operan
   return w;
 }
 
+// Lane t's query on every lane.
+template <int C>
+__device__ __forceinline__ Query<C> shfl_query(const Query<C>& q, int t) {
+  Query<C> m;
+#pragma unroll
+  for (int c = 0; c < C; ++c) m.item[c] = __shfl_sync(kFull, q.item[c], t);
+  m.op = __shfl_sync(kFull, q.op, t);
+  m.live = __shfl_sync(kFull, q.live, t);
+  return m;
+}
+
 // Member t's operands on every lane.
 template <int C>
 __device__ __forceinline__ Member<C> fetch(const Window<C>& w, int t) {
   Member<C> m;
-#pragma unroll
-  for (int c = 0; c < C; ++c) m.q.item[c] = __shfl_sync(kFull, w.m.q.item[c], t);
-  m.q.op = __shfl_sync(kFull, w.m.q.op, t);
-  m.q.live = __shfl_sync(kFull, w.m.q.live, t);
+  m.q = shfl_query<C>(w.m.q, t);
   m.served = __shfl_sync(kFull, w.m.served, t);
   return m;
 }
@@ -544,6 +583,73 @@ msl_onepass_kernel(Geometry g, int B, const int* __restrict__ rows, Operands in,
   }
 }
 
+// One query of the stream as a window holds it (lane t: query base + t).
+template <int C>
+struct Slot {
+  Query<C> q;
+  int sid;  // its set; -1 past the end of the stream
+};
+
+template <int C, int KP>
+__device__ __forceinline__ Slot<C> load_slot(const Geometry& g, const Operands& in,
+                                             const int* sids, int N, int j) {
+  Slot<C> s;
+  if (j < N) {
+    s.sid = sids[j];
+    load_query<C, KP>(g, in, j, s.q);
+  } else {
+    s.sid = -1;
+#pragma unroll
+    for (int c = 0; c < C; ++c) s.q.item[c] = 0;
+    s.q.op = OP_ACCESS;
+    s.q.live = 1;
+  }
+  return s;
+}
+
+// The whole stream of N >= 1 queries, in order, on one warp: query i
+// applies transition() to row sids[i] of `table`, which is updated in
+// place.  Lane a < A holds way a of the row in registers.  `table` is
+// neither const nor restrict: the kernel reads back rows it wrote.
+template <int C, int KP>
+__global__ void __launch_bounds__(32)
+msl_seq_kernel(Geometry g, int N, int* table, const int* __restrict__ sids, Operands in,
+               Outputs out) {
+  const int lane = threadIdx.x & 31;
+  const Group<32> warp(lane);
+  const size_t ac = (size_t)g.A * C;
+  int held = sids[0];
+  int r[C];
+  load_row<C>(g, table + held * ac, lane, r);
+  Slot<C> w = load_slot<C, KP>(g, in, sids, N, lane);
+
+  for (int base = 0; base < N; base += 32) {
+    const Slot<C> next = load_slot<C, KP>(g, in, sids, N, base + 32 + lane);  // in flight
+    const int n = min(32, N - base);
+    Result<C> mine;  // the outputs of query base + lane
+    for (int t = 0; t < n; ++t) {
+      const Query<C> q = shfl_query<C>(w.q, t);
+      const int s_next = t < 31 ? __shfl_sync(kFull, w.sid, t + 1)
+                                : __shfl_sync(kFull, next.sid, 0);
+      const bool move = s_next >= 0 && s_next != held;  // warp-uniform
+      int nr[C] = {};
+      if (move) load_row<C>(g, table + s_next * ac, lane, nr);  // lands during the transition
+      Result<C> res;
+      transition<C, KP, 32>(g, warp, r, q, res);
+      if (lane == t) mine = res;
+      if (move) {
+        store_row<C>(g, table + held * ac, lane, r);
+#pragma unroll
+        for (int c = 0; c < C; ++c) r[c] = nr[c];
+        held = s_next;
+      }
+    }
+    if (lane < n) store_result<C, KP>(g, out, base + lane, mine);
+    w = next;
+  }
+  store_row<C>(g, table + held * ac, lane, r);
+}
+
 int blocks_for(int B) { return (B + kWarpsPerBlock - 1) / kWarpsPerBlock; }
 
 // The access kernel's lane-group width: the power of two at or above A.
@@ -638,6 +744,24 @@ int msl_onepass_launch(const int* rows, const int* qk, const int* qv,
     msl_onepass_kernel<decltype(c)::value, decltype(kp)::value>
         <<<blocks_for(B), kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
             g, B, rows, in, sids, served, out);
+  });
+}
+
+// The sequential engine: one warp over the N queries, `table` (S, A, C)
+// updated in place.
+int msl_seq_launch(int* table, const int* sids, const int* qk, const int* qv,
+                   const int* ops, const int* live, const int* costs,
+                   int* hit, int* pos, int* val, int* ev,
+                   int N, int A, int C, int KP, int V, int M, int P,
+                   int cost_planes, int set_lru, void* stream) {
+  const Geometry g{A, V, M, P, cost_planes, set_lru, vstarts_for(A, P)};
+  const Operands in{qk, qv, ops, live, costs};
+  const Outputs out{nullptr, hit, pos, val, ev};
+  if (g.vstarts == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (N <= 0) return static_cast<int>(cudaGetLastError());
+  return with_planes(C, KP, [&](auto c, auto kp) {
+    msl_seq_kernel<decltype(c)::value, decltype(kp)::value>
+        <<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(g, N, table, sids, in, out);
   });
 }
 

@@ -18,6 +18,11 @@ compiles it with ``nvcc`` at first use and loads it with ctypes.
   ``msl_onepass_kernel_call``.
   Plain version: ``chain_resolve_plain``, the rank-by-rank loop of the JAX
   package's ``_chain_body`` over the whole sorted batch.
+* ``msl_seq_kernel_call`` — the sequential engine: one warp walks the
+  whole query stream in order, each query one transition of its set's row,
+  the table updated in place; replaces no Pallas kernel, but the JAX
+  package's jitted ``lax.scan`` (``make_sequential_engine``).  Plain
+  version: ``msl_seq_plain``, one ``row_apply_ev`` per query.
 
 Each wrapper runs the plain version for tensors on the CPU and the kernel
 for tensors on a CUDA device; it never falls back from one to the other.
@@ -32,7 +37,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.core.multistep import MSLRUConfig
+from repro_torch.core.multistep import OP_ACCESS, MSLRUConfig, row_apply_ev
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.ref import msl_access_ref
 
@@ -43,12 +48,14 @@ __all__ = [
     "SOURCE",
     "msl_access_kernel_call",
     "msl_onepass_kernel_call",
+    "msl_seq_kernel_call",
     "msl_access_plain",
     "chain_resolve_plain",
+    "msl_seq_plain",
 ]
 
 # Kernel launches per wrapper, counted where each launch is made.
-LAUNCHES = {"msl_access": 0, "msl_onepass": 0}
+LAUNCHES = {"msl_access": 0, "msl_onepass": 0, "msl_seq": 0}
 
 MAX_ASSOC = 32      # a set row is held by at most one warp: a lane per way
 MAX_PLANES = 8      # planes per lane the kernels are built for (kMaxPlanes)
@@ -65,6 +72,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.msl_access_launch.restype = _I
     lib.msl_onepass_launch.argtypes = [_P] * 13 + [_I] * 9 + [_P]
     lib.msl_onepass_launch.restype = _I
+    lib.msl_seq_launch.argtypes = [_P] * 11 + [_I] * 9 + [_P]
+    lib.msl_seq_launch.restype = _I
     return lib
 
 
@@ -250,3 +259,65 @@ def msl_onepass_kernel_call(rows, qkeys, qvals, ops, sids, lrank, served,
     _raise_on(err, "msl_onepass")
     new_rows, hit, pos, val, ev = out
     return new_rows, hit, pos, val[:, :cfg.value_planes], ev
+
+
+# ---------------------------------------------------------------------------
+# msl_seq: the whole stream in order, one query at a time
+# ---------------------------------------------------------------------------
+
+def msl_seq_plain(table, sids, qkeys, qvals, ops=None, chain_live=None, costs=None,
+                  *, cfg: MSLRUConfig):
+    """Plain PyTorch version of ``msl_seq_kernel_call`` (same arguments and
+    outputs): one ``row_apply_ev`` per query on its set's row, ``table``
+    updated in place."""
+    n, dev = qkeys.shape[0], table.device
+    if ops is None:
+        ops = torch.full((n,), OP_ACCESS, dtype=torch.int32, device=dev)
+    new = functools.partial(torch.empty, dtype=torch.int32, device=dev)
+    hit, pos, val, ev = new((n,)), new((n,)), new((n, cfg.value_planes)), new((n, cfg.planes))
+
+    def at(x, q):
+        return None if x is None else x[q]
+
+    for i, s in enumerate(sids.tolist()):
+        q = slice(i, i + 1)
+        new_rows, res, ev[q] = row_apply_ev(cfg, table[s:s + 1], qkeys[q], qvals[q], ops[q],
+                                            chain_live=at(chain_live, q), costs=at(costs, q))
+        table[s:s + 1] = new_rows
+        hit[q], pos[q], val[q] = res.hit, res.pos, res.value
+    return table, hit, pos, val, ev
+
+
+def msl_seq_kernel_call(table, sids, qkeys, qvals, ops=None, chain_live=None,
+                        costs=None, *, cfg: MSLRUConfig):
+    """The sequential engine over a whole query stream, in one launch.
+
+    table (S, A, C) int32, updated in place; sids (N,) each query's set
+    (``set_index_for``); qkeys (N, KP); qvals (N, V); ops (N,) opcodes or
+    None (all OP_ACCESS); chain_live (N,) optional int32 execute mask for
+    chain rows; costs (N,) optional insert costs.  Query i applies one
+    transition to row sids[i] as queries 0..i-1 left it.  Returns (table,
+    hit (N,) int32, pos (N,) int32, value (N, V) int32, evicted (N, C)
+    int32) as ``msl_access_kernel_call`` does, bit-equal to
+    ``msl_seq_plain``.  CPU tensors run the plain version; CUDA tensors
+    launch the kernel: one warp walks the stream.
+    """
+    if chain_live is not None and ops is None:
+        raise ValueError("chain_live requires ops")
+    if table.device.type == "cpu":
+        return msl_seq_plain(table, sids, qkeys, qvals, ops, chain_live, costs, cfg=cfg)
+    n = qkeys.shape[0]
+    _check_cuda(cfg, table, {**_query_shapes(cfg, n, qkeys, qvals, ops, chain_live, costs),
+                             "sids": (sids, (n,))})
+    new = functools.partial(torch.empty, dtype=torch.int32, device=table.device)
+    hit, pos = new((n,)), new((n,))
+    val, ev = new((n, max(cfg.value_planes, 1))), new((n, cfg.planes))
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        LAUNCHES["msl_seq"] += 1
+        err = _library().msl_seq_launch(
+            *map(_ptr, (table, sids, qkeys, qvals, ops, chain_live, costs,
+                        hit, pos, val, ev)),
+            n, *_geometry(cfg), stream)
+    _raise_on(err, "msl_seq")
+    return table, hit, pos, val[:, :cfg.value_planes], ev

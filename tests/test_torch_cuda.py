@@ -186,12 +186,65 @@ def test_onepass_kernel_resolves_runs(cuda, case, served_holes):
     _assert_outputs_equal(msl_cache.chain_resolve_plain(*args, cfg=cfg), got)
 
 
+def _seq_case(geom, device, seed, n):
+    """(cfg, table, sids, qkeys, qvals, ops, chain_live, costs) for the
+    sequential kernel: random rows as in the row tests for a table of 8
+    sets, a stream of ``n`` keys from a small pool (hits, evictions, runs on
+    one set and moves between sets), all six opcodes, chain mask, costs."""
+    kw, rows, _, _, ops, live, costs = random_rows_case(geom, seed, max(n, 8))
+    cfg = MSLRUConfig(**{**kw, "num_sets": 8})
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(1, 120, (n, cfg.key_planes)).astype(np.int32)
+    keys[:, 1:] = rng.integers(0, 2, (n, cfg.key_planes - 1))
+    vals = rng.integers(-99, 99, (n, cfg.value_planes)).astype(np.int32)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    qk = t(keys)
+    return (cfg, t(rows[:8]), set_index_for(cfg, qk), qk, t(vals), t(ops[:n]),
+            t(live[:n]), t(costs[:n]))
+
+
+def _seq_equal(cfg, args, extra):
+    """The sequential kernel on a copy of the table against the plain version
+    on a CPU copy of the same inputs: table and every output bit-equal, one
+    launch."""
+    table, rest = args[0], args[1:]
+    before = msl_cache.LAUNCHES["msl_seq"]
+    got = msl_cache.msl_seq_kernel_call(table.clone(), *rest, *extra, cfg=cfg)
+    assert msl_cache.LAUNCHES["msl_seq"] == before + 1
+    cpu = [None if x is None else x.cpu() for x in (table.clone(), *rest, *extra)]
+    want = msl_cache.msl_seq_plain(*cpu, cfg=cfg)
+    for name, w, g in zip(("table", "hit", "pos", "value", "evicted"), want, got):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(), err_msg=f"{name} mismatch")
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("geom", ROW_GEOMS, ids=lambda g: "-".join(map(str, g)))
+def test_seq_kernel_matches_plain(cuda, geom, variant):
+    """One warp over a 2000-query stream (62 full windows and a partial
+    one) on 8 sets, against ``msl_seq_plain``."""
+    cfg, table, sids, qk, qv, ops, live, costs = _seq_case(geom, cuda, seed=4, n=2000)
+    _seq_equal(cfg, (table, sids, qk, qv),
+               variant_operands(variant, ops, live, costs, cfg.cost_planes))
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 64])
+def test_seq_kernel_stream_ends(cuda, n):
+    """Streams that end inside, at and just past a window of 32 queries."""
+    cfg, table, sids, qk, qv, ops, live, costs = _seq_case(ROW_GEOMS[-1], cuda, seed=n, n=n)
+    _seq_equal(cfg, (table, sids, qk, qv), (ops, live, costs))
+
+
 @pytest.mark.parametrize("kw", [dict(num_sets=64, m=2, p=4, value_planes=2),
                                 dict(num_sets=32, m=2, p=4, value_planes=1,
                                      cost_planes=1)])
 def test_cache_engines_agree_on_the_card(cuda, kw):
-    """One-pass == rounds == sequential through the kernels, and the run
-    really launched both kernels."""
+    """One-pass == rounds == sequential through the kernels, the sequential
+    kernel == the plain sequential loop on a CPU table (an oracle that
+    shares no code with the kernels), and the run really launched all three
+    kernels."""
     from repro_torch.data.ycsb import zipfian
 
     cfg = MSLRUConfig(**kw)
@@ -201,22 +254,28 @@ def test_cache_engines_agree_on_the_card(cuda, kw):
     caches = {e: MultiStepLRUCache(cfg, engine=e, device=cuda)
               for e in ("onepass", "rounds")}
     seq = MultiStepLRUCache(cfg, device=cuda)
+    plain = MultiStepLRUCache(cfg, device="cpu")
     before = dict(msl_cache.LAUNCHES)
     for i in range(0, len(keys), 1024):
         q = slice(i, i + 1024)
         c = None if costs is None else costs[q]
         want = seq.access_seq(keys[q], vals[q], costs=c)
+        ref = plain.access_seq(keys[q], vals[q], costs=c)
+        for f in want._fields:
+            np.testing.assert_array_equal(getattr(want, f).cpu().numpy(),
+                                          getattr(ref, f).numpy(), err_msg=f"seq: {f}")
         for e, cache in caches.items():
             got = cache.access(keys[q], vals[q], costs=c)
             for f in ("hit", "pos", "evicted_key", "evicted_valid"):
                 np.testing.assert_array_equal(getattr(got, f).cpu().numpy(),
                                               getattr(want, f).cpu().numpy(),
                                               err_msg=f"{e}: {f}")
-    for cache in caches.values():
+    for cache in (*caches.values(), plain):
         np.testing.assert_array_equal(table_to_numpy(cache.table),
                                       table_to_numpy(seq.table))
     assert msl_cache.LAUNCHES["msl_onepass"] > before["msl_onepass"]
     assert msl_cache.LAUNCHES["msl_access"] > before["msl_access"]
+    assert msl_cache.LAUNCHES["msl_seq"] == before["msl_seq"] + len(keys) // 1024
 
 
 @pytest.mark.parametrize("engine", ["rounds", "onepass"])
@@ -248,6 +307,21 @@ def test_kernel_refuses_wide_sets(cuda):
     vals = torch.zeros((2, 0), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="A = 64"):
         msl_cache.msl_access_kernel_call(rows, keys, vals, cfg=cfg)
+
+
+@pytest.mark.parametrize("kw,match", [(dict(m=8, p=8, value_planes=0), "A = 64"),
+                                      (dict(m=2, p=4, value_planes=8), "C = 9")])
+def test_seq_kernel_refuses_wide_sets_and_planes(cuda, kw, match):
+    """The sequential kernel holds a row in one warp and at most 8 planes a
+    lane: A > 32 and C > 8 raise before a launch."""
+    cfg = MSLRUConfig(num_sets=4, **kw)
+    table = init_table(cfg, cuda)
+    keys = torch.ones((2, 1), dtype=torch.int32, device=cuda)
+    vals = torch.zeros((2, cfg.value_planes), dtype=torch.int32, device=cuda)
+    before = msl_cache.LAUNCHES["msl_seq"]
+    with pytest.raises(ValueError, match=match):
+        msl_cache.msl_seq_kernel_call(table, set_index_for(cfg, keys), keys, vals, cfg=cfg)
+    assert msl_cache.LAUNCHES["msl_seq"] == before
 
 
 # ---------------------------------------------------------------------------

@@ -63,8 +63,22 @@ ROOT = Path(__file__).resolve().parent.parent
 # (measured, train / prefill / decode: phi3-mini-smoke 0.10 / 0.16 / 0.14 %,
 # olmoe-smoke 0.33 / 0.55 / 0.32 %, xlstm-smoke 0.61 / 0.38 / 0.27 %): XLA's
 # program keeps a few dots PyTorch does not run, such as the MoE router's
-# one-hot dispatch products.  (hymba-smoke's train and prefill cells count
-# 3.4 % below XLA's, its decode 0.2 %; the gap is not located yet.)
+# one-hot dispatch products and the norms' row sums of squares (an einsum in
+# JAX, a multiply and a mean here).  hymba-smoke at 128 positions counts
+# 3.4 % below XLA's in its train and prefill cells: its attention runs over
+# 8 meta tokens and the 128 positions, 136 queries, and JAX's
+# ``chunked_attention`` pads the queries to whole chunks of ``attn_chunk``
+# (32), 160 rows, whose dots XLA computes and discards; the port's chunk loop
+# takes a last chunk of 8 rows.  Every attention dot is linear in the query
+# rows, so XLA's attention FLOPs are the port's times 160 / 136, which is
+# the whole gap (train 1103360000 against 1066024960; prefill 127767040
+# against 123371520).  So hymba's train and prefill cells here run 120
+# positions (128 queries, no padding): 0.18 % below and 0.02 % above.
+# Not held here: whisper-smoke's decode cell, 45 % below for the same
+# padding (its cross-attention pads the one decode query to a chunk of 16
+# rows), and command-r-smoke's train cell, 2.0 % above (one more (256 x
+# 128) . (128 x 128) dot per layer and microbatch than XLA's program keeps;
+# not located).
 FLOPS_RTOL = 0.01
 CELLS = [("train", 128, 4), ("prefill", 128, 2), ("decode", 128, 2)]
 
@@ -86,12 +100,17 @@ def _port_counts(cfg, shape, microbatches):
                              microbatches=microbatches or 1)
 
 
-@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "olmoe-1b-7b", "xlstm-1.3b"])
+@pytest.mark.parametrize("arch", [
+    "phi3-mini-3.8b", "olmoe-1b-7b", "xlstm-1.3b", "hymba-1.5b",
+    *(pytest.param(a, marks=pytest.mark.slow) for a in (
+        "gemma3-1b", "starcoder2-7b", "qwen2-vl-72b", "phi3.5-moe-42b-a6.6b"))])
 def test_counted_flops_match_jax_hlo(arch):
     mesh = make_debug_mesh((1, 1))
     for kind, s, b in CELLS:
         remat = "full" if kind == "train" else "none"
         cfg = dataclasses.replace(get_config(arch, smoke=True), remat=remat)
+        if kind != "decode":   # whole attention chunks (FLOPS_RTOL's note)
+            s -= cfg.meta_tokens
         jcfg = dataclasses.replace(jax_get_config(arch, smoke=True), remat=remat)
         jb = jax_bundle_for(jcfg, mesh, JaxShapeSpec("c", s, b, kind), microbatches=2)
         with mesh:

@@ -18,6 +18,7 @@ from repro_torch.core import (MSLRUConfig, OP_ACCESS, OP_CHAIN_GET,
                               OP_CHAIN_PUT, OP_DELETE, OP_GET, OP_LOOKUP,
                               init_table, table_from_numpy)
 from repro_torch.core import engine
+from repro_torch.kernels import msl_cache
 from repro_torch.core.multistep import set_index_for
 from repro_torch.kernels.ops import (kernel_rounds_update,
                                      make_kernel_batched_engine, onepass_update)
@@ -174,6 +175,41 @@ def test_chain_batches_match_jax(ci):
             assert_same(ref, got, f"batch {step} {n}")
             np.testing.assert_array_equal(tt[n].numpy(), np.asarray(jt["seq"]),
                                           err_msg=f"batch {step} {n} table")
+
+
+@pytest.mark.parametrize("policy", ["set_lru", "multistep"])
+def test_sequential_engine_plain_dispatch_matches_jax(policy, monkeypatch):
+    """make_sequential_engine on CPU tensors runs ``msl_seq_plain`` (once a
+    call, no kernel launch), bit-equal to JAX's jitted ``lax.scan`` engine
+    over every opcode, chain ops with chain ids, a cost plane, two key
+    planes and A = 32 (fig11's m = 8, p = 4), three streams deep."""
+    kw = dict(num_sets=2, m=8, p=4, key_planes=2, value_planes=1, cost_planes=1,
+              policy=policy)
+    jcfg, cfg = JaxConfig(**kw), MSLRUConfig(**kw)
+    calls = []
+    plain = msl_cache.msl_seq_plain
+    monkeypatch.setattr(msl_cache, "msl_seq_plain",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    launches = msl_cache.LAUNCHES["msl_seq"]
+    jrun = jax_engine.make_sequential_engine(jcfg, with_ops=True)
+    run = engine.make_sequential_engine(cfg, with_ops=True)
+    rng = np.random.default_rng(31)
+    jt, tt = jax_init_table(jcfg), init_table(cfg, "cpu")
+    evictions = 0
+    for step in range(3):
+        keys, vals, ops, cids, costs = random_chain_batch(rng, 2, 1, n_chains=10,
+                                                          key_range=200, b=160)
+        jt, want = jrun(jt, jnp.asarray(keys), jnp.asarray(vals), jnp.asarray(ops),
+                        jnp.asarray(cids), costs=jnp.asarray(costs))
+        tt, got = run(tt, _t(keys), _t(vals), _t(ops), _t(cids), costs=_t(costs))
+        assert_same(want, got, f"stream {step}")
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt),
+                                      err_msg=f"stream {step} table")
+        assert set(ops.tolist()) == {OP_ACCESS, OP_GET, OP_DELETE, OP_LOOKUP,
+                                     OP_CHAIN_GET, OP_CHAIN_PUT}
+        evictions += int(np.asarray(want.evicted_valid).sum())
+    assert evictions > 0
+    assert len(calls) == 3 and msl_cache.LAUNCHES["msl_seq"] == launches
 
 
 def test_chain_live_from_a_jax_warmed_table():
