@@ -33,10 +33,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    on it (the rest it resolved as runs).  Then the one-pass engine against
    the rounds engine (the access kernel) on four batches past the stream,
    and against ``access_seq`` (one ``msl_seq`` launch, counted from 0) on a
-   4096-query prefix of a small configuration; the sequential kernel
-   against its plain version on CPU copies of that prefix and of mixed-op
-   streams with chain ops and a cost plane (A = 32, two key planes,
-   set_lru; A = 8, multistep);
+   4096-query prefix of a small configuration; the sequential kernel, at
+   the wrapper's own number of queues and at one (a warp over the whole
+   stream in order), against its plain version on CPU copies of that
+   prefix and of mixed-op streams with chain ops and a cost plane (A = 32,
+   two key planes, set_lru; A = 8, multistep);
 6. the msl_cache kernels' records: launches on the path that runs each
    (the one-pass stream for the one-pass kernel, the rounds cross-check
    for the access kernel, ``access_seq`` for the sequential kernel), time
@@ -46,11 +47,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    ns per dependent transition on a chain with no two neighbours equal, ns
    per member of a one-key run, and the longest chain walked member by
    member at that rate (``chain_path_ms``, a critical path, not a bound);
-   for the sequential kernel its record at phase 5's check and, on fig07's
-   zipfian stream (1M keys, 2M queries, capacity 262144, m = 2, p = 4),
-   ``access_seq`` in one launch against the one-pass kernel in batches of
-   8192: hits, positions, evictions and the final table bit-equal,
-   queries/s and ns per query of each;
+   for the sequential kernel its record at phase 5's check and, on each of
+   fig07's zipfian, latest and scan streams (1M keys, 2M queries, capacity
+   262144, m = 2, p = 4), ``access_seq`` in one launch against the
+   one-pass kernel in batches of 8192: hits, positions, evictions and the
+   final table bit-equal, queries/s and ns per query of each, the
+   kernel's device ms beside its byte bound and its dependency floor (the
+   longest owner queue at the ns of one dependent transition); on zipfian
+   also the kernel at one queue, bit-equal, and its device ms;
 7. the paged-attention kernel against its plain version at the serving
    path's shapes and at GQA rep 2 and 4, Dh 64 and 128, with windows and
    softcaps, a row with no prefix and a row whose tail is one token
@@ -820,53 +824,88 @@ def _seq_equal(torch, want, got, what):
         raise AssertionError(f"msl_seq != plain: the table, {what}")
 
 
+@contextlib.contextmanager
+def forced_owners(n):
+    """Inside the block, the sequential kernel walks ``n`` queues (1: one
+    warp over the whole stream in order) wherever ``make_sequential_engine``
+    (and so ``access_seq``) calls it, in place of the wrapper's own G."""
+    import functools
+
+    from repro_torch.kernels import msl_cache
+
+    call = msl_cache.msl_seq_kernel_call
+    msl_cache.msl_seq_kernel_call = functools.partial(call, owners=n)
+    try:
+        yield
+    finally:
+        msl_cache.msl_seq_kernel_call = call
+
+
+# the sequential kernel's two schedules held against the plain loop: the
+# wrapper's own number of queues and one warp over the whole stream
+SEQ_SCHEDULES = (None, 1)
+
+
 def check_seq_kernel(torch, small, prefix_k, prefix_v, want, table):
     """Phase 5(i): the sequential kernel against ``msl_seq_plain`` on CPU
-    copies of the same inputs, through ``make_sequential_engine``: (a) the
-    main stream's prefix just run by ``access_seq`` on the card (``want``,
-    ``table``); (b) SEQ_GEOMS' mixed-op streams
+    copies of the same inputs, through ``make_sequential_engine``, at the
+    wrapper's own G and at G = 1 (SEQ_SCHEDULES): (a) the main stream's
+    prefix just run by ``access_seq`` on the card (``want``, ``table``) and
+    again at G = 1; (b) SEQ_GEOMS' mixed-op streams
     (``tests/torch_oracle_cases.py``: ACCESS, GET, DELETE, LOOKUP,
     prefix-cache chains with chain ids, costs; among them A = 32, two key
     planes, a cost plane and set_lru), SEQ_CALLS calls of SEQ_ROWS rows
-    each, one launch per call on the card: every output and the table
-    bit-equal.  Returns the rows compared and their hits and evictions."""
+    each, one launch per call and schedule on the card: every output and
+    the table bit-equal.  Returns the rows compared and their hits and
+    evictions."""
     import numpy as np
 
     from repro_torch.core import MSLRUConfig, init_table, make_sequential_engine
+    from repro_torch.kernels.msl_cache import seq_owners
 
     run = make_sequential_engine(small)
-    _seq_equal(torch, run(init_table(small, "cpu"), prefix_k[:, None].cpu(), prefix_v.cpu()),
-               (table, want), "the main stream's prefix")
-    out = {"rows": prefix_k.numel(), "hits": 0, "evictions": 0, "chain_rows": 0}
+    plain = run(init_table(small, "cpu"), prefix_k[:, None].cpu(), prefix_v.cpu())
+    _seq_equal(torch, plain, (table, want), "the main stream's prefix")
+    with forced_owners(1):
+        _seq_equal(torch, plain, run(init_table(small, DEVICE), prefix_k[:, None], prefix_v),
+                   "the main stream's prefix, G = 1")
+    out = {"rows": prefix_k.numel(), "hits": 0, "evictions": 0, "chain_rows": 0,
+           "owners": {"prefix": seq_owners(small, prefix_k.numel(), DEVICE)}}
     oc = oracle_cases()
     for m, p, kp, cp, policy in SEQ_GEOMS:
         cfg = MSLRUConfig(num_sets=16, m=m, p=p, key_planes=kp, value_planes=2,
                           cost_planes=cp, policy=policy)
         run = make_sequential_engine(cfg, with_ops=True)
         rng = np.random.default_rng(SEED + 7 * m + p)
-        tables = {DEVICE: init_table(cfg, DEVICE), "cpu": init_table(cfg, "cpu")}
+        tables = {g: init_table(cfg, DEVICE) for g in SEQ_SCHEDULES}
+        tables["cpu"] = init_table(cfg, "cpu")
         for i in range(SEQ_CALLS):
             batch = oc.mixed_batch(rng, cfg, SEQ_ROWS, 3 * cfg.capacity)
             res = {}
-            for dev in (DEVICE, "cpu"):
+            for g in ("cpu", *SEQ_SCHEDULES):
+                dev = "cpu" if g == "cpu" else DEVICE
                 args = [torch.from_numpy(batch[k]).to(dev)
                         for k in ("keys", "vals", "ops", "chain_ids", "costs")]
                 before = read_launches()["msl_seq"]
-                tables[dev], res[dev] = run(tables[dev], *args[:4], costs=args[4])
+                with forced_owners(g) if g == 1 else contextlib.nullcontext():
+                    tables[g], res[g] = run(tables[g], *args[:4], costs=args[4])
                 if dev == DEVICE and read_launches()["msl_seq"] != before + 1:
                     raise AssertionError("make_sequential_engine did not launch msl_seq once")
-            _seq_equal(torch, (tables["cpu"], res["cpu"]), (tables[DEVICE], res[DEVICE]),
-                       f"{cfg}, call {i}")
+            for g in SEQ_SCHEDULES:
+                _seq_equal(torch, (tables["cpu"], res["cpu"]), (tables[g], res[g]),
+                           f"{cfg}, call {i}, G = {g or 'default'}")
             out["rows"] += SEQ_ROWS
             out["hits"] += int(res["cpu"].hit.sum())
             out["evictions"] += int(res["cpu"].evicted_valid.sum())
             out["chain_rows"] += int((batch["chain_ids"] > 0).sum())
-        log(f"msl_seq == plain (CPU copies): m={m} p={p} (A = {m * p}), key planes {kp}, "
-            f"cost planes {cp}, {policy}: {SEQ_CALLS} mixed-op calls of {SEQ_ROWS} rows")
+        out["owners"][f"m{m}p{p}"] = seq_owners(cfg, SEQ_ROWS, DEVICE)
+        log(f"msl_seq == plain (CPU copies) at G = {out['owners'][f'm{m}p{p}']} and G = 1: "
+            f"m={m} p={p} (A = {m * p}), key planes {kp}, cost planes {cp}, {policy}: "
+            f"{SEQ_CALLS} mixed-op calls of {SEQ_ROWS} rows")
     if not out["evictions"]:
         raise AssertionError("the sequential checks evicted nothing")
-    log(f"msl_seq == plain on {out['rows']} rows ({out['chain_rows']} in chains): "
-        f"{out['hits']} hits, {out['evictions']} evictions, tables bit-equal")
+    log(f"msl_seq == plain on {out['rows']} rows ({out['chain_rows']} in chains) at both "
+        f"schedules: {out['hits']} hits, {out['evictions']} evictions, tables bit-equal")
     return out
 
 
@@ -1114,26 +1153,33 @@ def seq_bytes_ops(cfg, sids, ops=None, live=None, costs=None):
     return nbytes, n * a * (kp + 1 + 3 * c)
 
 
-def seq_at_fig07_scale(torch, step_ns, smi):
-    """Phase 6: fig07's zipfian trace (FIG_KEYS keys, FIG_QUERIES queries,
-    Zipf 0.99, seed 7) at SEQ_SCALE_CAP items, m = 2, p = 4, no values,
-    from a cold table: ``access_seq`` (one msl_seq launch over the whole
-    stream) against the one-pass kernel in BATCH-query batches; every hit,
-    pos, evicted key and valid bit and the final table bit-equal.  Queries/s
-    and ns per query of each (host clock around each whole stream,
-    synchronized), the sequential kernel's device ms per stream
-    (``launches_ms``: two launches behind one), its byte bound and a
-    latency estimate (one dependent transition per query at phase 6's
-    ``chain_step_ns``)."""
+# phase 6: fig07's three streams (benchmarks/fig07_hit_ratio.py DISTS)
+SEQ_STREAMS = ("zipfian", "latest", "scan")
+
+
+def seq_at_fig07_scale(torch, dist, step_ns, smi, g1=False):
+    """Phase 6: one of fig07's traces (``dist``: FIG_KEYS keys, FIG_QUERIES
+    queries, Zipf 0.99, seed 7) at SEQ_SCALE_CAP items, m = 2, p = 4, no
+    values, from a cold table: ``access_seq`` (one msl_seq launch over the
+    whole stream, the wrapper's G) against the one-pass kernel in
+    BATCH-query batches; every hit, pos, evicted key and valid bit and the
+    final table bit-equal.  Queries/s and ns per query of each (host clock
+    around each whole stream, synchronized), the sequential kernel's device
+    ms per stream (``launches_ms``: two launches behind one, the
+    partition's prologue included), the partition alone (``seq_queues``),
+    its byte bound, the longest set chain and owner queue, and the
+    dependency floor: the longest queue times phase 6's ``chain_step_ns``.
+    With ``g1`` also G = 1 (one warp over the stream in order, the earlier
+    design) on the same stream: bit-equal, and its device ms."""
     import numpy as np
 
     from repro_torch.core import MultiStepLRUCache, init_table, set_index_for
     from repro_torch.data.ycsb import make_workload
-    from repro_torch.kernels.msl_cache import msl_seq_kernel_call
+    from repro_torch.kernels.msl_cache import msl_seq_kernel_call, seq_owners, seq_queues
 
     cfg = fig_cfg(SEQ_SCALE_CAP)
     trace = torch.from_numpy(np.ascontiguousarray(
-        make_workload("zipfian", FIG_KEYS, FIG_QUERIES, ZIPF_ALPHA, seed=7), np.int32)).to(DEVICE)
+        make_workload(dist, FIG_KEYS, FIG_QUERIES, ZIPF_ALPHA, seed=7), np.int32)).to(DEVICE)
     n = trace.numel()
     fields = ("hit", "pos", "evicted_key", "evicted_valid")
     one = MultiStepLRUCache(cfg, device=DEVICE)
@@ -1146,6 +1192,7 @@ def seq_at_fig07_scale(torch, step_ns, smi):
             got[f].append(getattr(res, f))
     torch.cuda.synchronize()
     one_s = time.perf_counter() - t
+    got = {f: torch.cat(v) for f, v in got.items()}
 
     seq = MultiStepLRUCache(cfg, device=DEVICE)
     before = read_launches()["msl_seq"]
@@ -1155,50 +1202,73 @@ def seq_at_fig07_scale(torch, step_ns, smi):
     torch.cuda.synchronize()
     seq_s = time.perf_counter() - t
     if read_launches()["msl_seq"] != before + 1:
-        raise AssertionError("access_seq over the stream did not launch msl_seq once")
+        raise AssertionError(f"access_seq over fig07's {dist} stream did not launch msl_seq once")
     for f in fields:
-        if not torch.equal(torch.cat(got[f]), getattr(want, f)):
-            raise AssertionError(f"fig07's stream: msl_seq != msl_onepass: {f}")
+        if not torch.equal(got[f], getattr(want, f)):
+            raise AssertionError(f"fig07's {dist} stream: msl_seq != msl_onepass: {f}")
     if not torch.equal(one.table, seq.table):
-        raise AssertionError("fig07's stream: the sequential and one-pass tables differ")
+        raise AssertionError(f"fig07's {dist} stream: the sequential and one-pass tables differ")
 
     qk = trace[:, None].contiguous()
     sids = set_index_for(cfg, qk)
     nvals = torch.zeros((n, 0), dtype=torch.int32, device=DEVICE)
     cold = init_table(cfg, DEVICE)
+    g = seq_owners(cfg, n, DEVICE)
+    _, starts = seq_queues(sids, g)
+    longest_queue = int((starts[1:] - starts[:-1]).max())
+    longest_chain = int(torch.bincount(sids.long()).max())
     # all ACCESS, no chains, no cost plane: ops, chain mask and costs stay
     # None, as access_seq passes them
     device_ms = launches_ms(torch, lambda t: msl_seq_kernel_call(t, sids, qk, nvals, cfg=cfg),
                             [cold.clone() for _ in range(3)])
+    partition_ms = time_ms(torch, lambda: seq_queues(sids, g), 5)
     nbytes, ops = seq_bytes_ops(cfg, sids)
-    out = {"capacity": cfg.capacity, "m": cfg.m, "p": cfg.p, "queries": n,
+    out = {"stream": dist, "capacity": cfg.capacity, "m": cfg.m, "p": cfg.p, "queries": n,
            "hits": int(want.hit.sum()), "evictions": int(want.evicted_valid.sum()),
+           "owners": g, "longest_set_chain": longest_chain,
+           "longest_owner_queue": longest_queue,
            "seq_wall_s": seq_s, "seq_qps": n / seq_s, "seq_ns_per_query": 1e9 * seq_s / n,
            "seq_device_ms": device_ms, "seq_device_ns_per_query": 1e6 * device_ms / n,
+           "partition_ms": partition_ms,
            "onepass_wall_s": one_s, "onepass_qps": n / one_s,
            "onepass_ns_per_query": 1e9 * one_s / n, "onepass_batches": math.ceil(n / BATCH),
            "bound_ms": 1e3 * max(nbytes / HBM_BW, ops / INT32_OPS_PER_S),
            "bound_by": "bytes" if nbytes / HBM_BW >= ops / INT32_OPS_PER_S else "operations",
-           "latency_estimate_ms": n * step_ns * 1e-6, "card": smi}
-    log(f"fig07's zipfian stream ({n} queries, capacity {cfg.capacity}, m=2 p=4) on {smi}: "
-        f"msl_seq == msl_onepass (hits, pos, evictions, table); sequential "
-        f"{out['seq_qps']:.4g} queries/s, {out['seq_ns_per_query']:.1f} ns per query "
-        f"({device_ms:.2f} device ms, {out['seq_device_ns_per_query']:.1f} ns per query); "
-        f"one-pass {out['onepass_qps']:.4g} queries/s, {out['onepass_ns_per_query']:.1f} ns "
-        f"per query; bound {out['bound_ms']:.4f} ms ({out['bound_by']}), latency estimate "
-        f"{out['latency_estimate_ms']:.1f} ms")
+           "dependency_floor_ms": longest_queue * step_ns * 1e-6,
+           "card": smi}
+    if g1:
+        table1, *res1 = msl_seq_kernel_call(cold.clone(), sids, qk, nvals, cfg=cfg, owners=1)
+        if not (torch.equal(table1, seq.table) and torch.equal(res1[0] != 0, want.hit)
+                and torch.equal(res1[1], want.pos)):
+            raise AssertionError(f"fig07's {dist} stream: msl_seq at G = 1 != at G = {g}")
+        out["g1_device_ms"] = launches_ms(
+            torch, lambda t: msl_seq_kernel_call(t, sids, qk, nvals, cfg=cfg, owners=1),
+            [cold.clone() for _ in range(3)])
+        out["g1_dependency_floor_ms"] = n * step_ns * 1e-6
+        out["speedup_over_g1"] = out["g1_device_ms"] / device_ms
+    log(f"fig07's {dist} stream ({n} queries, capacity {cfg.capacity}, m=2 p=4) on {smi}: "
+        f"msl_seq == msl_onepass (hits, pos, evictions, table); G = {g} queues, longest "
+        f"{longest_queue} (longest set chain {longest_chain}); {device_ms:.4f} device ms "
+        f"({out['seq_device_ns_per_query']:.2f} ns per query; partition {partition_ms:.4f} "
+        f"ms), dependency floor {out['dependency_floor_ms']:.4f} ms, bound "
+        f"{out['bound_ms']:.5f} ms ({out['bound_by']}); {out['seq_qps']:.4g} queries/s by "
+        f"the host clock, one-pass {out['onepass_qps']:.4g}"
+        + (f"; G = 1 (bit-equal): {out['g1_device_ms']:.2f} device ms, "
+           f"{out['speedup_over_g1']:.1f}x" if g1 else ""))
     return out
 
 
 def seq_record(torch, keys, vals, summary, step_ns, smi):
     """Phase 6: the sequential kernel's record at the shape of phase 5's
     ``access_seq`` check (SEQ_CFG from a cold table, SEQ_PREFIX queries of
-    the main stream): device ms per launch (``launches_ms``: 20 launches
-    behind one), ms per wrapper call on a clone of the table, the plain
-    version's ms on the card (one call), the bound; then its run at fig07's
-    scale."""
+    the main stream): device ms per wrapper call (``launches_ms``: 20
+    calls behind one, the partition included), the kernel alone (the
+    profiler) and the partition alone, ms per wrapper call on a clone of
+    the table, the plain version's ms on the card (one call), the bound;
+    then its runs at fig07's scale."""
     from repro_torch.core import MSLRUConfig, init_table, set_index_for
-    from repro_torch.kernels.msl_cache import msl_seq_kernel_call, msl_seq_plain
+    from repro_torch.kernels.msl_cache import (msl_seq_kernel_call, msl_seq_plain, seq_owners,
+                                               seq_queues)
 
     cfg = MSLRUConfig(**SEQ_CFG)
     qk = keys[:SEQ_PREFIX, None].contiguous()
@@ -1209,6 +1279,10 @@ def seq_record(torch, keys, vals, summary, step_ns, smi):
     ms = launches_ms(torch, lambda t: msl_seq_kernel_call(t, *args, cfg=cfg),
                      [cold.clone() for _ in range(21)])
     call_ms = time_ms(torch, lambda: msl_seq_kernel_call(cold.clone(), *args, cfg=cfg), 20)
+    g = seq_owners(cfg, n, DEVICE)
+    partition_ms = time_ms(torch, lambda: seq_queues(args[0], g), 20)
+    kernel_only_ms = kernel_ms(torch, lambda: msl_seq_kernel_call(cold.clone(), *args, cfg=cfg),
+                               20, "msl_seq_kernel")
     got = msl_seq_kernel_call(cold.clone(), *args, cfg=cfg)
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1228,7 +1302,9 @@ def seq_record(torch, keys, vals, summary, step_ns, smi):
         "launches_path": f"access_seq on {SEQ_PREFIX} queries of the main stream",
         "max_abs_err": err,
         "ms": ms,
-        "ms_by": "CUDA events around 20 back-to-back launches",
+        "ms_by": "CUDA events around 20 back-to-back wrapper calls (the partition included)",
+        "kernel_ms": kernel_only_ms,
+        "partition_ms": partition_ms,
         "call_ms": call_ms,
         "plain_ms": plain_ms,
         "bound_ms": 1e3 * max(nbytes / HBM_BW, ops / INT32_OPS_PER_S),
@@ -1236,10 +1312,13 @@ def seq_record(torch, keys, vals, summary, step_ns, smi):
         "library_ms": None,
         "shape": {"N": n, "S": cfg.num_sets, "A": cfg.assoc, "C": cfg.planes},
         "latency_estimate_ms": n * step_ns * 1e-6,
-        "fig07_stream": seq_at_fig07_scale(torch, step_ns, smi),
+        "owners": g,
+        "fig07_streams": {d: seq_at_fig07_scale(torch, d, step_ns, smi, g1=d == "zipfian")
+                          for d in SEQ_STREAMS},
     }
-    log(f"msl_seq: {ms:.4f} ms per {n}-query launch (plain {plain_ms:.1f} ms), bound "
-        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}), latency estimate "
+    log(f"msl_seq: {ms:.4f} ms per {n}-query call at G = {g} (the kernel {kernel_only_ms:.4f} "
+        f"ms by the profiler, the partition {partition_ms:.4f} ms; plain {plain_ms:.1f} ms), "
+        f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}), latency estimate "
         f"{rec['latency_estimate_ms']:.4f} ms")
     return rec
 

@@ -83,29 +83,40 @@
 // msl_seq_kernel replaces no Pallas kernel.  It is the counterpart of the
 // JAX package's sequential engine (src/repro/core/engine.py:290-351,
 // make_sequential_engine), one jitted lax.scan over the whole query stream:
-// one device program, here one launch of one warp that walks the stream in
-// order, as the paper's single SIMD unit does.  It is the oracle the batched
+// one device program, here one launch.  It is the oracle the batched
 // engines are held against, so it shares transition() with them but none of
 // their conflict handling.
 //
-// msl_seq: what bounds it.  Every query reads its set's row and the next
-// query may need the row it wrote, so the stream is one chain of N dependent
-// transitions, each behind a row load and ahead of a row store: latency, not
-// bandwidth (fig07's 2M-query stream needs some 42 MB moved, 13 us at HBM
-// rate).  The design keeps the dependent path to the transition itself:
+// msl_seq: what bounds it.  Query i reads and writes only row sids[i], and
+// the chain execute mask is computed against the start table, so a query
+// depends only on the earlier queries to its own set: any schedule that
+// keeps each set's queries in stream order gives the same outputs and the
+// same table, bit for bit.  The wrapper splits the stream into G queues, one
+// per owner (owner = set id mod G): a stable partition, so each queue holds
+// its stream indices in stream order.  Warp w walks queue w, G warps at
+// once over the whole card (G = 1 is the single in-order walk).  Owners
+// share no set, so no two warps touch one row.  A warp's queue is a chain
+// of dependent transitions, each behind a row load and ahead of a row
+// store: latency, not bandwidth (fig07's 2M-query stream needs some 42 MB
+// moved, 13 us at HBM rate).  So the launch takes about the longest queue
+// times one dependent transition, after the card's issue rate has worked
+// off the short queues around it: on a skewed stream the hottest set's
+// chain sets the pace.  Inside a warp the design keeps the dependent path
+// to the transition itself:
 //
-//  * The row stays in registers while consecutive queries hit its set, and
-//    is stored only when the stream moves to another set.
-//  * Operands come in windows: lane t loads query base + t's set id and
-//    operands (one coalesced load per plane for 32 queries), and the next
-//    window's loads are in flight while this one is walked; a query's
-//    operands then cost C + 3 shuffles, not a load.
+//  * The row stays in registers while consecutive queries of the queue hit
+//    its set, and is stored only when the queue moves to another set.
+//  * Operands come in windows: lane t loads entry base + t of the queue,
+//    then that query's set id and operands (one load per plane for 32
+//    queries, gathered by stream index), and the next window's loads are in
+//    flight while this one is walked; a query's operands then cost C + 3
+//    shuffles, not a load.
 //  * The next query's row is loaded while this query's transition runs,
 //    whenever its set differs from the one held.  That is safe: every other
-//    set's latest row has already been stored, by the same lane that now
+//    set of the queue has its latest row stored, by the same lane that now
 //    loads it (lane a holds way a of every row), so no fence is needed.
-//  * Outputs are kept by lane t for query base + t and stored 32 wide once
-//    per window.
+//  * Outputs are kept by lane t for entry base + t and stored once per
+//    window, scattered to their stream indices.
 //
 // Plain C interface, loaded with ctypes: every launcher returns
 // cudaGetLastError() of its launch (cudaErrorInvalidValue, without
@@ -583,21 +594,24 @@ msl_onepass_kernel(Geometry g, int B, const int* __restrict__ rows, Operands in,
   }
 }
 
-// One query of the stream as a window holds it (lane t: query base + t).
+// One entry of a queue as a window holds it (lane t: entry base + t).
 template <int C>
 struct Slot {
   Query<C> q;
-  int sid;  // its set; -1 past the end of the stream
+  int sid;  // its set; -1 past the end of the queue
+  int j;    // its index in the stream
 };
 
 template <int C, int KP>
 __device__ __forceinline__ Slot<C> load_slot(const Geometry& g, const Operands& in,
-                                             const int* sids, int N, int j) {
+                                             const int* sids, const int* queue, int n, int t) {
   Slot<C> s;
-  if (j < N) {
-    s.sid = sids[j];
-    load_query<C, KP>(g, in, j, s.q);
+  if (t < n) {
+    s.j = queue[t];
+    s.sid = sids[s.j];
+    load_query<C, KP>(g, in, s.j, s.q);
   } else {
+    s.j = 0;
     s.sid = -1;
 #pragma unroll
     for (int c = 0; c < C; ++c) s.q.item[c] = 0;
@@ -607,27 +621,35 @@ __device__ __forceinline__ Slot<C> load_slot(const Geometry& g, const Operands& 
   return s;
 }
 
-// The whole stream of N >= 1 queries, in order, on one warp: query i
-// applies transition() to row sids[i] of `table`, which is updated in
-// place.  Lane a < A holds way a of the row in registers.  `table` is
-// neither const nor restrict: the kernel reads back rows it wrote.
+// Warp w walks queue w of G: the stream indices order[starts[w] ..
+// starts[w + 1]), in order; entry i applies transition() to row sids[i] of
+// `table`, which is updated in place.  Lane a < A holds way a of the row in
+// registers.  `table` is neither const nor restrict: a warp reads back rows
+// it wrote (no two warps share a row).
 template <int C, int KP>
-__global__ void __launch_bounds__(32)
-msl_seq_kernel(Geometry g, int N, int* table, const int* __restrict__ sids, Operands in,
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+msl_seq_kernel(Geometry g, int G, int* table, const int* __restrict__ sids,
+               const int* __restrict__ order, const int* __restrict__ starts, Operands in,
                Outputs out) {
+  const int owner = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (owner >= G) return;  // whole warps exit together
+  const int first = starts[owner];
+  const int n = starts[owner + 1] - first;
+  if (n <= 0) return;
+  const int* queue = order + first;
   const int lane = threadIdx.x & 31;
   const Group<32> warp(lane);
   const size_t ac = (size_t)g.A * C;
-  int held = sids[0];
+  Slot<C> w = load_slot<C, KP>(g, in, sids, queue, n, lane);
+  int held = __shfl_sync(kFull, w.sid, 0);
   int r[C];
   load_row<C>(g, table + held * ac, lane, r);
-  Slot<C> w = load_slot<C, KP>(g, in, sids, N, lane);
 
-  for (int base = 0; base < N; base += 32) {
-    const Slot<C> next = load_slot<C, KP>(g, in, sids, N, base + 32 + lane);  // in flight
-    const int n = min(32, N - base);
-    Result<C> mine;  // the outputs of query base + lane
-    for (int t = 0; t < n; ++t) {
+  for (int base = 0; base < n; base += 32) {
+    const Slot<C> next = load_slot<C, KP>(g, in, sids, queue, n, base + 32 + lane);  // in flight
+    const int k = min(32, n - base);
+    Result<C> mine;  // the outputs of entry base + lane
+    for (int t = 0; t < k; ++t) {
       const Query<C> q = shfl_query<C>(w.q, t);
       const int s_next = t < 31 ? __shfl_sync(kFull, w.sid, t + 1)
                                 : __shfl_sync(kFull, next.sid, 0);
@@ -644,7 +666,7 @@ msl_seq_kernel(Geometry g, int N, int* table, const int* __restrict__ sids, Oper
         held = s_next;
       }
     }
-    if (lane < n) store_result<C, KP>(g, out, base + lane, mine);
+    if (lane < k) store_result<C, KP>(g, out, w.j, mine);
     w = next;
   }
   store_row<C>(g, table + held * ac, lane, r);
@@ -747,22 +769,40 @@ int msl_onepass_launch(const int* rows, const int* qk, const int* qv,
   });
 }
 
-// The sequential engine: one warp over the N queries, `table` (S, A, C)
-// updated in place.
-int msl_seq_launch(int* table, const int* sids, const int* qk, const int* qv,
-                   const int* ops, const int* live, const int* costs,
-                   int* hit, int* pos, int* val, int* ev,
-                   int N, int A, int C, int KP, int V, int M, int P,
+// The sequential engine: warp w walks queue w of G (`order`, `starts`: the
+// stream indices of each owner's queries, in stream order), `table`
+// (S, A, C) updated in place.
+int msl_seq_launch(int* table, const int* sids, const int* order, const int* starts,
+                   const int* qk, const int* qv, const int* ops, const int* live,
+                   const int* costs, int* hit, int* pos, int* val, int* ev,
+                   int G, int A, int C, int KP, int V, int M, int P,
                    int cost_planes, int set_lru, void* stream) {
   const Geometry g{A, V, M, P, cost_planes, set_lru, vstarts_for(A, P)};
   const Operands in{qk, qv, ops, live, costs};
   const Outputs out{nullptr, hit, pos, val, ev};
   if (g.vstarts == 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (N <= 0) return static_cast<int>(cudaGetLastError());
+  if (G <= 0) return static_cast<int>(cudaGetLastError());
   return with_planes(C, KP, [&](auto c, auto kp) {
     msl_seq_kernel<decltype(c)::value, decltype(kp)::value>
-        <<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(g, N, table, sids, in, out);
+        <<<blocks_for(G), kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+            g, G, table, sids, order, starts, in, out);
   });
+}
+
+// The warps of msl_seq_kernel<C, KP> the current device holds resident at
+// once, into *warps: its SMs times the blocks an SM holds times the warps of
+// a block.
+int msl_seq_resident_warps(int C, int KP, int* warps) {
+  int dev = 0, sms = 0, blocks = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int err = with_planes(C, KP, [&](auto c, auto kp) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, msl_seq_kernel<decltype(c)::value, decltype(kp)::value>,
+        kWarpsPerBlock * 32, 0);
+  });
+  *warps = sms * blocks * kWarpsPerBlock;
+  return err;
 }
 
 }  // extern "C"

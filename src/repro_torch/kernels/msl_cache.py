@@ -18,11 +18,14 @@ compiles it with ``nvcc`` at first use and loads it with ctypes.
   ``msl_onepass_kernel_call``.
   Plain version: ``chain_resolve_plain``, the rank-by-rank loop of the JAX
   package's ``_chain_body`` over the whole sorted batch.
-* ``msl_seq_kernel_call`` — the sequential engine: one warp walks the
-  whole query stream in order, each query one transition of its set's row,
-  the table updated in place; replaces no Pallas kernel, but the JAX
-  package's jitted ``lax.scan`` (``make_sequential_engine``).  Plain
-  version: ``msl_seq_plain``, one ``row_apply_ev`` per query.
+* ``msl_seq_kernel_call`` — the sequential engine: each query one
+  transition of its set's row, the table updated in place.  The stream is
+  split into one queue per owner (``seq_queues``: owner = set id mod G,
+  each queue in stream order), and G warps walk their queues at once, so
+  each set's queries still run in stream order; replaces no Pallas kernel,
+  but the JAX package's jitted ``lax.scan`` (``make_sequential_engine``).
+  Plain version: ``msl_seq_plain``, one ``row_apply_ev`` per query over
+  the whole stream in order.
 
 Each wrapper runs the plain version for tensors on the CPU and the kernel
 for tensors on a CUDA device; it never falls back from one to the other.
@@ -52,6 +55,8 @@ __all__ = [
     "msl_access_plain",
     "chain_resolve_plain",
     "msl_seq_plain",
+    "seq_owners",
+    "seq_queues",
 ]
 
 # Kernel launches per wrapper, counted where each launch is made.
@@ -72,8 +77,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.msl_access_launch.restype = _I
     lib.msl_onepass_launch.argtypes = [_P] * 13 + [_I] * 9 + [_P]
     lib.msl_onepass_launch.restype = _I
-    lib.msl_seq_launch.argtypes = [_P] * 11 + [_I] * 9 + [_P]
+    lib.msl_seq_launch.argtypes = [_P] * 13 + [_I] * 9 + [_P]
     lib.msl_seq_launch.restype = _I
+    lib.msl_seq_resident_warps.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    lib.msl_seq_resident_warps.restype = _I
     return lib
 
 
@@ -288,8 +295,43 @@ def msl_seq_plain(table, sids, qkeys, qvals, ops=None, chain_live=None, costs=No
     return table, hit, pos, val, ev
 
 
+def seq_queues(sids: torch.Tensor, owners: int):
+    """Split a stream over set ids ``sids`` (N,) into ``owners`` queues, one
+    per owner (owner = set id mod ``owners``), each in stream order: a
+    stable partition.  Returns (order (N,) int32, starts (owners + 1,)
+    int32): owner w's queue is ``order[starts[w]:starts[w + 1]]``, the
+    stream indices of its queries.  Owners share no set, so walking every
+    queue in order keeps each set's queries in stream order."""
+    if owners < 1:
+        raise ValueError(f"owners = {owners}: at least one")
+    # no step waits on the host (bincount would, for its length)
+    owner, order = torch.sort(sids % owners, stable=True)
+    starts = torch.searchsorted(owner, torch.arange(owners + 1, dtype=owner.dtype,
+                                                    device=owner.device), out_int32=True)
+    return order.to(torch.int32), starts
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_warps(device_index: int, c: int, kp: int) -> int:
+    warps = _I(0)
+    with torch.cuda.device(device_index):
+        _raise_on(_library().msl_seq_resident_warps(c, kp, ctypes.byref(warps)),
+                  "msl_seq occupancy")
+    return warps.value
+
+
+def seq_owners(cfg: MSLRUConfig, n: int, device) -> int:
+    """The kernel's number of queues for an N-query stream on ``device``:
+    as many as the card holds warps of ``msl_seq_kernel`` at once, but no
+    more than sets or queries (at least 1)."""
+    device = torch.device(device)
+    resident = _resident_warps(device.index if device.index is not None
+                               else torch.cuda.current_device(), cfg.planes, cfg.key_planes)
+    return max(1, min(cfg.num_sets, n, resident))
+
+
 def msl_seq_kernel_call(table, sids, qkeys, qvals, ops=None, chain_live=None,
-                        costs=None, *, cfg: MSLRUConfig):
+                        costs=None, *, cfg: MSLRUConfig, owners: int | None = None):
     """The sequential engine over a whole query stream, in one launch.
 
     table (S, A, C) int32, updated in place; sids (N,) each query's set
@@ -300,7 +342,10 @@ def msl_seq_kernel_call(table, sids, qkeys, qvals, ops=None, chain_live=None,
     hit (N,) int32, pos (N,) int32, value (N, V) int32, evicted (N, C)
     int32) as ``msl_access_kernel_call`` does, bit-equal to
     ``msl_seq_plain``.  CPU tensors run the plain version; CUDA tensors
-    launch the kernel: one warp walks the stream.
+    launch the kernel: ``seq_queues`` splits the stream into G queues and
+    warp w walks queue w.  G is ``seq_owners``; ``owners`` sets it instead
+    (1: one warp walks the whole stream in order), so that the card tests
+    can hold both schedules against the plain version.
     """
     if chain_live is not None and ops is None:
         raise ValueError("chain_live requires ops")
@@ -309,6 +354,8 @@ def msl_seq_kernel_call(table, sids, qkeys, qvals, ops=None, chain_live=None,
     n = qkeys.shape[0]
     _check_cuda(cfg, table, {**_query_shapes(cfg, n, qkeys, qvals, ops, chain_live, costs),
                              "sids": (sids, (n,))})
+    g = seq_owners(cfg, n, table.device) if owners is None else owners
+    order, starts = seq_queues(sids, g)
     new = functools.partial(torch.empty, dtype=torch.int32, device=table.device)
     hit, pos = new((n,)), new((n,))
     val, ev = new((n, max(cfg.value_planes, 1))), new((n, cfg.planes))
@@ -316,8 +363,8 @@ def msl_seq_kernel_call(table, sids, qkeys, qvals, ops=None, chain_live=None,
         stream = torch.cuda.current_stream().cuda_stream
         LAUNCHES["msl_seq"] += 1
         err = _library().msl_seq_launch(
-            *map(_ptr, (table, sids, qkeys, qvals, ops, chain_live, costs,
+            *map(_ptr, (table, sids, order, starts, qkeys, qvals, ops, chain_live, costs,
                         hit, pos, val, ev)),
-            n, *_geometry(cfg), stream)
+            g, *_geometry(cfg), stream)
     _raise_on(err, "msl_seq")
     return table, hit, pos, val[:, :cfg.value_planes], ev

@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import gc
 import math
 import os
 import queue
@@ -480,35 +481,58 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _release_groups():
+    """Drop this module's references to process groups and collect the
+    cycles that hold others (the meshes and clients a rank function made),
+    so that each group's native threads (gloo's pair loop and workers) end
+    now and not at interpreter exit."""
+    _FIRST_RANKS.update(world=None, groups={})
+    gc.collect()
+
+
 def _rank_main(fn, rank, world, backend, device, port, args, results):
     import torch.distributed as dist
 
+    done = False
     try:
         # ranks share the host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
         if torch.device(device).type == "cuda":
             torch.cuda.set_device(rank % torch.cuda.device_count())
-        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
-                                world_size=world, rank=rank,
-                                timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+        timeout = datetime.timedelta(seconds=RANK_TIMEOUT_S)
+        store = dist.TCPStore("127.0.0.1", port, is_master=False, timeout=timeout)
+        dist.init_process_group(backend, store=store, world_size=world, rank=rank,
+                                timeout=timeout)
+        del store
         results.put((rank, True, fn(*args)))
+        done = True
     except Exception:
         # report to the parent, then fail this process as well
         results.put((rank, False, traceback.format_exc()))
         raise
     finally:
+        # an ordered teardown: every rank past its last collective before
+        # any rank takes its group down (after a failure the parent kills
+        # the ranks instead), the groups and their threads gone before the
+        # interpreter exits, the result flushed to the parent
         if dist.is_initialized():
+            if done:
+                dist.barrier()
             dist.destroy_process_group()
+        _release_groups()
+        results.close()
+        results.join_thread()
 
 
 def run_on_ranks(fn, world: int, backend: str = "gloo", device="cuda", args: tuple = (),
                  timeout: float = RANK_TIMEOUT_S) -> list:
     """Run ``fn(*args)`` on ``world`` spawned processes, each rank ``r`` of
-    one default process group (``backend``, rendezvous on a free localhost
-    port) with its card set (rank ``r`` on card ``r mod count``) when
-    ``device`` is CUDA.  ``fn`` and ``args`` are pickled: a module-level
-    function and plain or numpy values.  Returns every rank's result (also
-    pickled), in rank order.
+    one default process group (``backend``; its rendezvous store is served
+    by this process, on a localhost port the system picks, so that
+    concurrent calls cannot meet on one port) with its card set (rank ``r``
+    on card ``r mod count``) when ``device`` is CUDA.  ``fn`` and ``args``
+    are pickled: a module-level function and plain or numpy values.
+    Returns every rank's result (also pickled), in rank order.
 
     Each rank takes an equal share of the host's cores for its torch
     threads.  Raises if any rank raised (with its traceback), exited
@@ -519,11 +543,14 @@ def run_on_ranks(fn, world: int, backend: str = "gloo", device="cuda", args: tup
     if backend == "nccl" and world > torch.cuda.device_count():
         raise ValueError(f"nccl needs one card per rank: {world} ranks, "
                          f"{torch.cuda.device_count()} cards")
+    import torch.distributed as dist
+
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    port = _free_port()
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(fn, r, world, backend, str(device), port, args, results))
+                         args=(fn, r, world, backend, str(device), store.port, args, results))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -548,6 +575,7 @@ def run_on_ranks(fn, world: int, backend: str = "gloo", device="cuda", args: tup
                 p.kill()
                 p.join()
         results.close()
+        del store
     for r, p in enumerate(procs):
         if not errors and p.exitcode != 0:
             errors[r] = f"rank {r} exited with code {p.exitcode} after its result"

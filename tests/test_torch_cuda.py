@@ -206,13 +206,18 @@ def _seq_case(geom, device, seed, n):
             t(live[:n]), t(costs[:n]))
 
 
-def _seq_equal(cfg, args, extra):
-    """The sequential kernel on a copy of the table against the plain version
-    on a CPU copy of the same inputs: table and every output bit-equal, one
-    launch."""
+# the sequential kernel's schedules: one warp over the whole stream in order,
+# and the wrapper's own number of queues (``seq_owners``)
+OWNERS = [1, None]
+
+
+def _seq_equal(cfg, args, extra, owners=None):
+    """The sequential kernel (``owners`` queues, None: the wrapper's
+    choice) on a copy of the table against the plain version on a CPU copy
+    of the same inputs: table and every output bit-equal, one launch."""
     table, rest = args[0], args[1:]
     before = msl_cache.LAUNCHES["msl_seq"]
-    got = msl_cache.msl_seq_kernel_call(table.clone(), *rest, *extra, cfg=cfg)
+    got = msl_cache.msl_seq_kernel_call(table.clone(), *rest, *extra, cfg=cfg, owners=owners)
     assert msl_cache.LAUNCHES["msl_seq"] == before + 1
     cpu = [None if x is None else x.cpu() for x in (table.clone(), *rest, *extra)]
     want = msl_cache.msl_seq_plain(*cpu, cfg=cfg)
@@ -220,21 +225,59 @@ def _seq_equal(cfg, args, extra):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(), err_msg=f"{name} mismatch")
 
 
+@pytest.mark.parametrize("owners", OWNERS, ids=["G1", "G"])
 @pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("geom", ROW_GEOMS, ids=lambda g: "-".join(map(str, g)))
-def test_seq_kernel_matches_plain(cuda, geom, variant):
-    """One warp over a 2000-query stream (62 full windows and a partial
-    one) on 8 sets, against ``msl_seq_plain``."""
+def test_seq_kernel_matches_plain(cuda, geom, variant, owners):
+    """A 2000-query stream on 8 sets (at G = 1, 62 full windows and a
+    partial one on one warp; at the default G, a queue per set), against
+    ``msl_seq_plain``."""
     cfg, table, sids, qk, qv, ops, live, costs = _seq_case(geom, cuda, seed=4, n=2000)
     _seq_equal(cfg, (table, sids, qk, qv),
-               variant_operands(variant, ops, live, costs, cfg.cost_planes))
+               variant_operands(variant, ops, live, costs, cfg.cost_planes), owners)
 
 
+@pytest.mark.parametrize("owners", OWNERS, ids=["G1", "G"])
 @pytest.mark.parametrize("n", [1, 31, 32, 33, 64])
-def test_seq_kernel_stream_ends(cuda, n):
+def test_seq_kernel_stream_ends(cuda, n, owners):
     """Streams that end inside, at and just past a window of 32 queries."""
     cfg, table, sids, qk, qv, ops, live, costs = _seq_case(ROW_GEOMS[-1], cuda, seed=n, n=n)
-    _seq_equal(cfg, (table, sids, qk, qv), (ops, live, costs))
+    _seq_equal(cfg, (table, sids, qk, qv), (ops, live, costs), owners)
+
+
+def _skewed_case(device, n, hot_share, seed):
+    """(cfg, table, sids, qkeys, qvals) on 512 sets of m = 2, p = 4 from a
+    cold table: ``hot_share`` of the ``n`` queries draw from 24 keys of one
+    set (more than its 8 ways: hits, promotions and evictions on one long
+    chain), the rest from a wide pool over every set."""
+    cfg = MSLRUConfig(num_sets=512, m=2, p=4, value_planes=1)
+    rng = np.random.default_rng(seed)
+    pool = torch.arange(1, 200_000, dtype=torch.int32)[:, None]
+    pool_sets = set_index_for(cfg, pool)
+    hot = pool[pool_sets == pool_sets[0]][:24, 0].numpy()
+    keys = rng.integers(1, 200_000, n).astype(np.int32)
+    keys = np.where(rng.random(n) < hot_share, rng.choice(hot, n), keys)[:, None]
+    qk = torch.from_numpy(keys).to(device)
+    qv = (qk * 3).contiguous()
+    return cfg, init_table(cfg, device), set_index_for(cfg, qk), qk, qv
+
+
+@pytest.mark.parametrize("owners", OWNERS, ids=["G1", "G"])
+def test_seq_kernel_skewed_stream(cuda, owners):
+    """One hot set amid many cold ones (half of 6000 queries on one set of
+    512): its queue is the longest by far, the other warps finish early."""
+    cfg, table, sids, qk, qv = _skewed_case(cuda, 6000, 0.5, seed=3)
+    hot = int(torch.bincount(sids.long()).max())
+    assert hot > 2500
+    _seq_equal(cfg, (table, sids, qk, qv), (), owners)
+
+
+@pytest.mark.parametrize("n", [1, 40])
+def test_seq_kernel_more_owners_than_queries(cuda, n):
+    """More queues than queries (and than sets touched): most warps find an
+    empty queue and exit."""
+    cfg, table, sids, qk, qv = _skewed_case(cuda, n, 0.3, seed=n)
+    _seq_equal(cfg, (table, sids, qk, qv), (), owners=4 * n + 3)
 
 
 @pytest.mark.parametrize("kw", [dict(num_sets=64, m=2, p=4, value_planes=2),

@@ -212,6 +212,88 @@ def test_sequential_engine_plain_dispatch_matches_jax(policy, monkeypatch):
     assert len(calls) == 3 and msl_cache.LAUNCHES["msl_seq"] == launches
 
 
+# (N, G, S, hot): one query; fewer queries than owners; more owners than
+# sets; every query on one set; a skewed stream; a long random one
+QUEUE_CASES = [(1, 8, 16, False), (5, 64, 256, False), (300, 40, 16, False),
+               (200, 8, 64, True), (1000, 7, 64, "skew"), (4000, 96, 512, False)]
+
+
+@pytest.mark.parametrize("n,g,s,hot", QUEUE_CASES,
+                         ids=["n1", "n_below_g", "g_above_s", "one_set", "skew", "random"])
+def test_seq_queues_is_a_stable_partition(n, g, s, hot):
+    """``seq_queues``: every stream index once; owner w's queue holds the
+    queries whose set id is w mod G, in stream order; ``starts`` bounds
+    the G queues."""
+    rng = np.random.default_rng(n + g)
+    sids = rng.integers(0, s, n)
+    if hot is True:
+        sids[:] = 5
+    elif hot == "skew":
+        sids = np.where(rng.random(n) < 0.6, 3, sids)
+    order, starts = msl_cache.seq_queues(_t(sids.astype(np.int32)), g)
+    assert order.dtype == starts.dtype == torch.int32
+    order, starts = order.numpy(), starts.numpy()
+    assert starts.shape == (g + 1,) and starts[0] == 0 and starts[-1] == n
+    assert (np.diff(starts) >= 0).all()
+    np.testing.assert_array_equal(np.sort(order), np.arange(n))
+    for w in range(g):
+        queue = order[starts[w]:starts[w + 1]]
+        np.testing.assert_array_equal(queue, np.flatnonzero(sids % g == w))
+    with pytest.raises(ValueError, match="owners"):
+        msl_cache.seq_queues(_t(sids.astype(np.int32)), 0)
+
+
+def _walk_queues(cfg, table, keys, vals, ops, cids, costs, owners):
+    """The sequential engine as the kernel schedules it, on the CPU: the
+    chain mask against the start table, then each owner's queue (last owner
+    first) through ``msl_seq_plain`` on one shared table, the outputs
+    scattered to their stream indices.  Returns (table, SeqOutputs)."""
+    kp, v = cfg.key_planes, cfg.value_planes
+    live = engine.chain_live_mask(cfg, table, keys, ops, cids)
+    sids = set_index_for(cfg, keys)
+    order, starts = msl_cache.seq_queues(sids, owners)
+    n = keys.shape[0]
+    table = table.clone()
+    hit, pos = torch.zeros(n, dtype=torch.int32), torch.zeros(n, dtype=torch.int32)
+    val, ev = torch.zeros((n, v), dtype=torch.int32), torch.zeros((n, cfg.planes),
+                                                                  dtype=torch.int32)
+    for w in reversed(range(owners)):
+        q = order[starts[w]:starts[w + 1]].long()
+        _, hit[q], pos[q], val[q], ev[q] = msl_cache.msl_seq_plain(
+            table, sids[q], keys[q], vals[q], ops[q], live[q], costs[q], cfg=cfg)
+    return table, engine.SeqOutputs(hit=hit != 0, pos=pos, value=val, evicted_key=ev[:, :kp],
+                                    evicted_val=ev[:, kp:kp + v],
+                                    evicted_valid=ev[:, 0] != engine.EMPTY_KEY)
+
+
+@pytest.mark.parametrize("owners", [1, 3, 8])
+@pytest.mark.parametrize("policy", ["set_lru", "multistep"])
+def test_seq_queues_walk_matches_jax(policy, owners):
+    """Walking each owner's queue in order on one shared table, owner after
+    owner (the kernel's schedule, without its interleaving), gives JAX's
+    jitted ``lax.scan`` engine's outputs and table bit for bit: every
+    opcode, chain ops with chain ids, a cost plane, two key planes, A = 32,
+    three streams deep; 8 owners is more owners than sets."""
+    kw = dict(num_sets=4, m=8, p=4, key_planes=2, value_planes=1, cost_planes=1,
+              policy=policy)
+    jcfg, cfg = JaxConfig(**kw), MSLRUConfig(**kw)
+    jrun = jax_engine.make_sequential_engine(jcfg, with_ops=True)
+    rng = np.random.default_rng(37)
+    jt, tt = jax_init_table(jcfg), init_table(cfg, "cpu")
+    evictions = 0
+    for step in range(3):
+        keys, vals, ops, cids, costs = random_chain_batch(rng, 2, 1, n_chains=10,
+                                                          key_range=3000, b=300)
+        jt, want = jrun(jt, jnp.asarray(keys), jnp.asarray(vals), jnp.asarray(ops),
+                        jnp.asarray(cids), costs=jnp.asarray(costs))
+        tt, got = _walk_queues(cfg, tt, *map(_t, (keys, vals, ops, cids, costs)), owners)
+        assert_same(want, got, f"stream {step}")
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt),
+                                      err_msg=f"stream {step} table")
+        evictions += int(np.asarray(want.evicted_valid).sum())
+    assert evictions > 0
+
+
 def test_chain_live_from_a_jax_warmed_table():
     """chain_live_mask on a warmed table carried over from the JAX package."""
     kw = dict(num_sets=4, m=2, p=4, value_planes=1)

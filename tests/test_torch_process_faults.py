@@ -24,6 +24,8 @@ serve with its cache on those ranks, against the JAX package.
   and table equal, the streams equal or split at a one-ulp tie.
 * The launcher's ``--processes`` gives the one-process launch's ticks,
   fault log, finish order, prefill split and counters.
+* Ranks that return at different times all exit with 0, and none takes a
+  process group's native threads into interpreter exit.
 """
 
 import os
@@ -49,7 +51,8 @@ from repro_torch.launch import serve
 from repro_torch.launch.mesh import make_cache_mesh, run_on_ranks
 from test_torch_serving import _assert_streams_equal_or_tied
 from test_torch_shed_retry import _Child
-from torch_rank_fns import faults_rank, reshard_rank, run_client, serve_case_rank
+from torch_rank_fns import (faults_rank, reshard_rank, run_client, serve_case_rank,
+                            staggered_rank)
 
 ROOT = Path(__file__).resolve().parent.parent
 SEEDS = (0, 1, 2)
@@ -252,6 +255,26 @@ def test_serve_with_cache_across_processes_matches_jax(children, jax_models, nam
     _assert_streams_equal_or_tied(jm, jp, cases.prompts(jcfg), got["tokens"], want["tokens"])
     assert ranks[1]["calls"] > 0
     cases.assert_records_equal(ranks[1]["state"], ranks[0]["state"])
+
+
+# the native threads of a gloo group and of its store
+GROUP_THREADS = {"gloo_tcp_loop", "pt_gloo_runloop", "pt_tcpstore_uv"}
+
+
+@pytest.mark.parametrize("delays", [(0.0, 0.5), (0.5, 0.0), (0.4, 0.0, 0.2)],
+                         ids=["rank1_late", "rank0_late", "three_ranks"])
+def test_ranks_returning_apart_exit_cleanly(tmp_path, delays):
+    """Ranks that return at different times after collectives over a cached
+    world group: ``run_on_ranks`` returns (so every rank exited with 0
+    after its result), and no rank still has a gloo or store thread when
+    its interpreter exits (such threads, torn down at exit in no set
+    order, aborted a rank now and then)."""
+    world = len(delays)
+    got = run_on_ranks(staggered_rank, world, "gloo", "cpu", args=(delays, str(tmp_path)))
+    assert got == [[("call", i) for i in range(3)]] * world
+    for r in range(world):
+        names = set((tmp_path / f"rank{r}.txt").read_text().split())
+        assert names and not names & GROUP_THREADS, (r, names)
 
 
 LAUNCH = ["--device", "cpu", "--kv-mode", "paged", "--requests", "12", "--cap", "2",

@@ -594,3 +594,33 @@ def serve_case_rank(case, params_np) -> dict:
         summary = cases.summary(eng, be.gathered_table())
     summary["rest"]["finished"] = len(eng.finished)
     return {"summary": summary, "state": cases.client_state(be)}
+
+
+def staggered_rank(delays, out_dir) -> list:
+    """Three objects shared from world rank 0 over a ``ProcessCacheMesh``
+    of the world (which caches the world group in ``launch.mesh``), then a
+    return after this rank's delay, ``delays[rank]`` seconds.  At
+    interpreter exit the rank writes the names of the native threads it
+    still has to ``out_dir/rank<r>.txt``.  Returns what it was shared."""
+    import atexit
+    import os
+    import time
+
+    rank = dist.get_rank()
+
+    def note_threads():
+        names = []
+        for t in os.listdir("/proc/self/task"):
+            try:
+                with open(f"/proc/self/task/{t}/comm") as f:
+                    names.append(f.read().strip())
+            except OSError:
+                pass
+        with open(os.path.join(out_dir, f"rank{rank}.txt"), "w") as f:
+            f.write("\n".join(names))
+
+    atexit.register(note_threads)
+    mesh = ProcessCacheMesh(None, "cpu")
+    got = [mesh.share_object(("call", i) if rank == 0 else None) for i in range(3)]
+    time.sleep(delays[rank])
+    return got
