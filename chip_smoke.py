@@ -115,6 +115,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    layers: phase 14's in-flight and megastep serves and
    numbers, and the MoE FFN's device time per decode step beside its
    expert-weight read;
+16(b). command-r-35b at its published width and whole depth (40 layers,
+   d_model 8192, 64 heads on 8 KV heads, Dh 128, a parallel block with
+   LayerNorm, vocab 256000: 64.8 GB of bf16 weights on the one card):
+   phase 14's serves and numbers, the device memory after init and at the
+   serve's peak, ms per decode tick beside the step's weight read, and
+   phase 9's cross-check against a contiguous twin on the same weights;
+16(c). qwen2-vl-72b at its published width, 8 of its 80 layers (d_model
+   8192, 64 heads on 8, Dh 128, M-RoPE): phase 14's serves, every M-RoPE
+   call of the serve on (B, 3, S) position streams, and the rotation's
+   16/24/24 split of the 64 frequency slots checked on the card;
+16(d). phi3.5-moe-42b-a6.6b at its published width, 8 of its 32 layers
+   (d_model 4096, 32 heads on 8, 16 experts of 4096 x 6400, top-2,
+   capacity 1.25): phase 16's serves and numbers, the MoE FFN's device
+   time per decode step beside its 20.1 GB expert read and olmoe's;
 17. hymba at smoke width, then at its published width (d_model 1600, 25
    heads on 5 KV heads, Mamba state 16, 128 meta tokens), 8 of its 32
    layers (layer 0 global, 1-7 windowed at 1024), served through
@@ -1503,14 +1517,21 @@ def run_serving(torch, args=None, cfg=None):
     args = args or serve_args("--kv-mode", "paged")
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
+    before = torch.cuda.memory_allocated()
     eng = serve.build(args, cfg=cfg)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in eng.params.parameters())
+    init = {"before_gb": before / 1e9, "after_gb": torch.cuda.memory_allocated() / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "reserved_gb": torch.cuda.memory_reserved() / 1e9}
     log(f"{eng.cfg.name}: {n_params / 1e9:.3f}B parameters "
         f"({n_params * 2 / 1e9:.2f} GB bf16), pool K+V "
         f"{2 * eng.pool.k.numel() * 2 / 1e6:.0f} MB, slot tails K+V "
         f"{2 * eng.pool.tail_k.numel() * 2 / 1e6:.0f} MB; built in "
-        f"{time.perf_counter() - t:.1f} s")
+        f"{time.perf_counter() - t:.1f} s; device memory {init['before_gb']:.2f} GB "
+        f"before, {init['after_gb']:.2f} GB after, peak {init['peak_gb']:.2f} GB, "
+        f"reserved {init['reserved_gb']:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()      # from here the serve's peak
     reqs = serve.make_requests(eng.cfg, args)
     zero_launches()
     wall, decode_ticks, snapshot = serve_requests(torch, eng, reqs)
@@ -1532,9 +1553,10 @@ def run_serving(torch, args=None, cfg=None):
         "resident_kv_tokens_peak": st["resident_kv_tokens_peak"],
         "prefix_cache": pc, "launches": launches,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "init_memory_gb": init,
     }
     log(f"served {summary['finished']}/{len(reqs)} requests in {st['ticks']} ticks, "
-        f"{wall:.3f} s wall")
+        f"{wall:.3f} s wall; peak device memory {summary['peak_memory_gb']:.2f} GB")
     log(f"decode: {summary['decode_tokens_per_s']:.1f} tokens/s, "
         f"{summary['ms_per_decode_tick']:.3f} ms per decode-only tick "
         f"({len(decode_ticks)} ticks)")
@@ -2148,39 +2170,142 @@ def run_family_smoke(torch, arch, err):
     return summary, record
 
 
-def run_full_width(torch, arch, err, buckets=()):
-    """Phases 14-16: ``arch`` at its published width and FULL_WIDTH_LAYERS'
-    depth (random weights from a seeded generator on the card) through the
-    launcher's paged path with phase 8's checks, the paged kernel's record
-    at its shapes and, given window ``buckets``, the megastep serve
-    (``megastep_serve``; phase 11's buckets: the launcher's request mix
-    plans the same windows for every architecture, since no stream ends
-    early).  An MoE model adds its FFN's device time per decode step
-    (``moe_ffn_step``).  Returns the summary and the record."""
-    eng, reqs, summary, snapshot = run_serving(
-        torch, serve_args("--arch", arch, "--kv-mode", "paged"), cfg=cut_depth(arch))
+def run_full_width(torch, arch, err, buckets=(), cross=False):
+    """Phases 14-16(d): ``arch`` at its published width and
+    FULL_WIDTH_LAYERS' depth (random weights from a seeded generator on the
+    card) through the launcher's paged path with phase 8's checks, the paged
+    kernel's record at its shapes and, given window ``buckets``, the
+    megastep serve (``megastep_serve``; phase 11's buckets: the launcher's
+    request mix plans the same windows for every architecture, since no
+    stream ends early).  Each decode tick's ms beside the step's weight read
+    (``step_weight_bytes``).  With ``cross``, phase 9's cross-check against
+    a contiguous twin.  An M-RoPE model must rotate every call of the serve
+    by (B, 3, S) streams, split as ``check_mrope_sections`` checks; an MoE
+    model logs its largest prefill dispatch buffer and adds its FFN's device
+    time per decode step (``moe_ffn_step``).  Returns the summary and the
+    record."""
+    from repro_torch.models import attention, moe
+
+    cfg, rotations, dispatches = cut_depth(arch), [], []
+    with contextlib.ExitStack() as stack:
+        if cfg.rope_kind == "mrope":
+            stack.enter_context(recording(
+                attention, "apply_mrope", lambda x, pos, *a: rotations.append(tuple(pos.shape))))
+        if cfg.ffn == "moe":
+            stack.enter_context(recording(
+                moe, "moe_apply", lambda p, x, **kw: dispatches.append(tuple(x.shape))))
+        eng, reqs, summary, snapshot = run_serving(
+            torch, serve_args("--arch", arch, "--kv-mode", "paged"), cfg=cfg)
     summary.update(windows_walked(eng, reqs))
-    if eng.cfg.ffn == "moe":
+    if cfg.rope_kind == "mrope":
+        summary["mrope"] = check_mrope_sections(torch, cfg, rotations)
+    if cfg.ffn == "moe":
+        summary["moe_dispatch"] = dispatch_buffers(cfg, dispatches)
         summary["moe_ffn"] = moe_ffn_step(torch, eng)
+    if cross:
+        summary["cross_check"] = cross_check(torch, eng, reqs)
     record = paged_record(torch, eng, snapshot, summary, err,
-                          path=f"{eng.cfg.name} serving path")
+                          path=f"{cfg.name} serving path")
     if buckets:
         _, summary["megastep"] = megastep_serve(torch, eng, reqs, summary, buckets)
         record["launches_megastep_path"] = summary["megastep"]["launches"]["paged_attn"]
     summary["peak_memory_gb_all"] = torch.cuda.max_memory_allocated() / 1e9
-    log(f"{eng.cfg.name} at full width, {eng.cfg.n_layers} layers: "
+    nbytes = step_weight_bytes(eng)
+    summary["step_weight_bytes"] = nbytes
+    summary["step_bound_ms"] = 1e3 * nbytes / HBM_BW
+    log(f"{cfg.name} at full width, {cfg.n_layers} layers: "
         f"{summary['ms_per_decode_tick']:.3f} ms per decode "
         f"tick, {summary['decode_tokens_per_s']:.1f} decode tokens/s, serve "
         f"{summary['wall_s']:.3f} s wall, decode_launches {summary['decode_launches']}, "
         f"host_syncs {summary['host_syncs']}, peak device memory "
-        f"{summary['peak_memory_gb_all']:.2f} GB; paged_attn {record['ms']:.5f} ms per "
+        f"{summary['init_memory_gb']['peak_gb']:.2f} GB at init, "
+        f"{summary['peak_memory_gb_all']:.2f} GB from the serve on; paged_attn "
+        f"{record['ms']:.5f} ms per "
         f"launch (L2 flushed), {record['ms_in_path']:.5f} in the serving ticks, "
-        f"H {eng.cfg.n_heads} on KVH {eng.cfg.n_kv_heads}, Dh {eng.cfg.head_dim}")
-    log(f"{eng.cfg.name}: windows {summary['windows']} against rows of at most "
+        f"H {cfg.n_heads} on KVH {cfg.n_kv_heads}, Dh {cfg.head_dim}")
+    log(f"{cfg.name}: a decode tick reads {nbytes / 1e9:.2f} GB of weights (the "
+        f"embedding table left out): {summary['step_bound_ms']:.3f} ms at "
+        f"{HBM_BW / 1e12:.2f} TB/s, against {summary['ms_per_decode_tick']:.3f} ms "
+        f"in-flight" + (f" and {summary['megastep']['ms_per_decode_tick']:.3f} ms megastep"
+                        if buckets else ""))
+    log(f"{cfg.name}: windows {summary['windows']} against rows of at most "
         f"{summary['longest_row']} positions: "
         f"{'binding ' + str(summary['binding']) if summary['binding'] else 'no window binds here'}")
     log_record(record)
     return summary, record
+
+
+@contextlib.contextmanager
+def recording(module, name, record):
+    """``module.name`` calls ``record`` with each call's arguments first."""
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        record(*args, **kw)
+        return fn(*args, **kw)
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def step_weight_bytes(eng) -> int:
+    """The bytes of weights one decode step reads: every parameter but the
+    embedding table (a step gathers B of its rows)."""
+    return sum(p.numel() * p.element_size() for p in eng.params.parameters()) - (
+        eng.params["head"]["embed"].numel() * eng.params["head"]["embed"].element_size())
+
+
+def check_mrope_sections(torch, cfg, shapes):
+    """M-RoPE on the card: every ``apply_mrope`` call of the serve
+    (``shapes``: its positions' shapes) rotated by (B, 3, S) streams, and
+    ``apply_mrope`` at the config's Dh with three distinct streams equal to
+    ``apply_rope`` by stream t on the first quarter of the Dh/2 frequency
+    slots, by h on the next three eighths and by w on the last (Qwen2-VL's
+    mrope_section [16, 24, 24] at Dh 128), within 1e-5."""
+    from repro_torch.models.layers import apply_mrope, apply_rope
+
+    if not shapes or any(len(sh) < 2 or sh[-2] != 3 for sh in shapes):
+        raise AssertionError(f"M-RoPE ran on positions other than (B, 3, S) streams: "
+                             f"{sorted(set(shapes))}")
+    dh, half, s = cfg.head_dim, cfg.head_dim // 2, 16
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    x = torch.randn((1, s, 2, dh), generator=gen, device=DEVICE)
+    pos = torch.stack([torch.arange(s), 3 * torch.arange(s) % 11,
+                       300 + 7 * torch.arange(s)])[None].to(DEVICE)
+    got = apply_mrope(x, pos, cfg.rope_theta).reshape(1, s, 2, half, 2)
+    bounds = [0, half // 4, half // 4 + 3 * half // 8, half]
+    err = 0.0
+    for i in range(3):
+        want = apply_rope(x, pos[:, i], cfg.rope_theta).reshape(1, s, 2, half, 2)
+        lo, hi = bounds[i], bounds[i + 1]
+        err = max(err, float((got[..., lo:hi, :] - want[..., lo:hi, :]).abs().max()))
+    if err > 1e-5:
+        raise AssertionError(f"apply_mrope's sections are not {bounds} of {half} slots: "
+                             f"max |err| {err}")
+    out = {"calls": len(shapes), "positions_shapes": sorted(set(shapes))[:4],
+           "sections": [bounds[i + 1] - bounds[i] for i in range(3)], "max_abs_err": err}
+    log(f"{cfg.name}: {len(shapes)} apply_mrope calls in the serve, each on (B, 3, S) "
+        f"streams; at Dh {dh} the {half} frequency slots split {out['sections']} by stream "
+        f"t, h, w (apply_rope per stream within {err:.2e})")
+    return out
+
+
+def dispatch_buffers(cfg, shapes):
+    """The largest dispatch buffer of the serve's ``moe_apply`` calls
+    (``shapes``: their x shapes): (E, B, capacity, D) bf16, capacity as
+    ``moe_apply`` sets it."""
+    b, s, d = max(shapes, key=lambda sh: sh[0] * sh[1])
+    cap = max(4, int(s * cfg.moe_top_k * cfg.capacity_factor / cfg.n_experts))
+    out = {"calls": len(shapes), "x": [b, s, d], "capacity": cap,
+           "bytes": cfg.n_experts * b * cap * d * 2}
+    log(f"{cfg.name}: {len(shapes)} moe_apply calls in the serve; the largest "
+        f"dispatches x {tuple(out['x'])} into ({cfg.n_experts}, {b}, {cap}, {d}) bf16, "
+        f"{out['bytes'] / 1e6:.1f} MB")
+    return out
+
 
 def moe_ffn_step(torch, eng):
     """The MoE FFN's device time per decode step: ``moe_decode`` of every
@@ -2203,8 +2328,7 @@ def moe_ffn_step(torch, eng):
     kernels = profile_kernels(torch, step, 10)
     ms = sum(v[0] for v in kernels.values()) / 10 / 1e3
     expert_bytes = cfg.n_layers * cfg.n_experts * 3 * cfg.d_model * cfg.d_ff * 2
-    step_bytes = (sum(p.numel() for p in eng.params.parameters())
-                  - eng.params["head"]["embed"].numel()) * 2
+    step_bytes = step_weight_bytes(eng)
     out = {"device_ms_per_step": ms, "kernels_per_step": sum(v[1] for v in kernels.values())
            / 10, "expert_bytes": expert_bytes,
            "expert_bound_ms": 1e3 * expert_bytes / HBM_BW,
@@ -2228,9 +2352,15 @@ HYMBA = "hymba-1.5b"
 XLSTM = "xlstm-1.3b"
 WHISPER = "whisper-medium"
 # phases 14-19 keep each model's published width and cut its depth to
-# whole periods of its layer pattern, to hold the script inside its limit
+# whole periods of its layer pattern, to hold the script inside its limit.
+# command-r-35b keeps its whole depth: its 64.8 GB of bf16 weights fit the
+# card's 80 GB with the pool and slot cache, so phase 16(b) serves the
+# published model.  qwen2-vl-72b (145.4 GB whole) and phi3.5-moe-42b-a6.6b
+# (83.7 GB whole) do not fit and run 8 layers; each of the three repeats a
+# period of one layer.
 FULL_WIDTH_LAYERS = {"starcoder2-7b": 8, "gemma3-1b": 6, "olmoe-1b-7b": 4,
-                     HYMBA: 8, XLSTM: 8, WHISPER: 6}
+                     "command-r-35b": 40, "qwen2-vl-72b": 8,
+                     "phi3.5-moe-42b-a6.6b": 8, HYMBA: 8, XLSTM: 8, WHISPER: 6}
 
 
 def cut_depth(arch):
@@ -5342,6 +5472,22 @@ def main() -> int:
                                                 buckets)
     shapes.append(rec)
     release(torch)
+
+    for label, arch, what in (
+            ("16(b)", "command-r-35b", "whole depth; in-flight, megastep and the contiguous "
+                                       "cross-check"),
+            ("16(c)", "qwen2-vl-72b", "M-RoPE; in-flight and megastep"),
+            ("16(d)", "phi3.5-moe-42b-a6.6b", "in-flight and megastep")):
+        phase(f"{label}. {arch} at full width, {FULL_WIDTH_LAYERS[arch]} layers, paged, {what}")
+        serving[arch], rec = run_full_width(torch, arch, errs["paged_attn"], buckets,
+                                            cross=arch == "command-r-35b")
+        shapes.append(rec)
+        release(torch)
+    for arch in ("olmoe-1b-7b", "phi3.5-moe-42b-a6.6b"):
+        m = serving[arch]["moe_ffn"]
+        log(f"{arch}: MoE FFN {m['device_ms_per_step']:.4f} ms per decode step against its "
+            f"{m['expert_bytes'] / 1e9:.2f} GB expert read, {m['expert_bound_ms']:.3f} ms "
+            f"({m['expert_bound_ms'] / m['device_ms_per_step']:.3f} of the memory rate)")
 
     phase(f"17. hymba at smoke width and at full width, {FULL_WIDTH_LAYERS[HYMBA]} layers, "
           "contiguous")

@@ -35,9 +35,9 @@ def moe_init(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int) -> d
     scale_out = (1.0 / d_ff) ** 0.5
     return {
         "router": dense_init(gen, d_model, n_experts, dtype=torch.float32),
-        "w_gate": (_normal(gen, (n_experts, d_model, d_ff)) * scale_in).to(COMPUTE_DTYPE),
-        "w_up": (_normal(gen, (n_experts, d_model, d_ff)) * scale_in).to(COMPUTE_DTYPE),
-        "w_down": (_normal(gen, (n_experts, d_ff, d_model)) * scale_out).to(COMPUTE_DTYPE),
+        "w_gate": _normal(gen, (n_experts, d_model, d_ff)).mul_(scale_in).to(COMPUTE_DTYPE),
+        "w_up": _normal(gen, (n_experts, d_model, d_ff)).mul_(scale_in).to(COMPUTE_DTYPE),
+        "w_down": _normal(gen, (n_experts, d_ff, d_model)).mul_(scale_out).to(COMPUTE_DTYPE),
     }
 
 
